@@ -8,7 +8,8 @@ Drives ``hotstuff_tpu_torch`` at the repo's deployment size — a
 to 1024 — through the verifier backend a node calls, and checks every
 verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
 
-1. prints the card's name and power limit, builds the CUDA kernels;
+1. prints the card's name and power limit, builds the CUDA kernels and
+   prints each kernel's registers, stack frame and shared memory;
 2. ``BatchVerifier(min_device_batch=0)`` on ``cuda``: ``precompute`` of
    the 256 keys, ``warmup(256)``;
 3. the main path, with the launch counts set to 0 just before it and
@@ -20,10 +21,15 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    counted the same way, its points checked to compress to R exactly
    where the oracle accepts;
 5. each kernel against its plain PyTorch version on the card at
-   B = 128, 256, 1024 — integers, so the tolerance is zero;
+   B = 128, 256, 1024 — integers, so the tolerance is zero — and 20
+   back-to-back launches of each kernel at B = 1024, every result equal
+   to the plain one (a missing barrier shows only some of the time);
 6. CUDA-event times of the kernels and the plain versions, host-clock
-   time of the whole 1024-claim ``verify_device`` and its split into the
-   span stages (prepare / dispatch / device.execute / readback);
+   latency of ``verify_shared_msg`` on the 171-vote QC (mean of 20 after
+   warm-up, with the challenge memo cleared before each call, as for a
+   QC first seen, and kept, as for a re-verify), host-clock time of the
+   whole 1024-claim ``verify_device`` and its split into the span stages
+   (prepare / dispatch / device.execute / readback);
 7. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -46,6 +52,8 @@ QUORUM = 2 * ((COMMITTEE - 1) // 3) + 1  # 2f+1 = 171
 WAVE = 1024
 PAD_SIZES = (128, 256, 1024)
 TIMED_LAUNCHES = 10
+REPEATED_LAUNCHES = 20
+QC_CALLS = 20
 
 # Peak rates of one H100 SXM used for the bound (at its 700 W limit):
 # HBM 3.35 TB/s (data sheet); int32 multiply-adds at 64 lanes per SM per
@@ -184,9 +192,11 @@ def main() -> int:
     print(f"kernels built/loaded in {time.perf_counter() - t0:.1f} s: {_build.library_path().name}")
     report = _build.library_path().with_suffix(".ptxas.txt")
     if report.exists():
+        keys = ("Compiling entry", "Function properties", "stack frame", "registers")
         for line in report.read_text().splitlines():
-            if "registers" in line or "stack frame" in line or "Compiling entry" in line:
+            if any(key in line for key in keys):
                 print("ptxas:", line.strip())
+    print(f"dynamic shared memory per block (both kernels): {_build.load().dsm_smem_bytes()} bytes")
 
     claims = make_claims()
 
@@ -267,10 +277,37 @@ def main() -> int:
         ms = cuda_ms(lambda: dsm.verify_compressed(s_win, k_win, a_pt, r_y, r_sign), TIMED_LAUNCHES)
         scan_ms = cuda_ms(lambda: dsm.dual_scalar_mult(s_win, k_win, a_pt), TIMED_LAUNCHES)
         times[size] = (ms, plain_ms, scan_ms, scan_plain_ms)
+        if size == WAVE:
+            oks = [dsm.verify_compressed(s_win, k_win, a_pt, r_y, r_sign)
+                   for _ in range(REPEATED_LAUNCHES)]
+            pts = [dsm.dual_scalar_mult(s_win, k_win, a_pt) for _ in range(REPEATED_LAUNCHES)]
+            torch.cuda.synchronize()
+            want = [F.canonical(box["pt"][c]) for c in range(3)]
+            for i, (ok_i, pt_i) in enumerate(zip(oks, pts)):
+                check(bool((ok_i == box["ok"]).all()), f"verify launch {i} of {REPEATED_LAUNCHES} vs plain")
+                for c in range(3):
+                    check(bool((F.canonical(pt_i[c]) == want[c]).all()),
+                          f"scan launch {i} of {REPEATED_LAUNCHES} vs plain")
+                    check(bool((pt_i[c] == pts[0][c]).all()), f"scan launch {i}: raw limbs vary")
+            print(f"B={size}: {REPEATED_LAUNCHES} back-to-back launches of each kernel equal the plain versions")
         vb, sb = bounds(size)
         print(f"B={size}: verify kernel {ms:.3f} ms (bound {vb[0]:.4f} ms, {vb[1]}), plain "
               f"{plain_ms:.1f} ms; scan kernel {scan_ms:.3f} ms (bound {sb[0]:.4f} ms, {sb[1]}), "
               f"plain {scan_plain_ms:.1f} ms; exact match [{card}]")
+
+    digest, votes, want = claims["qc"]
+    for memo in ("cleared", "kept"):
+        check(v.verify_shared_msg(digest, votes) == want, "QC warm-up")
+        total = 0.0
+        for _ in range(QC_CALLS):
+            if memo == "cleared":
+                v._challenge_memo.clear()
+            t0 = time.perf_counter()
+            ok_qc = v.verify_shared_msg(digest, votes)
+            total += time.perf_counter() - t0
+            check(ok_qc == want, "QC verdict while timing")
+        print(f"verify_shared_msg, {QUORUM}-vote QC (pad 256), challenge memo {memo}: "
+              f"{total / QC_CALLS * 1e3:.3f} ms host clock, mean of {QC_CALLS} [{card}]")
 
     t0 = time.perf_counter()
     reps = 5

@@ -84,6 +84,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dsm_verify_launch.restype = ci
     lib.dsm_scan_launch.argtypes = [vp] * 13 + [ci, ci, vp]
     lib.dsm_scan_launch.restype = ci
+    lib.dsm_smem_bytes.argtypes = []
+    lib.dsm_smem_bytes.restype = ci
     lib.dsm_error_string.argtypes = [ci]
     lib.dsm_error_string.restype = ctypes.c_char_p
     return lib

@@ -7,25 +7,32 @@
 //   dsm_scan_kernel    replaces pallas_dsm.dual_scalar_mult (_dsm_kernel):
 //                      the same scan, writing X, Y, Z (T = 0).
 //
-// Design: one signature per thread, the accumulator and temporaries in
-// registers / local memory, the lane's 16-entry [m]A table (16 x 4 x 20
-// int32 = 5 KB) in local memory, the 80 KB base table read from global
-// memory through __ldg (lanes pick rows divergently, so __constant__
-// would serialize).  The field math is ed25519_field.cuh, shared with
-// the host build the CPU tests run.
-//
 // Bound on an H100: operations.  A verify is 2955 field multiplies, 1278
-// of them squarings: at least ~0.94M int32 multiply-adds per signature
-// (400 per product, 210 per square; these kernels square by the general
-// product); the bytes moved are ~1.3 KB per signature.  Known limit of this design: at the
-// production batch of 1024 one thread per signature fills only 32 warps
-// on 132 SMs, so the kernel is latency-bound far from that bound.
-// Splitting a signature across threads is the next step.
+// of them squarings: 939,180 int32 multiply-adds per signature (400 per
+// product, 210 per square), against ~1.3 KB of operands.  But a
+// signature's work is one chain of dependent point operations, so what
+// the card can use is the parallelism inside one signature: at the
+// production batch of 1024, one thread per signature fills only 32 warps
+// of 132 SMs, and the time is one thread's instruction stream.
+//
+// Design: a team of four threads per signature (ed25519_field.cuh).  The
+// point formulas are Hisil-Wong-Carter-Dawson's four-processor waves, as
+// the Pallas kernel batches them; role r computes the r-th product of
+// each wave, which cuts the scan's critical path from 2688 multiplies to
+// ~740 wave steps.  One warp per block (8 signatures) spreads the teams
+// over the SMs; the whole warp runs one schedule, with __syncwarp()
+// between steps.  Each team's accumulator, [0..15]A table and exchange
+// slots live in dynamic shared memory (~8 KB a team, ~63 KB a block, so
+// above the 48 KB static limit), in 16-byte-aligned slots of 24 limbs
+// read as int4.  The 80 KB base table stays in global memory (read
+// through __ldg, one coordinate per role).  The epilogue's inversion runs
+// on role 0.  The CPU tests run the same schedule on the host with each
+// step's roles forward and in reverse, which catches a missing barrier.
 //
 // Each launcher takes every pointer and the stream as void*, launches on
 // that stream with the tensors' device current (the caller's device is
 // current again on return), does not synchronise, and returns
-// cudaGetLastError().
+// cudaGetLastError().  The batch must be a multiple of 8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,42 +41,66 @@
 
 namespace {
 
-constexpr int kThreads = 32;  // one warp per block spreads lanes over SMs
-
 using ed25519::Consts;
 using ed25519::LaneIn;
 using ed25519::NL;
-using ed25519::Pt;
+using ed25519::ROLES;
+using ed25519::Team;
+
+constexpr int kThreads = 32;                // one warp per block
+constexpr int kTeams = kThreads / ROLES;    // signatures per block
+constexpr int kSmemBytes = sizeof(Consts) + kTeams * sizeof(Team);
+constexpr int kMaxDevices = 64;
+
+// Runs a step: each thread its own role, then the warp's barrier.
+struct WarpStep {
+  int role;
+  template <class F>
+  __host__ __device__ void operator()(F&& f) const {
+    f(role);
+#if defined(__CUDA_ARCH__)
+    __syncwarp();
+#endif
+  }
+};
+
+// This block's constants and this thread's team, in dynamic shared memory.
+__device__ Team& block_team(const int32_t* d2, const int32_t* subpad,
+                            Consts*& k) {
+  extern __shared__ int4 smem[];
+  k = reinterpret_cast<Consts*>(smem);
+  for (int l = threadIdx.x; l < NL; l += blockDim.x) {
+    k->d2[l] = d2[l];
+    k->subpad[l] = subpad[l];
+  }
+  __syncthreads();
+  Team* teams = reinterpret_cast<Team*>(smem + sizeof(Consts) / sizeof(int4));
+  return teams[threadIdx.x / ROLES];
+}
 
 __global__ void __launch_bounds__(kThreads)
     dsm_verify_kernel(const int32_t* btab, const int32_t* d2,
                       const int32_t* subpad, LaneIn in, const int32_t* r_y,
                       const int32_t* r_sign, int32_t* ok, int batch) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
-  const Consts k = ed25519::make_consts(btab, d2, subpad);
-  Pt entries[16];
-  Pt acc;
-  ed25519::dsm_scan_lane(acc, entries, in, lane, batch, k);
-  ok[lane] = ed25519::compressed_equals_lane(acc, r_y + lane * NL, r_sign[lane]);
+  Consts* k;
+  Team& t = block_team(d2, subpad, k);
+  const int sig = (blockIdx.x * blockDim.x + threadIdx.x) / ROLES;
+  const WarpStep step{static_cast<int>(threadIdx.x % ROLES)};
+  ed25519::team_scan(step, t, *k, btab, in, sig, batch);
+  ed25519::team_compressed_equals(step, t, r_y + sig * NL, r_sign + sig,
+                                  ok + sig);
 }
 
 __global__ void __launch_bounds__(kThreads)
     dsm_scan_kernel(const int32_t* btab, const int32_t* d2,
                     const int32_t* subpad, LaneIn in, int32_t* ox, int32_t* oy,
                     int32_t* oz, int32_t* ot, int batch) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
-  const Consts k = ed25519::make_consts(btab, d2, subpad);
-  Pt entries[16];
-  Pt acc;
-  ed25519::dsm_scan_lane(acc, entries, in, lane, batch, k);
-  for (int l = 0; l < NL; ++l) {
-    ox[lane * NL + l] = acc.x[l];
-    oy[lane * NL + l] = acc.y[l];
-    oz[lane * NL + l] = acc.z[l];
-    ot[lane * NL + l] = acc.t[l];
-  }
+  Consts* k;
+  Team& t = block_team(d2, subpad, k);
+  const int sig = (blockIdx.x * blockDim.x + threadIdx.x) / ROLES;
+  const WarpStep step{static_cast<int>(threadIdx.x % ROLES)};
+  ed25519::team_scan(step, t, *k, btab, in, sig, batch);
+  ed25519::team_store(step, t, ox, oy, oz, ot, sig);
 }
 
 LaneIn lane_in(void* ax, void* ay, void* az, void* at, void* s_win,
@@ -84,11 +115,23 @@ LaneIn lane_in(void* ax, void* ay, void* az, void* at, void* s_win,
   return in;
 }
 
-int blocks_for(int batch) { return (batch + kThreads - 1) / kThreads; }
+int blocks_for(int batch) { return batch * ROLES / kThreads; }
+
+// Lets `kernel` take kSmemBytes of dynamic shared memory on the current
+// device: once per device, remembered in `done`.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int device, bool (&done)[kMaxDevices]) {
+  const bool known = device >= 0 && device < kMaxDevices;
+  if (known && done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err == cudaSuccess && known) done[device] = true;
+  return err;
+}
 
 // Runs `launch` with `device` current and then makes the caller's device
 // current again, so a launcher never changes the calling thread's device.
-// Returns the launch's cudaGetLastError().
+// Returns `launch`'s error, else the restore's.
 template <typename Launch>
 int on_device(int device, Launch launch) {
   int prev = 0;
@@ -98,8 +141,7 @@ int on_device(int device, Launch launch) {
     err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  launch();
-  err = cudaGetLastError();
+  err = launch();
   if (prev != device) {
     const cudaError_t back = cudaSetDevice(prev);
     if (err == cudaSuccess) err = back;
@@ -114,13 +156,18 @@ extern "C" int dsm_verify_launch(void* btab, void* d2, void* subpad, void* ax,
                                  void* k_win, void* r_y, void* r_sign,
                                  void* ok, int batch, int device,
                                  void* stream) {
+  if (batch <= 0 || batch % kTeams) return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set[kMaxDevices];
   return on_device(device, [&] {
-    dsm_verify_kernel<<<blocks_for(batch), kThreads, 0,
+    const cudaError_t err = allow_smem(dsm_verify_kernel, device, smem_set);
+    if (err != cudaSuccess) return err;
+    dsm_verify_kernel<<<blocks_for(batch), kThreads, kSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(btab), static_cast<const int32_t*>(d2),
         static_cast<const int32_t*>(subpad),
         lane_in(ax, ay, az, at, s_win, k_win), static_cast<const int32_t*>(r_y),
         static_cast<const int32_t*>(r_sign), static_cast<int32_t*>(ok), batch);
+    return cudaGetLastError();
   });
 }
 
@@ -129,16 +176,24 @@ extern "C" int dsm_scan_launch(void* btab, void* d2, void* subpad, void* ax,
                                void* k_win, void* ox, void* oy, void* oz,
                                void* ot, int batch, int device,
                                void* stream) {
+  if (batch <= 0 || batch % kTeams) return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set[kMaxDevices];
   return on_device(device, [&] {
-    dsm_scan_kernel<<<blocks_for(batch), kThreads, 0,
+    const cudaError_t err = allow_smem(dsm_scan_kernel, device, smem_set);
+    if (err != cudaSuccess) return err;
+    dsm_scan_kernel<<<blocks_for(batch), kThreads, kSmemBytes,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(btab), static_cast<const int32_t*>(d2),
         static_cast<const int32_t*>(subpad),
         lane_in(ax, ay, az, at, s_win, k_win), static_cast<int32_t*>(ox),
         static_cast<int32_t*>(oy), static_cast<int32_t*>(oz),
         static_cast<int32_t*>(ot), batch);
+    return cudaGetLastError();
   });
 }
+
+// Dynamic shared memory of one block of either kernel, in bytes.
+extern "C" int dsm_smem_bytes() { return kSmemBytes; }
 
 extern "C" const char* dsm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,17 +1,21 @@
-// GF(2^255-19) field, Edwards25519 point formulas and the per-lane
-// Straus scan + compressed-equality epilogue of the fused verifier.
+// GF(2^255-19) field, Edwards25519 point formulas and the team schedule
+// of the fused verifier: the Straus scan and the compressed-equality
+// epilogue, one signature on a team of four threads.
 //
-// One lane = one signature.  Everything here is __host__ __device__ so
-// the same code is the body of the CUDA kernels (dsm_kernels.cu) and of
-// a host build (host_lanes.cpp, compiled with g++ by the CPU tests).
+// Everything here is __host__ __device__, so the same code is the body of
+// the CUDA kernels (dsm_kernels.cu) and of a host build (host_lanes.cpp,
+// compiled with g++ by the CPU tests).
 //
 // The arithmetic is the JAX package's, limb for limb
 // (hotstuff_tpu/tpu/pallas_dsm.py, _dsm_scan / _compressed_equals_t):
 //   * 20 little-endian limbs of 13 bits in int32_t;
-//   * products: 400 int32 multiply-adds into 39 column sums (products
+//   * products: int32 multiply-adds into 39 column sums (products
 //     < 2^26.3, column sums < 2^30.6), fold of columns 20..38 by 608,
 //     then FOUR parallel carry passes; add / sub / doubling: TWO passes
 //     (bounds in hotstuff_tpu/tpu/field.py, carry());
+//   * squares by 210 products (cross terms once, doubled): limbs are
+//     non-negative, so every partial column sum stays below the final one
+//     and each column is the same integer as in the 400-product form;
 //   * sub(a, b) = a + (SUB_PAD - b), SUB_PAD = 8p split to dominate any
 //     loose-normalized limb;
 //   * table points carry T pre-multiplied by 2d, so the c-term of an
@@ -19,6 +23,19 @@
 //     later step reads it.
 // Signed arithmetic matters: canonical() relies on >> of negative int32
 // being an arithmetic shift (borrow chains), so limbs stay int32_t.
+//
+// The team schedule.  The Pallas kernel runs each point formula as waves
+// of four independent products (_mul_wave_t): the four-processor formulas
+// of Hisil, Wong, Carter and Dawson.  Here role r of a team (thread 4s + r
+// for signature s) computes the r-th product of each wave and the r-th
+// linear term between waves.  A team's state (accumulator, [0..15]A
+// table, exchange slots) is a Team in shared memory.  A step is a
+// function of the role; the caller's Step object runs the four roles of
+// a step before the next one starts: on the device each thread runs its
+// own role and then __syncwarp(), on the host the roles run one after
+// another in a chosen order.  Within a step no role reads a slot that
+// another role writes in that step, so every order gives the same limbs;
+// the CPU tests run the roles forward and in reverse to check that.
 #pragma once
 
 #include <stdint.h>
@@ -39,8 +56,9 @@
 
 namespace ed25519 {
 
-constexpr int NL = 20;          // limbs per field element
+constexpr int NL = 20;             // limbs per field element
 constexpr int NCOLS = 2 * NL - 1;  // schoolbook product columns
+constexpr int FE = 24;             // slot stride in the team state: 96 B
 constexpr int LIMB_BITS = 13;
 constexpr int32_t MASK = (1 << LIMB_BITS) - 1;
 constexpr int32_t FOLD = 19 * 32;  // 2^260 = 608 (mod p)
@@ -48,35 +66,93 @@ constexpr int TOP_SHIFT = 8;       // bit 255 sits at bit 8 of limb 19
 constexpr int32_t TOP_MASK = (1 << TOP_SHIFT) - 1;
 constexpr int32_t TOP_FOLD = 19;   // 2^255 = 19 (mod p)
 constexpr int NSTEPS = 32;         // macro steps of the scan (8 bits each)
-constexpr int NWIN = 64;           // 4-bit windows per scalar
+constexpr int ROLES = 4;           // threads per signature
+constexpr int NTAB = 16;           // [0..15]A
 
-// p in limbs, for the final conditional subtractions of canonical().
-struct PLimbs {
-  int32_t v[NL];
-};
-
-struct Consts {
-  const int32_t* btab;  // [256][4][NL] multiples of B, T pre-multiplied by 2d
-  int32_t d2[NL];       // curve constant 2d
-  int32_t subpad[NL];   // 8p, borrow-adjusted
-};
-
+// A point in the team state: X, Y, Z, T, one 16-byte-aligned slot each.
 struct Pt {
-  int32_t x[NL], y[NL], z[NL], t[NL];
+  int32_t c[4][FE];
 };
 
-ED_HD inline Consts make_consts(const int32_t* btab, const int32_t* d2,
-                                const int32_t* subpad) {
-  Consts k;
-  k.btab = btab;
-  for (int l = 0; l < NL; ++l) {
-    k.d2[l] = d2[l];
-    k.subpad[l] = subpad[l];
+// Per block: the curve constant 2d and SUB_PAD.
+struct Consts {
+  int32_t d2[FE];
+  int32_t subpad[FE];
+};
+
+// One signature's state.  lin holds the linear terms between waves, prod
+// the products of a wave's first half; q holds A with T*2d while the
+// table is built, then each macro step's base-table row.
+struct Team {
+  Pt acc;
+  Pt tab[NTAB];
+  Pt q;
+  int32_t lin[6][FE];
+  int32_t prod[ROLES][FE];
+  int32_t win[NSTEPS];  // s byte | k high nibble << 8 | k low nibble << 12
+  int32_t pad[4];
+};
+// An odd number of 16-byte units: the int4 loads of neighbouring teams
+// fall on other banks.
+static_assert(sizeof(Team) % 32 == 16, "Team must be an odd multiple of 16 B");
+static_assert(sizeof(Consts) % 16 == 0, "Consts must keep Team 16-byte aligned");
+
+// A signature's inputs: A = (ax..at)[sig] (batch-major [B][NL]), windows
+// s_win / k_win limb-major [64][B], MSB first.
+struct LaneIn {
+  const int32_t* ax;
+  const int32_t* ay;
+  const int32_t* az;
+  const int32_t* at;
+  const int32_t* s_win;
+  const int32_t* k_win;
+};
+
+// ---- field: operands are slots (16-byte aligned, NL limbs used) -----------
+
+ED_HD inline void fe_load(int32_t r[NL], const int32_t* p) {
+#if defined(__CUDA_ARCH__)
+  const int4* v = reinterpret_cast<const int4*>(p);
+#pragma unroll
+  for (int i = 0; i < NL / 4; ++i) {
+    const int4 w = v[i];
+    r[4 * i] = w.x;
+    r[4 * i + 1] = w.y;
+    r[4 * i + 2] = w.z;
+    r[4 * i + 3] = w.w;
   }
-  return k;
+#else
+  for (int i = 0; i < NL; ++i) r[i] = p[i];
+#endif
 }
 
-// ---- field -----------------------------------------------------------------
+ED_HD inline void fe_store(int32_t* p, const int32_t r[NL]) {
+#if defined(__CUDA_ARCH__)
+  int4* v = reinterpret_cast<int4*>(p);
+#pragma unroll
+  for (int i = 0; i < NL / 4; ++i) {
+    v[i] = make_int4(r[4 * i], r[4 * i + 1], r[4 * i + 2], r[4 * i + 3]);
+  }
+#else
+  for (int i = 0; i < NL; ++i) p[i] = r[i];
+#endif
+}
+
+// A field element from global memory (any alignment) into a slot.
+ED_HD inline void fe_fetch(int32_t* out, const int32_t* src) {
+  int32_t r[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r[i] = ED_LDG(src + i);
+  fe_store(out, r);
+}
+
+ED_HD inline void fe_set_small(int32_t* out, int32_t v) {
+  int32_t r[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r[i] = 0;
+  r[0] = v;
+  fe_store(out, r);
+}
 
 // One parallel carry pass: every limb emits its carry from its value
 // before the pass; limb 19 keeps 8 bits and sends the rest x19 to limb 0.
@@ -93,19 +169,27 @@ ED_HD inline void carry_pass(int32_t z[NL]) {
   z[0] += ctop;
 }
 
-ED_HD inline void carry(int32_t z[NL], int passes) {
-  for (int p = 0; p < passes; ++p) carry_pass(z);
+// Column sums -> limbs: fold column 20+j (weight 608 * 2^13j), low 13
+// bits to limb j and the rest to limb j+1 so every term stays within
+// int32, then four carry passes.
+ED_HD inline void fe_reduce(int32_t z[NL], const int32_t col[NCOLS]) {
+#pragma unroll
+  for (int j = 0; j < NL; ++j) z[j] = col[j];
+#pragma unroll
+  for (int j = 0; j < NL - 1; ++j) {
+    z[j] += (col[NL + j] & MASK) * FOLD;
+    z[j + 1] += (col[NL + j] >> LIMB_BITS) * FOLD;
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) carry_pass(z);
 }
 
 // out = a * b (out may alias a or b).
-ED_HD ED_NOINLINE void fe_mul(int32_t out[NL], const int32_t a[NL],
-                              const int32_t b[NL]) {
-  int32_t ra[NL], rb[NL], col[NCOLS];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    ra[i] = a[i];
-    rb[i] = b[i];
-  }
+ED_HD ED_NOINLINE void fe_mul(int32_t* out, const int32_t* a,
+                              const int32_t* b) {
+  int32_t ra[NL], rb[NL], col[NCOLS], z[NL];
+  fe_load(ra, a);
+  fe_load(rb, b);
 #pragma unroll
   for (int c = 0; c < NCOLS; ++c) col[c] = 0;
 #pragma unroll
@@ -113,103 +197,96 @@ ED_HD ED_NOINLINE void fe_mul(int32_t out[NL], const int32_t a[NL],
 #pragma unroll
     for (int j = 0; j < NL; ++j) col[i + j] += ra[i] * rb[j];
   }
-  int32_t z[NL];
+  fe_reduce(z, col);
+  fe_store(out, z);
+}
+
+// out = a^2 by 210 products, limb for limb fe_mul(out, a, a) (out may
+// alias a).
+ED_HD ED_NOINLINE void fe_sqr(int32_t* out, const int32_t* a) {
+  int32_t ra[NL], r2[NL], col[NCOLS], z[NL];
+  fe_load(ra, a);
 #pragma unroll
-  for (int j = 0; j < NL; ++j) z[j] = col[j];
-  // fold column 20+j (weight 608 * 2^13j): low 13 bits to limb j,
-  // the rest to limb j+1, so every term stays within int32
+  for (int i = 0; i < NL; ++i) r2[i] = 2 * ra[i];
 #pragma unroll
-  for (int j = 0; j < NL - 1; ++j) {
-    z[j] += (col[NL + j] & MASK) * FOLD;
-    z[j + 1] += (col[NL + j] >> LIMB_BITS) * FOLD;
+  for (int c = 0; c < NCOLS; ++c) col[c] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    col[2 * i] += ra[i] * ra[i];
+#pragma unroll
+    for (int j = i + 1; j < NL; ++j) col[i + j] += r2[i] * ra[j];
   }
-  carry(z, 4);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) out[i] = z[i];
+  fe_reduce(z, col);
+  fe_store(out, z);
 }
 
-ED_HD inline void fe_add(int32_t out[NL], const int32_t a[NL],
-                         const int32_t b[NL]) {
-  int32_t z[NL];
+// out = x + y (sub = 0) or x + (subpad - y) (sub = 1), then two carry
+// passes: the add and sub of the point formulas, and the doubling as
+// x + x.  `sub` differs between the threads of a warp, so it selects by
+// arithmetic, not by a branch; either way the sum is the same integer.
+ED_HD ED_NOINLINE void fe_lin(int32_t* out, const int32_t* x,
+                              const int32_t* y, const int32_t* subpad,
+                              int sub) {
+  int32_t rx[NL], ry[NL], rp[NL], z[NL];
+  fe_load(rx, x);
+  fe_load(ry, y);
+  fe_load(rp, subpad);
+  const int32_t m = -sub;  // 0 or all ones
 #pragma unroll
-  for (int i = 0; i < NL; ++i) z[i] = a[i] + b[i];
-  carry(z, 2);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) out[i] = z[i];
+  for (int i = 0; i < NL; ++i) z[i] = rx[i] + ((rp[i] & m) + ((ry[i] ^ m) - m));
+  carry_pass(z);
+  carry_pass(z);
+  fe_store(out, z);
 }
 
-// out = a - b + 8p, non-negative limb-wise before the carry passes
-ED_HD inline void fe_sub(int32_t out[NL], const int32_t a[NL],
-                         const int32_t b[NL], const int32_t subpad[NL]) {
-  int32_t z[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) z[i] = a[i] + (subpad[i] - b[i]);
-  carry(z, 2);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) out[i] = z[i];
+// out = a^(2^n), n >= 1 (out may alias a).
+ED_HD inline void fe_sqr_n(int32_t* out, const int32_t* a, int n) {
+  fe_sqr(out, a);
+  for (int i = 1; i < n; ++i) fe_sqr(out, out);
 }
 
-ED_HD inline void fe_dbl(int32_t out[NL], const int32_t a[NL]) {
-  int32_t z[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) z[i] = a[i] * 2;
-  carry(z, 2);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) out[i] = z[i];
-}
-
-ED_HD inline void fe_copy(int32_t out[NL], const int32_t a[NL]) {
-  for (int i = 0; i < NL; ++i) out[i] = a[i];
-}
-
-ED_HD inline void fe_set_small(int32_t out[NL], int32_t v) {
-  for (int i = 0; i < NL; ++i) out[i] = 0;
-  out[0] = v;
-}
-
-// x <- x^(2^n)
-ED_HD inline void fe_sqr_n(int32_t x[NL], int n) {
-  for (int i = 0; i < n; ++i) fe_mul(x, x, x);
-}
-
-// out = a^(p-2) = a^-1, the standard curve25519 addition chain; the
-// squaring runs stay loops (265 multiplies in all).
-ED_HD ED_NOINLINE void fe_pow_inv(int32_t out[NL], const int32_t a[NL]) {
-  int32_t z2[NL], z9[NL], z11[NL], z5[NL], z10[NL], z20[NL], z50[NL],
-      z100[NL], t[NL];
-  fe_mul(z2, a, a);
-  fe_copy(t, z2);
-  fe_sqr_n(t, 2);
+// out = a^(p-2) = a^-1 by the standard curve25519 addition chain: 265
+// multiplies, 254 of them squarings.  `s` is scratch of 9 slots (stride
+// FE); out may alias a.
+ED_HD ED_NOINLINE void fe_pow_inv(int32_t* out, const int32_t* a,
+                                  int32_t* s) {
+  int32_t* z2 = s;
+  int32_t* z9 = s + FE;
+  int32_t* z11 = s + 2 * FE;
+  int32_t* z5 = s + 3 * FE;
+  int32_t* z10 = s + 4 * FE;
+  int32_t* z20 = s + 5 * FE;
+  int32_t* z50 = s + 6 * FE;
+  int32_t* z100 = s + 7 * FE;
+  int32_t* t = s + 8 * FE;
+  fe_sqr(z2, a);
+  fe_sqr_n(t, z2, 2);
   fe_mul(z9, t, a);
   fe_mul(z11, z9, z2);
-  fe_mul(t, z11, z11);
+  fe_sqr(t, z11);
   fe_mul(z5, t, z9);  // 2^5 - 1
-  fe_copy(t, z5);
-  fe_sqr_n(t, 5);
+  fe_sqr_n(t, z5, 5);
   fe_mul(z10, t, z5);  // 2^10 - 1
-  fe_copy(t, z10);
-  fe_sqr_n(t, 10);
+  fe_sqr_n(t, z10, 10);
   fe_mul(z20, t, z10);  // 2^20 - 1
-  fe_copy(t, z20);
-  fe_sqr_n(t, 20);
+  fe_sqr_n(t, z20, 20);
   fe_mul(t, t, z20);  // 2^40 - 1
-  fe_sqr_n(t, 10);
+  fe_sqr_n(t, t, 10);
   fe_mul(z50, t, z10);  // 2^50 - 1
-  fe_copy(t, z50);
-  fe_sqr_n(t, 50);
+  fe_sqr_n(t, z50, 50);
   fe_mul(z100, t, z50);  // 2^100 - 1
-  fe_copy(t, z100);
-  fe_sqr_n(t, 100);
+  fe_sqr_n(t, z100, 100);
   fe_mul(t, t, z100);  // 2^200 - 1
-  fe_sqr_n(t, 50);
+  fe_sqr_n(t, t, 50);
   fe_mul(t, t, z50);  // 2^250 - 1
-  fe_sqr_n(t, 5);
+  fe_sqr_n(t, t, 5);
   fe_mul(out, t, z11);  // 2^255 - 21
 }
 
 // One sequential signed carry pass (arithmetic shift floors borrows).
 ED_HD inline void fe_chain(int32_t z[NL]) {
   int32_t c = 0;
+#pragma unroll
   for (int i = 0; i < NL; ++i) {
     const int32_t x = z[i] + c;
     c = x >> LIMB_BITS;
@@ -218,171 +295,202 @@ ED_HD inline void fe_chain(int32_t z[NL]) {
 }
 
 // Loose normalized -> the unique value in [0, p), in place.
-ED_HD ED_NOINLINE void fe_canonical(int32_t z[NL], const int32_t p[NL]) {
+ED_HD ED_NOINLINE void fe_canonical(int32_t* slot) {
+  int32_t z[NL], p[NL];
+  fe_load(z, slot);
+  // p = 2^255 - 19: limb 0 = 2^13 - 19, limbs 1..18 = 2^13 - 1, limb 19 = 2^8 - 1
+  p[0] = MASK - 18;
+#pragma unroll
+  for (int i = 1; i < NL - 1; ++i) p[i] = MASK;
+  p[NL - 1] = TOP_MASK;
   fe_chain(z);
+#pragma unroll
   for (int r = 0; r < 2; ++r) {  // peel bit 255 (at most twice)
     const int32_t top = z[NL - 1] >> TOP_SHIFT;
     z[0] += top * TOP_FOLD;
     z[NL - 1] -= top << TOP_SHIFT;
     fe_chain(z);
   }
+#pragma unroll
   for (int r = 0; r < 2; ++r) {
     int32_t d[NL];
     int32_t borrow = 0;
+#pragma unroll
     for (int i = 0; i < NL; ++i) {
       const int32_t x = z[i] - p[i] + borrow;
       borrow = x >> LIMB_BITS;
       d[i] = x & MASK;
     }
-    if (borrow >= 0) {  // no final borrow -> value >= p, keep value - p
-      for (int i = 0; i < NL; ++i) z[i] = d[i];
+    // no final borrow -> value >= p, keep value - p
+#pragma unroll
+    for (int i = 0; i < NL; ++i) z[i] = borrow >= 0 ? d[i] : z[i];
+  }
+  fe_store(slot, z);
+}
+
+// ---- team steps ------------------------------------------------------------
+
+template <class V>
+ED_HD inline V pick(int r, V v0, V v1, V v2, V v3) {
+  return r == 0 ? v0 : r == 1 ? v1 : r == 2 ? v2 : v3;
+}
+
+// The second wave of both point formulas, from e, f, g, h in lin[0..3]:
+// X = e f, Y = g h, Z = f g and, where need_t, T = e h (else T = 0).
+// out may alias the formula's input point: no role reads it here.
+template <class Step>
+ED_HD void team_wave2(const Step& step, Team& t, Pt& out, bool need_t) {
+  step([&](int r) {
+    if (r == 3 && !need_t) {
+      fe_set_small(out.c[3], 0);
+    } else {
+      fe_mul(out.c[r], t.lin[pick(r, 0, 2, 1, 0)], t.lin[pick(r, 1, 3, 2, 3)]);
     }
+  });
+}
+
+// out = p + q by add-2008-hwcd-3 (pallas_dsm._point_add_t): p with a plain
+// T, q with T*2d.  out may alias p; q is never out.
+template <class Step>
+ED_HD void team_add(const Step& step, Team& t, const Consts& k, Pt& out,
+                    const Pt& p, const Pt& q, bool need_t) {
+  // Y1 - X1, Y1 + X1, Y2 - X2, Y2 + X2
+  step([&](int r) {
+    const Pt& s = r < 2 ? p : q;
+    fe_lin(t.lin[r], s.c[1], s.c[0], k.subpad, (r & 1) ^ 1);
+  });
+  // a = (Y1-X1)(Y2-X2), b = (Y1+X1)(Y2+X2), c = T1 T2d, zz = Z1 Z2
+  step([&](int r) {
+    fe_mul(t.prod[r], r < 2 ? t.lin[r] : p.c[5 - r],
+           r < 2 ? t.lin[r + 2] : q.c[5 - r]);
+  });
+  // e = b - a, h = b + a, d = 2 zz; role 3 idles
+  step([&](int r) {
+    if (r < 3) {
+      fe_lin(t.lin[pick(r, 0, 3, 4, 0)], t.prod[r < 2 ? 1 : 3],
+             t.prod[r < 2 ? 0 : 3], k.subpad, r == 0);
+    }
+  });
+  // f = d - c, g = d + c; roles 2 and 3 idle
+  step([&](int r) {
+    if (r < 2) fe_lin(t.lin[r + 1], t.lin[4], t.prod[2], k.subpad, r == 0);
+  });
+  team_wave2(step, t, out, need_t);
+}
+
+// acc = 2 acc by dbl-2008-hwcd (pallas_dsm._point_double_t; the input T
+// is not read).  With `row` set, the first step also copies that
+// base-table row into q, one coordinate per role.
+template <class Step>
+ED_HD void team_double(const Step& step, Team& t, const Consts& k,
+                       bool need_t, const int32_t* row) {
+  Pt& p = t.acc;
+  // a = X^2, b = Y^2, zz = Z^2, xy2 = (X + Y)^2
+  step([&](int r) {
+    if (row != nullptr) fe_fetch(t.q.c[r], row + r * NL);
+    if (r == 3) fe_lin(t.lin[5], p.c[0], p.c[1], k.subpad, 0);
+    fe_sqr(t.prod[r], r == 3 ? t.lin[5] : p.c[r]);
+  });
+  // h = a + b, g = a - b, c = 2 zz; role 3 idles
+  step([&](int r) {
+    if (r < 3) {
+      fe_lin(t.lin[pick(r, 3, 2, 4, 0)], t.prod[r < 2 ? 0 : 2],
+             t.prod[r < 2 ? 1 : 2], k.subpad, r == 1);
+    }
+  });
+  // e = h - xy2, f = c + g; roles 2 and 3 idle
+  step([&](int r) {
+    if (r < 2) {
+      fe_lin(t.lin[r], t.lin[r == 0 ? 3 : 4], r == 0 ? t.prod[3] : t.lin[2],
+             k.subpad, r == 0);
+    }
+  });
+  team_wave2(step, t, p, need_t);
+}
+
+// acc = [s]B + [k]A for signature `sig` (pallas_dsm._dsm_scan); T of the
+// result is zero.  btab: [256][4][NL] multiples of B with T*2d.
+template <class Step>
+ED_HD void team_scan(const Step& step, Team& t, const Consts& k,
+                     const int32_t* btab, const LaneIn& in, int sig,
+                     int batch) {
+  // A into tab[1] (plain T) and q (T*2d, the chain's second operand), the
+  // identity into tab[0] and acc, the window codes of every macro step
+  step([&](int r) {
+    const int32_t* src = pick(r, in.ax, in.ay, in.az, in.at) + sig * NL;
+    fe_fetch(t.tab[1].c[r], src);
+    if (r < 3) {
+      fe_fetch(t.q.c[r], src);
+    } else {
+      fe_mul(t.q.c[3], t.tab[1].c[3], k.d2);
+    }
+    fe_set_small(t.tab[0].c[r], r == 1 || r == 2);
+    fe_set_small(t.acc.c[r], r == 1 || r == 2);
+    for (int i = r; i < NSTEPS; i += ROLES) {
+      const int32_t s_hi = ED_LDG(in.s_win + (2 * i) * batch + sig);
+      const int32_t s_lo = ED_LDG(in.s_win + (2 * i + 1) * batch + sig);
+      const int32_t wh = ED_LDG(in.k_win + (2 * i) * batch + sig) & 15;
+      const int32_t wl = ED_LDG(in.k_win + (2 * i + 1) * batch + sig) & 15;
+      t.win[i] = ((s_hi * 16 + s_lo) & 255) | wh << 8 | wl << 12;
+    }
+  });
+  // [m]A = [m-1]A + A, plain T on the p side
+  for (int m = 2; m < NTAB; ++m) team_add(step, t, k, t.tab[m], t.tab[m - 1], t.q, true);
+  // then every entry's T becomes T*2d, four entries a step: entries are
+  // only ever the q operand of team_add (identity's T*2d is 0)
+  for (int m0 = 1; m0 < NTAB; m0 += ROLES) {
+    step([&](int r) {
+      if (m0 + r < NTAB) fe_mul(t.tab[m0 + r].c[3], t.tab[m0 + r].c[3], k.d2);
+    });
   }
-}
-
-ED_HD inline void p_limbs(int32_t p[NL]) {
-  // p = 2^255 - 19: limb 0 = 2^13 - 19, limbs 1..18 = 2^13 - 1, limb 19 = 2^8 - 1
-  p[0] = MASK - 18;
-  for (int i = 1; i < NL - 1; ++i) p[i] = MASK;
-  p[NL - 1] = TOP_MASK;
-}
-
-// ---- points ----------------------------------------------------------------
-
-ED_HD inline void pt_identity(Pt& p) {
-  fe_set_small(p.x, 0);
-  fe_set_small(p.y, 1);
-  fe_set_small(p.z, 1);
-  fe_set_small(p.t, 0);
-}
-
-// Unified addition add-2008-hwcd-3: p has a plain T, q has T*2d.
-// out may alias p; every read of p and q precedes the first write.
-ED_HD ED_NOINLINE void pt_add(Pt& out, const Pt& p, const Pt& q, bool need_t,
-                              const Consts& k) {
-  int32_t dm1[NL], sm1[NL], dm2[NL], sm2[NL];
-  fe_sub(dm1, p.y, p.x, k.subpad);
-  fe_add(sm1, p.y, p.x);
-  fe_sub(dm2, q.y, q.x, k.subpad);
-  fe_add(sm2, q.y, q.x);
-  int32_t a[NL], b[NL], c[NL], zz[NL];
-  fe_mul(a, dm1, dm2);
-  fe_mul(b, sm1, sm2);
-  fe_mul(c, p.t, q.t);
-  fe_mul(zz, p.z, q.z);
-  int32_t d[NL], e[NL], f[NL], g[NL], h[NL];
-  fe_dbl(d, zz);
-  fe_sub(e, b, a, k.subpad);
-  fe_sub(f, d, c, k.subpad);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_mul(out.x, e, f);
-  fe_mul(out.y, g, h);
-  fe_mul(out.z, f, g);
-  if (need_t) {
-    fe_mul(out.t, e, h);
-  } else {
-    fe_set_small(out.t, 0);
-  }
-}
-
-// Doubling dbl-2008-hwcd (ignores the input T).  out may alias p.
-ED_HD ED_NOINLINE void pt_double(Pt& out, const Pt& p, bool need_t,
-                                 const Consts& k) {
-  int32_t xy[NL], a[NL], b[NL], zz[NL], xy2[NL];
-  fe_add(xy, p.x, p.y);
-  fe_mul(a, p.x, p.x);
-  fe_mul(b, p.y, p.y);
-  fe_mul(zz, p.z, p.z);
-  fe_mul(xy2, xy, xy);
-  int32_t c[NL], e[NL], f[NL], g[NL], h[NL];
-  fe_dbl(c, zz);
-  fe_add(h, a, b);
-  fe_sub(g, a, b, k.subpad);
-  fe_sub(e, h, xy2, k.subpad);
-  fe_add(f, c, g);
-  fe_mul(out.x, e, f);
-  fe_mul(out.y, g, h);
-  fe_mul(out.z, f, g);
-  if (need_t) {
-    fe_mul(out.t, e, h);
-  } else {
-    fe_set_small(out.t, 0);
-  }
-}
-
-// ---- the scan --------------------------------------------------------------
-
-// Lane `lane` of a batch of B: A = (ax..at)[lane] (batch-major [B][NL]),
-// windows s_win / k_win limb-major [NWIN][B], MSB first.
-struct LaneIn {
-  const int32_t* ax;
-  const int32_t* ay;
-  const int32_t* az;
-  const int32_t* at;
-  const int32_t* s_win;
-  const int32_t* k_win;
-};
-
-// P = [s]B + [k]A for one lane; `entries` is the lane's [0..15]A table
-// (scratch, 16 points).  T of the result is not computed (zero).
-ED_HD ED_NOINLINE void dsm_scan_lane(Pt& acc, Pt* entries, const LaneIn& in,
-                                     int lane, int batch, const Consts& k) {
-  Pt& a = entries[1];
-  for (int l = 0; l < NL; ++l) {
-    a.x[l] = in.ax[lane * NL + l];
-    a.y[l] = in.ay[lane * NL + l];
-    a.z[l] = in.az[lane * NL + l];
-    a.t[l] = in.at[lane * NL + l];
-  }
-  // [m]A chain with plain T on the p side and T*2d on the q side ...
-  Pt a2d = a;
-  fe_mul(a2d.t, a.t, k.d2);
-  for (int m = 2; m < 16; ++m) pt_add(entries[m], entries[m - 1], a2d, true, k);
-  // ... then every entry's T becomes T*2d: entries are only ever the q
-  // operand of pt_add (identity's T*2d is 0)
-  for (int m = 1; m < 16; ++m) fe_mul(entries[m].t, entries[m].t, k.d2);
-  pt_identity(entries[0]);
-
-  pt_identity(acc);
-  Pt bq;
   for (int i = 0; i < NSTEPS; ++i) {
-    const int32_t s_hi = in.s_win[(2 * i) * batch + lane];
-    const int32_t s_lo = in.s_win[(2 * i + 1) * batch + lane];
-    const int wh = in.k_win[(2 * i) * batch + lane] & 15;
-    const int wl = in.k_win[(2 * i + 1) * batch + lane] & 15;
-    const int sb = (s_hi * 16 + s_lo) & 255;
+    const int32_t code = t.win[i];
     // need_t schedule: only the last doubling of a run and the addition
     // that feeds another addition produce T
-    for (int j = 0; j < 4; ++j) pt_double(acc, acc, j == 3, k);
-    pt_add(acc, acc, entries[wh], false, k);
-    for (int j = 0; j < 4; ++j) pt_double(acc, acc, j == 3, k);
-    pt_add(acc, acc, entries[wl], true, k);
-    const int32_t* row = k.btab + sb * 4 * NL;
-    for (int l = 0; l < NL; ++l) {
-      bq.x[l] = ED_LDG(row + l);
-      bq.y[l] = ED_LDG(row + NL + l);
-      bq.z[l] = ED_LDG(row + 2 * NL + l);
-      bq.t[l] = ED_LDG(row + 3 * NL + l);
-    }
-    pt_add(acc, acc, bq, false, k);
+    team_double(step, t, k, false, btab + (code & 255) * 4 * NL);
+    for (int j = 1; j < 4; ++j) team_double(step, t, k, j == 3, nullptr);
+    team_add(step, t, k, t.acc, t.acc, t.tab[(code >> 8) & 15], false);
+    for (int j = 0; j < 4; ++j) team_double(step, t, k, j == 3, nullptr);
+    team_add(step, t, k, t.acc, t.acc, t.tab[(code >> 12) & 15], true);
+    team_add(step, t, k, t.acc, t.acc, t.q, false);
   }
 }
 
-// Does P compress to (r_y, r_sign)?  r_y is the RAW 13-bit split of the
-// encoding's low 255 bits (never reduced), so y >= p never matches.
-ED_HD inline int32_t compressed_equals_lane(const Pt& p, const int32_t* r_y,
-                                            int32_t r_sign) {
-  int32_t zinv[NL], x[NL], y[NL], pl[NL];
-  p_limbs(pl);
-  fe_pow_inv(zinv, p.z);
-  fe_mul(x, p.x, zinv);
-  fe_mul(y, p.y, zinv);
-  fe_canonical(y, pl);
-  fe_canonical(x, pl);
-  int32_t ok = (x[0] & 1) == r_sign;
-  for (int l = 0; l < NL; ++l) ok &= y[l] == r_y[l];
-  return ok;
+// Does acc compress to (r_y, r_sign)?  r_y is the RAW 13-bit split of the
+// encoding's low 255 bits (never reduced), so y >= p never matches.  Role
+// 0 inverts Z (the table is free scratch by now), roles 0 and 1 take X
+// and Y to canonical affine form, role 0 compares and writes *ok.
+template <class Step>
+ED_HD void team_compressed_equals(const Step& step, Team& t,
+                                  const int32_t* r_y, const int32_t* r_sign,
+                                  int32_t* ok) {
+  int32_t* zinv = t.prod[0];
+  step([&](int r) {
+    if (r == 0) fe_pow_inv(zinv, t.acc.c[2], t.tab[0].c[0]);
+  });
+  step([&](int r) {
+    if (r < 2) {
+      fe_mul(t.lin[r], t.acc.c[r], zinv);
+      fe_canonical(t.lin[r]);
+    }
+  });
+  step([&](int r) {
+    if (r == 0) {
+      int32_t eq = (t.lin[0][0] & 1) == ED_LDG(r_sign);
+      for (int l = 0; l < NL; ++l) eq &= t.lin[1][l] == ED_LDG(r_y + l);
+      *ok = eq;
+    }
+  });
+}
+
+// Role r writes coordinate r of acc to out[r] (rows of [B][NL]).
+template <class Step>
+ED_HD void team_store(const Step& step, const Team& t, int32_t* ox,
+                      int32_t* oy, int32_t* oz, int32_t* ot, int sig) {
+  step([&](int r) {
+    int32_t* dst = pick(r, ox, oy, oz, ot) + sig * NL;
+    for (int l = 0; l < NL; ++l) dst[l] = t.acc.c[r][l];
+  });
 }
 
 }  // namespace ed25519

@@ -1,20 +1,43 @@
-// Host build of the kernel body: the same per-lane scan and epilogue as
-// dsm_kernels.cu, looped over lanes on the CPU.  The CPU tests compile
-// this with g++ into a ctypes library and hold it against the plain
-// PyTorch versions, so most kernel-math faults show up without a card.
+// Host build of the kernel body: the team schedule of dsm_kernels.cu with
+// each step's four roles run one after another, forward or in reverse,
+// signature after signature.  The CPU tests compile this with g++ into a
+// ctypes library and hold it against the plain PyTorch versions and the
+// Pallas kernel, so most kernel-math faults, and a step in which one role
+// reads what another writes, show up without a card.
 
 #include <stdint.h>
+#include <string.h>
 
 #include "ed25519_field.cuh"
 
 using ed25519::Consts;
 using ed25519::LaneIn;
 using ed25519::NL;
-using ed25519::Pt;
+using ed25519::ROLES;
+using ed25519::Team;
 
-static LaneIn lane_in(const int32_t* ax, const int32_t* ay, const int32_t* az,
-                      const int32_t* at, const int32_t* s_win,
-                      const int32_t* k_win) {
+namespace {
+
+struct HostStep {
+  bool reverse;
+  template <class F>
+  void operator()(F&& f) const {
+    for (int i = 0; i < ROLES; ++i) f(reverse ? ROLES - 1 - i : i);
+  }
+};
+
+Consts make_consts(const int32_t* d2, const int32_t* subpad) {
+  Consts k;
+  memset(&k, 0, sizeof k);
+  for (int l = 0; l < NL; ++l) {
+    k.d2[l] = d2[l];
+    k.subpad[l] = subpad[l];
+  }
+  return k;
+}
+
+LaneIn lane_in(const int32_t* ax, const int32_t* ay, const int32_t* az,
+               const int32_t* at, const int32_t* s_win, const int32_t* k_win) {
   LaneIn in;
   in.ax = ax;
   in.ay = ay;
@@ -25,19 +48,28 @@ static LaneIn lane_in(const int32_t* ax, const int32_t* ay, const int32_t* az,
   return in;
 }
 
+// A team filled with a pattern that no step may read before writing:
+// shared memory is not zeroed on the card either.
+void scrub(Team& t) { memset(&t, 0x5a, sizeof t); }
+
+}  // namespace
+
 extern "C" void host_dsm_verify(const int32_t* btab, const int32_t* d2,
                                 const int32_t* subpad, const int32_t* ax,
                                 const int32_t* ay, const int32_t* az,
                                 const int32_t* at, const int32_t* s_win,
                                 const int32_t* k_win, const int32_t* r_y,
-                                const int32_t* r_sign, int32_t* ok, int batch) {
-  const Consts k = ed25519::make_consts(btab, d2, subpad);
+                                const int32_t* r_sign, int32_t* ok, int batch,
+                                int reverse) {
+  const Consts k = make_consts(d2, subpad);
   const LaneIn in = lane_in(ax, ay, az, at, s_win, k_win);
-  Pt entries[16];
-  Pt acc;
-  for (int lane = 0; lane < batch; ++lane) {
-    ed25519::dsm_scan_lane(acc, entries, in, lane, batch, k);
-    ok[lane] = ed25519::compressed_equals_lane(acc, r_y + lane * NL, r_sign[lane]);
+  const HostStep step{reverse != 0};
+  Team t;
+  for (int sig = 0; sig < batch; ++sig) {
+    scrub(t);
+    ed25519::team_scan(step, t, k, btab, in, sig, batch);
+    ed25519::team_compressed_equals(step, t, r_y + sig * NL, r_sign + sig,
+                                    ok + sig);
   }
 }
 
@@ -46,18 +78,25 @@ extern "C" void host_dsm_scan(const int32_t* btab, const int32_t* d2,
                               const int32_t* ay, const int32_t* az,
                               const int32_t* at, const int32_t* s_win,
                               const int32_t* k_win, int32_t* ox, int32_t* oy,
-                              int32_t* oz, int32_t* ot, int batch) {
-  const Consts k = ed25519::make_consts(btab, d2, subpad);
+                              int32_t* oz, int32_t* ot, int batch,
+                              int reverse) {
+  const Consts k = make_consts(d2, subpad);
   const LaneIn in = lane_in(ax, ay, az, at, s_win, k_win);
-  Pt entries[16];
-  Pt acc;
-  for (int lane = 0; lane < batch; ++lane) {
-    ed25519::dsm_scan_lane(acc, entries, in, lane, batch, k);
-    for (int l = 0; l < NL; ++l) {
-      ox[lane * NL + l] = acc.x[l];
-      oy[lane * NL + l] = acc.y[l];
-      oz[lane * NL + l] = acc.z[l];
-      ot[lane * NL + l] = acc.t[l];
-    }
+  const HostStep step{reverse != 0};
+  Team t;
+  for (int sig = 0; sig < batch; ++sig) {
+    scrub(t);
+    ed25519::team_scan(step, t, k, btab, in, sig, batch);
+    ed25519::team_store(step, t, ox, oy, oz, ot, sig);
   }
+}
+
+// out[i] = a[i] * b[i] and out[i] = a[i]^2 over n elements of NL limbs.
+extern "C" void host_fe_mul(int32_t* out, const int32_t* a, const int32_t* b,
+                            int n) {
+  for (int i = 0; i < n; ++i) ed25519::fe_mul(out + i * NL, a + i * NL, b + i * NL);
+}
+
+extern "C" void host_fe_sqr(int32_t* out, const int32_t* a, int n) {
+  for (int i = 0; i < n; ++i) ed25519::fe_sqr(out + i * NL, a + i * NL);
 }

@@ -148,8 +148,10 @@ def host_lib(tmp_path_factory):
         check=True, capture_output=True,
     )
     lib = ctypes.CDLL(str(out))
-    lib.host_dsm_scan.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int]
-    lib.host_dsm_verify.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int]
+    lib.host_dsm_scan.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2
+    lib.host_dsm_verify.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2
+    lib.host_fe_mul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.host_fe_sqr.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     return lib
 
 
@@ -160,19 +162,21 @@ def _ptrs(arrays):
 _CONSTS = [np.ascontiguousarray(dsm.BTAB_T2D), curve.D2_LIMBS, F.SUB_PAD]
 
 
-def _host_scan(lib, s_win, k_win, a_pt):
+def _host_scan(lib, s_win, k_win, a_pt, reverse=False):
+    """The scan kernel's team schedule on the host, each step's roles run
+    in order 0..3 or, with ``reverse``, 3..0."""
     n = s_win.shape[1]
     out = [np.zeros((n, F.NLIMBS), np.int32) for _ in range(4)]
-    lib.host_dsm_scan(*_ptrs(_CONSTS + list(a_pt) + [s_win, k_win] + out), n)
+    lib.host_dsm_scan(*_ptrs(_CONSTS + list(a_pt) + [s_win, k_win] + out), n, int(reverse))
     return out
 
 
-def _host_verify(lib, s_win, k_win, a_pt, r_y, r_sign):
+def _host_verify(lib, s_win, k_win, a_pt, r_y, r_sign, reverse=False):
     n = s_win.shape[1]
     ok = np.zeros(n, np.int32)
     arrays = _CONSTS + list(a_pt) + [s_win, k_win, np.ascontiguousarray(r_y),
                                      np.ascontiguousarray(r_sign, dtype=np.int32), ok]
-    lib.host_dsm_verify(*_ptrs(arrays), n)
+    lib.host_dsm_verify(*_ptrs(arrays), n, int(reverse))
     return ok != 0
 
 
@@ -201,11 +205,51 @@ def test_kernel_body_matches_pallas_limb_for_limb(host_lib, pallas_scan):
         assert (out[c] == pallas_scan[c]).all()
 
 
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_team_schedule_in_either_role_order(host_lib, pallas_scan, plain_scan, encodings, reverse):
+    """Within a step no role may read a slot that another role writes:
+    on the card the four threads of a team run a step in no fixed order.
+    Run with each step's roles forward and in reverse, the team schedule
+    gives Pallas's raw limbs and the plain versions' verdicts."""
+    out = _host_scan(host_lib, S_WIN, K_WIN, A_PT, reverse)
+    for c in range(4):
+        assert (out[c] == pallas_scan[c]).all()
+    for c in range(3):
+        assert (F.canonical(_t(out[c])).numpy() == F.canonical(plain_scan[c]).numpy()).all()
+    r_y, r_sign, expect = encodings
+    ok = _host_verify(host_lib, S_WIN, K_WIN, A_PT, r_y, r_sign, reverse)
+    assert ok.tolist() == expect.tolist()
+
+
+LOOSE_BOUND = (1 << 13) + 608  # largest limb of a loose-normalized element
+
+
+@pytest.mark.parametrize("limbs", ["random", "bound"])
+def test_fe_sqr_matches_fe_mul(host_lib, limbs):
+    """The 210-product square gives fe_mul(a, a)'s limbs exactly, on
+    seeded random loose limbs and on limbs at the loose bound."""
+    gen = np.random.default_rng(2026)
+    n = 512
+    a = gen.integers(0, LOOSE_BOUND + 1, (n, F.NLIMBS), dtype=np.int32)
+    if limbs == "bound":
+        a = np.where(gen.random((n, F.NLIMBS)) < 0.75, LOOSE_BOUND, a).astype(np.int32)
+        a[0] = LOOSE_BOUND
+    sq = np.zeros_like(a)
+    prod = np.zeros_like(a)
+    host_lib.host_fe_sqr(*_ptrs([sq, a]), n)
+    host_lib.host_fe_mul(*_ptrs([prod, a, a]), n)
+    assert (sq == prod).all()
+    assert (sq == F.mul(_t(a), _t(a)).numpy()).all()
+
+
 # ---- the CUDA kernels, on a card ---------------------------------------------
 
 
 @pytest.mark.cuda
-def test_cuda_kernels_match_plain(encodings):
+def test_cuda_kernels_match_plain(encodings, pallas_scan):
+    """Both kernels on the team schedule: the verdicts, the scan's raw
+    limbs equal to Pallas's on every one of several launches, and its
+    points equal to the plain version's."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernels run only on a card")
     r_y, r_sign, expect = encodings
@@ -215,10 +259,13 @@ def test_cuda_kernels_match_plain(encodings):
     ry, rs = _t(r_y).to(dev), _t(r_sign).to(dev)
     dsm.reset_launches()
     ok = dsm.verify_compressed(s, k, a, ry, rs)
-    pt = dsm.dual_scalar_mult(s, k, a)
+    pts = [dsm.dual_scalar_mult(s, k, a) for _ in range(4)]
     torch.cuda.synchronize()
-    assert dsm.launches == {"verify_compressed": 1, "dual_scalar_mult": 1}
+    assert dsm.launches == {"verify_compressed": 1, "dual_scalar_mult": 4}
     assert ok.cpu().numpy().tolist() == expect.tolist()
+    for pt in pts:
+        for c in range(4):
+            assert (pt[c].cpu().numpy() == pallas_scan[c]).all()
     plain = dsm.plain_dual_scalar_mult(s, k, a)
     for c in range(3):
-        assert (F.canonical(pt[c]) == F.canonical(plain[c])).all()
+        assert (F.canonical(pts[0][c]) == F.canonical(plain[c])).all()
