@@ -9,7 +9,8 @@ to 1024 — through the verifier backend a node calls, and checks every
 verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
 
 1. prints the card's name and power limit, builds the CUDA kernels and
-   prints each kernel's registers, stack frame and shared memory;
+   prints each kernel's registers, stack frame and shared memory, and
+   each device function's size and commonest opcodes in SASS;
 2. ``BatchVerifier(min_device_batch=0)`` on ``cuda``: ``precompute`` of
    the 256 keys, ``warmup(256)``;
 3. the main path, with the launch counts set to 0 just before it and
@@ -39,8 +40,11 @@ printed.  Without a CUDA device it exits with 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -92,6 +96,30 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_mix(lib_path) -> None:
+    """Print, for each kernel of the library, its body and every device
+    function it calls (named by address: a CALL target), with the number
+    of SASS instructions and the commonest opcodes.  Needs ``cuobjdump``;
+    without it, says so and returns."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("sass: cuobjdump not found")
+        return
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True).stdout
+    for section in out.split("Function : ")[1:]:
+        name = section.split("\n", 1)[0].strip()
+        ins = [(int(a, 16), op) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", section)]
+        targets = sorted({int(t, 16) for t in re.findall(r"CALL\.REL\.NOINC\s+(?:0x)?([0-9a-f]+)", section)})
+        bounds = [0] + targets + [ins[-1][0] + 16] if ins else []
+        print(f"sass: {name}")
+        for lo, hi in zip(bounds, bounds[1:]):
+            ops = collections.Counter(op for a, op in ins if lo <= a < hi)
+            what = "kernel body" if lo == 0 else f"function at {lo:#x}"
+            top = ", ".join(f"{op} {n}" for op, n in ops.most_common(6))
+            print(f"sass:   {what}: {sum(ops.values())} instructions ({top})")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -197,6 +225,7 @@ def main() -> int:
             if any(key in line for key in keys):
                 print("ptxas:", line.strip())
     print(f"dynamic shared memory per block (both kernels): {_build.load().dsm_smem_bytes()} bytes")
+    sass_mix(_build.library_path())
 
     claims = make_claims()
 

@@ -10,29 +10,32 @@
 // Bound on an H100: operations.  A verify is 2955 field multiplies, 1278
 // of them squarings: 939,180 int32 multiply-adds per signature (400 per
 // product, 210 per square), against ~1.3 KB of operands.  But a
-// signature's work is one chain of dependent point operations, so what
-// the card can use is the parallelism inside one signature: at the
-// production batch of 1024, one thread per signature fills only 32 warps
-// of 132 SMs, and the time is one thread's instruction stream.
+// signature is one chain of dependent point operations, and at the
+// production batch of 1024 there are too few signatures to fill the
+// card: what bounds the time is the length of one warp's instruction
+// stream (an int32 warp instruction issues in 2 cycles on a 16-lane
+// pipe), not the total work.
 //
-// Design: a team of four threads per signature (ed25519_field.cuh).  The
+// Design: a team of eight threads per signature (ed25519_field.cuh).  The
 // point formulas are Hisil-Wong-Carter-Dawson's four-processor waves, as
 // the Pallas kernel batches them; role r computes the r-th product of
 // each wave, which cuts the scan's critical path from 2688 multiplies to
-// ~740 wave steps.  One warp per block (8 signatures) spreads the teams
-// over the SMs; the whole warp runs one schedule, with __syncwarp()
-// between steps.  Each team's accumulator, [0..15]A table and exchange
-// slots live in dynamic shared memory (~8 KB a team, ~63 KB a block, so
-// above the 48 KB static limit), in 16-byte-aligned slots of 24 limbs
-// read as int4.  The 80 KB base table stays in global memory (read
-// through __ldg, one coordinate per role).  The epilogue's inversion runs
-// on role 0.  The CPU tests run the same schedule on the host with each
-// step's roles forward and in reverse, which catches a missing barrier.
+// ~740 wave steps.  Each role is a pair of threads that splits every
+// field operation by limbs (a shuffle per carry pass), which halves each
+// product's multiply-adds per thread.  One warp per block (4 signatures)
+// spreads the teams over the SMs; the whole warp runs one schedule, with
+// __syncwarp() between steps.  Each team's accumulator, [0..15]A table
+// and exchange slots live in dynamic shared memory (8.4 KB a team), in
+// 16-byte-aligned slots of 24 limbs.  The 80 KB base table stays in
+// global memory (read through __ldg, one coordinate per role).  The
+// epilogue's inversion runs on role 0.  The CPU tests run the same
+// schedule on the host with each step's roles forward and in reverse,
+// which catches a missing barrier.
 //
 // Each launcher takes every pointer and the stream as void*, launches on
 // that stream with the tensors' device current (the caller's device is
 // current again on return), does not synchronise, and returns
-// cudaGetLastError().  The batch must be a multiple of 8.
+// cudaGetLastError().  The batch must be a multiple of 4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,14 +50,41 @@ using ed25519::NL;
 using ed25519::ROLES;
 using ed25519::Team;
 
-constexpr int kThreads = 32;                // one warp per block
-constexpr int kTeams = kThreads / ROLES;    // signatures per block
+constexpr int kThreads = 32;                      // one warp per block
+constexpr int kTeamThreads = 2 * ROLES;           // a pair per role
+constexpr int kTeams = kThreads / kTeamThreads;   // signatures per block
 constexpr int kSmemBytes = sizeof(Consts) + kTeams * sizeof(Team);
-constexpr int kMaxDevices = 64;
+static_assert(kSmemBytes <= 48 * 1024, "above 48 KB a launch needs cudaFuncSetAttribute");
+
+// This thread as one half of its pair (lanes 2m and 2m + 1).
+struct WarpPair {
+  static constexpr int N = 1;
+  int h;
+  unsigned mask;
+  template <class F>
+  __host__ __device__ void each(F&& f) const {
+    f(h, 0);
+  }
+  template <class F>
+  __host__ __device__ void lead(F&& f) const {
+    if (h == 0) f();
+  }
+  __host__ __device__ void swap(const int32_t* send, int32_t* recv) const {
+#if defined(__CUDA_ARCH__)
+    recv[0] = __shfl_xor_sync(mask, send[0], 1);
+#endif
+  }
+  __host__ __device__ void sync() const {
+#if defined(__CUDA_ARCH__)
+    __syncwarp(mask);
+#endif
+  }
+};
 
 // Runs a step: each thread its own role, then the warp's barrier.
 struct WarpStep {
   int role;
+  WarpPair pair;
   template <class F>
   __host__ __device__ void operator()(F&& f) const {
     f(role);
@@ -63,6 +93,11 @@ struct WarpStep {
 #endif
   }
 };
+
+__device__ WarpStep warp_step() {
+  const int lane = threadIdx.x % kThreads;
+  return WarpStep{(lane / 2) % ROLES, WarpPair{lane % 2, 3u << (lane & ~1)}};
+}
 
 // This block's constants and this thread's team, in dynamic shared memory.
 __device__ Team& block_team(const int32_t* d2, const int32_t* subpad,
@@ -75,7 +110,7 @@ __device__ Team& block_team(const int32_t* d2, const int32_t* subpad,
   }
   __syncthreads();
   Team* teams = reinterpret_cast<Team*>(smem + sizeof(Consts) / sizeof(int4));
-  return teams[threadIdx.x / ROLES];
+  return teams[threadIdx.x / kTeamThreads];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -84,8 +119,8 @@ __global__ void __launch_bounds__(kThreads)
                       const int32_t* r_sign, int32_t* ok, int batch) {
   Consts* k;
   Team& t = block_team(d2, subpad, k);
-  const int sig = (blockIdx.x * blockDim.x + threadIdx.x) / ROLES;
-  const WarpStep step{static_cast<int>(threadIdx.x % ROLES)};
+  const int sig = (blockIdx.x * blockDim.x + threadIdx.x) / kTeamThreads;
+  const WarpStep step = warp_step();
   ed25519::team_scan(step, t, *k, btab, in, sig, batch);
   ed25519::team_compressed_equals(step, t, r_y + sig * NL, r_sign + sig,
                                   ok + sig);
@@ -97,8 +132,8 @@ __global__ void __launch_bounds__(kThreads)
                     int32_t* oz, int32_t* ot, int batch) {
   Consts* k;
   Team& t = block_team(d2, subpad, k);
-  const int sig = (blockIdx.x * blockDim.x + threadIdx.x) / ROLES;
-  const WarpStep step{static_cast<int>(threadIdx.x % ROLES)};
+  const int sig = (blockIdx.x * blockDim.x + threadIdx.x) / kTeamThreads;
+  const WarpStep step = warp_step();
   ed25519::team_scan(step, t, *k, btab, in, sig, batch);
   ed25519::team_store(step, t, ox, oy, oz, ot, sig);
 }
@@ -115,19 +150,7 @@ LaneIn lane_in(void* ax, void* ay, void* az, void* at, void* s_win,
   return in;
 }
 
-int blocks_for(int batch) { return batch * ROLES / kThreads; }
-
-// Lets `kernel` take kSmemBytes of dynamic shared memory on the current
-// device: once per device, remembered in `done`.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int device, bool (&done)[kMaxDevices]) {
-  const bool known = device >= 0 && device < kMaxDevices;
-  if (known && done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err == cudaSuccess && known) done[device] = true;
-  return err;
-}
+int blocks_for(int batch) { return batch / kTeams; }
 
 // Runs `launch` with `device` current and then makes the caller's device
 // current again, so a launcher never changes the calling thread's device.
@@ -157,10 +180,7 @@ extern "C" int dsm_verify_launch(void* btab, void* d2, void* subpad, void* ax,
                                  void* ok, int batch, int device,
                                  void* stream) {
   if (batch <= 0 || batch % kTeams) return static_cast<int>(cudaErrorInvalidValue);
-  static bool smem_set[kMaxDevices];
   return on_device(device, [&] {
-    const cudaError_t err = allow_smem(dsm_verify_kernel, device, smem_set);
-    if (err != cudaSuccess) return err;
     dsm_verify_kernel<<<blocks_for(batch), kThreads, kSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(btab), static_cast<const int32_t*>(d2),
@@ -177,10 +197,7 @@ extern "C" int dsm_scan_launch(void* btab, void* d2, void* subpad, void* ax,
                                void* ot, int batch, int device,
                                void* stream) {
   if (batch <= 0 || batch % kTeams) return static_cast<int>(cudaErrorInvalidValue);
-  static bool smem_set[kMaxDevices];
   return on_device(device, [&] {
-    const cudaError_t err = allow_smem(dsm_scan_kernel, device, smem_set);
-    if (err != cudaSuccess) return err;
     dsm_scan_kernel<<<blocks_for(batch), kThreads, kSmemBytes,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(btab), static_cast<const int32_t*>(d2),

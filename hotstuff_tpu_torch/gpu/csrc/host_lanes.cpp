@@ -1,9 +1,10 @@
 // Host build of the kernel body: the team schedule of dsm_kernels.cu with
 // each step's four roles run one after another, forward or in reverse,
-// signature after signature.  The CPU tests compile this with g++ into a
-// ctypes library and hold it against the plain PyTorch versions and the
-// Pallas kernel, so most kernel-math faults, and a step in which one role
-// reads what another writes, show up without a card.
+// and each role's pair of halves likewise, signature after signature.
+// The CPU tests compile this with g++ into a ctypes library and hold it
+// against the plain PyTorch versions and the Pallas kernel, so most
+// kernel-math faults, and a step in which one role reads what another
+// writes, show up without a card.
 
 #include <stdint.h>
 #include <string.h>
@@ -18,8 +19,32 @@ using ed25519::Team;
 
 namespace {
 
+// Both halves of a pair, in one call: each phase of a field operation
+// runs for half 0 and half 1 (or 1 and 0) before the next phase.
+struct HostPair {
+  static constexpr int N = 2;
+  bool reverse;
+  template <class F>
+  void each(F&& f) const {
+    for (int i = 0; i < N; ++i) {
+      const int h = reverse ? N - 1 - i : i;
+      f(h, h);
+    }
+  }
+  template <class F>
+  void lead(F&& f) const {
+    f();
+  }
+  void swap(const int32_t* send, int32_t* recv) const {
+    recv[0] = send[1];
+    recv[1] = send[0];
+  }
+  void sync() const {}
+};
+
 struct HostStep {
   bool reverse;
+  HostPair pair;
   template <class F>
   void operator()(F&& f) const {
     for (int i = 0; i < ROLES; ++i) f(reverse ? ROLES - 1 - i : i);
@@ -63,7 +88,7 @@ extern "C" void host_dsm_verify(const int32_t* btab, const int32_t* d2,
                                 int reverse) {
   const Consts k = make_consts(d2, subpad);
   const LaneIn in = lane_in(ax, ay, az, at, s_win, k_win);
-  const HostStep step{reverse != 0};
+  const HostStep step{reverse != 0, HostPair{reverse != 0}};
   Team t;
   for (int sig = 0; sig < batch; ++sig) {
     scrub(t);
@@ -82,7 +107,7 @@ extern "C" void host_dsm_scan(const int32_t* btab, const int32_t* d2,
                               int reverse) {
   const Consts k = make_consts(d2, subpad);
   const LaneIn in = lane_in(ax, ay, az, at, s_win, k_win);
-  const HostStep step{reverse != 0};
+  const HostStep step{reverse != 0, HostPair{reverse != 0}};
   Team t;
   for (int sig = 0; sig < batch; ++sig) {
     scrub(t);
@@ -94,9 +119,11 @@ extern "C" void host_dsm_scan(const int32_t* btab, const int32_t* d2,
 // out[i] = a[i] * b[i] and out[i] = a[i]^2 over n elements of NL limbs.
 extern "C" void host_fe_mul(int32_t* out, const int32_t* a, const int32_t* b,
                             int n) {
-  for (int i = 0; i < n; ++i) ed25519::fe_mul(out + i * NL, a + i * NL, b + i * NL);
+  const HostPair pr{false};
+  for (int i = 0; i < n; ++i) ed25519::fe_mul(pr, out + i * NL, a + i * NL, b + i * NL);
 }
 
 extern "C" void host_fe_sqr(int32_t* out, const int32_t* a, int n) {
-  for (int i = 0; i < n; ++i) ed25519::fe_sqr(out + i * NL, a + i * NL);
+  const HostPair pr{false};
+  for (int i = 0; i < n; ++i) ed25519::fe_sqr(pr, out + i * NL, a + i * NL);
 }

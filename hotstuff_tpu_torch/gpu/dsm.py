@@ -19,10 +19,11 @@ What bounds them on an H100 is integer arithmetic: ~0.94M int32
 multiply-adds per signature (2955 field multiplies, 1278 of them
 squarings; 0.88M without the epilogue), against ~1.3 KB of operands.
 A signature is one chain of dependent point operations, so at the
-production batch of 1024 the time is the length of that chain per
-thread, not the total work.  The kernels run each signature on a team
-of four threads, one per product of the point formulas' four-wide waves
-(the waves ``_mul_wave_t`` batches in the Pallas kernel), with the
+production batch of 1024 the time is the length of one warp's
+instruction stream, not the total work.  The kernels run each signature
+on a team of eight threads: a pair per product of the point formulas'
+four-wide waves (the waves ``_mul_wave_t`` batches in the Pallas
+kernel), each pair splitting its field operations by limbs, with the
 team's state in shared memory (see ``csrc/ed25519_field.cuh`` and
 PERF.md).
 
@@ -58,8 +59,9 @@ SQRS_SCAN = curve.NWIN // 2 * 8 * 4  # 1024
 SQRS_VERIFY = SQRS_SCAN + 1 + 2 + 1 + 250  # 1278
 MADS_PER_MUL = NL * NL  # int32 multiply-adds of one schoolbook product
 MADS_PER_SQR = NL * (NL + 1) // 2  # a square needs only the pairs i <= j
-# The least int32 multiply-adds a signature needs, which is also what the
-# kernels do (fe_mul and the 210-product fe_sqr).
+# The least int32 multiply-adds a signature needs: the bound's count.  The
+# kernels split each product between two threads that both compute the
+# shared columns 9, 19 and 29: 440 multiply-adds a product, 230 a square.
 MADS_SCAN = (MULS_SCAN - SQRS_SCAN) * MADS_PER_MUL + SQRS_SCAN * MADS_PER_SQR
 MADS_VERIFY = (MULS_VERIFY - SQRS_VERIFY) * MADS_PER_MUL + SQRS_VERIFY * MADS_PER_SQR
 
