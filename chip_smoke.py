@@ -30,9 +30,28 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    warm-up, with the challenge memo cleared before each call, as for a
    QC first seen, and kept, as for a re-verify), host-clock time of the
    whole 1024-claim ``verify_device`` and its split into the span stages
-   (prepare / dispatch / device.execute / readback);
-7. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+   (prepare / dispatch / device.execute / readback), with the challenge
+   memo kept, cleared, and cleared on a second thread;
+7. (a) the view-change storm at N = 256, quorum 171
+   (``hotstuff_tpu_torch/bench/storm.py``) on ``make_verifier("cuda")``
+   after ``precompute`` + ``warmup(171)`` (+ ``warm_buckets()`` for the
+   off-loop row): every row of its report, every signature of the storm
+   checked against the oracle, a forged vote, timeout, embedded QC and
+   TC entry rejected, and the CPU route's measured cost a signature
+   beside the routing model's ``CPU_US_PER_SIG``; launch counts set to 0
+   just before and read just after;
+8. (b) coalesced waves at the same committee shape: 8 asyncio tasks
+   stand in for 8 in-process cores and submit each round's claims (the
+   171-vote QC from every task, 256 votes with 3 forged, 171
+   distinct-digest timeouts) to the shared ``AsyncVerifyService``;
+   4 rounds back to back at pipeline depth 2.  Every fanned-out verdict
+   must equal the oracle's, every wave must take the device route,
+   padded to the 1024 bucket, and the verify kernel's launch count must
+   rise; wave wall times, launches per wave and the service's stats
+   line are printed;
+9. a ``{"kernels": [...]}`` line, then the last line
+   ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
+   over the three main-path runs (3, 7 and 8).
 
 Any mismatch raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device it exits with 2 and prints no result.
@@ -41,12 +60,14 @@ printed.  Without a CUDA device it exits with 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -199,6 +220,273 @@ def make_claims():
     }
 
 
+def oracle(claim) -> bool:
+    """The arbitrary-precision oracle's verdict on one wave claim."""
+    from hotstuff_tpu_torch.crypto import ed25519_ref as ref
+
+    if claim[0] == "one":
+        return ref.verify(claim[3], claim[2], claim[1])
+    return bool(claim[2]) and all(ref.verify(s, p, claim[1]) for p, s in claim[2])
+
+
+def storm_phase(card: str, nodes: int = COMMITTEE, torch_device=None) -> int:
+    """(a) The view-change storm on the node's device host; returns the
+    verify kernel's launches in it."""
+    from hotstuff_tpu_torch.bench import storm
+    from hotstuff_tpu_torch.consensus import InvalidSignature, QC, TC, Timeout, Vote
+    from hotstuff_tpu_torch.crypto import CpuVerifier, Signature
+    from hotstuff_tpu_torch.crypto.async_service import CPU_US_PER_SIG, flatten_claims
+    from hotstuff_tpu_torch.crypto.signature import HAVE_CRYPTOGRAPHY
+    from hotstuff_tpu_torch.gpu import dsm
+    from hotstuff_tpu_torch.node import make_verifier
+
+    quorum = 2 * nodes // 3 + 1
+    t0 = time.perf_counter()
+    committee, timeouts, (tc, tc_worst), high_qc = storm._ed25519_fixture(nodes, quorum)
+    want = [oracle(("one", t.digest().to_bytes(), t.author.to_bytes(), t.signature.to_bytes()))
+            for t in timeouts]
+    want += [oracle(c) for c in high_qc.claims() + tc.claims() + tc_worst.claims()]
+    check(all(want), "storm fixture: every signature valid for the oracle")
+    print(f"storm fixture + oracle: {len(want)} claims in {time.perf_counter() - t0:.1f} s (host)")
+
+    dsm.reset_launches()
+    t0 = time.perf_counter()
+    results = storm.run_storm(nodes, device=True, torch_device=torch_device)
+    wall = time.perf_counter() - t0
+    v = make_verifier("cuda", device=torch_device)  # the warm shared host
+    check(v.device_ready, "storm: the device host is warm")
+
+    def rejected(msg) -> bool:
+        try:
+            msg.verify(committee, v)
+        except InvalidSignature:
+            return True
+        return False
+
+    def bad(sig):
+        b = sig.to_bytes()
+        return Signature(b[:7] + bytes([b[7] ^ 1]) + b[8:])
+
+    vote = Vote(hash=high_qc.hash, round=high_qc.round, author=high_qc.votes[5][0],
+                signature=high_qc.votes[5][1])
+    check(not rejected(vote), "storm: a valid vote is accepted")
+    forged_vote = Vote(hash=vote.hash, round=vote.round, author=vote.author, signature=bad(vote.signature))
+    t = timeouts[3]
+    forged_timeout = Timeout(high_qc=t.high_qc, round=t.round, author=t.author, signature=bad(t.signature))
+    qc_votes = list(high_qc.votes)
+    k = 2 * quorum // 3
+    qc_votes[k] = (qc_votes[k][0], bad(qc_votes[k][1]))
+    forged_qc = Timeout(high_qc=QC(hash=high_qc.hash, round=high_qc.round, votes=qc_votes),
+                        round=t.round, author=t.author, signature=t.signature)
+    entries = list(tc_worst.votes)
+    entries[quorum // 2] = (entries[quorum // 2][0], bad(entries[quorum // 2][1]), entries[quorum // 2][2])
+    forged_tc = TC(round=tc_worst.round, votes=entries)
+    for what, msg in (("vote", forged_vote), ("timeout", forged_timeout),
+                      ("timeout's embedded QC", forged_qc), ("TC entry", forged_tc)):
+        check(oracle_rejects(msg), f"storm: the oracle rejects the forged {what}")
+        check(rejected(msg), f"storm: a forged {what} is rejected")
+    launches = dsm.launches["verify_compressed"]
+    print(storm.format_report(nodes, results))
+    print(f"storm phase: {wall:.1f} s host clock, verify kernel launches {launches}; "
+          f"every verdict equals the oracle's; forged vote, timeout, QC vote and TC entry rejected [{card}]")
+
+    cpu = CpuVerifier()
+    digests, pks, sigs, _ = flatten_claims(tc_worst.claims())
+    t0 = time.perf_counter()
+    ok = cpu.verify_many(digests, pks, sigs)
+    us = (time.perf_counter() - t0) / len(digests) * 1e6
+    check(all(ok), "storm: the CPU route accepts the worst-case TC")
+    route = "OpenSSL via cryptography" if HAVE_CRYPTOGRAPHY else "pure-Python oracle"
+    print(f"CPU route ({route}; CpuVerifier.verify_many, {len(digests)} distinct digests): {us:.1f} us a signature "
+          f"measured, routing model CPU_US_PER_SIG = {CPU_US_PER_SIG:.0f} us [{card}]")
+    return launches
+
+
+def oracle_rejects(msg) -> bool:
+    """Does the oracle find a bad signature in ``msg`` (a vote, a timeout
+    with its embedded QC, or a TC)?"""
+    if isinstance(getattr(msg, "votes", None), list):  # TC
+        return not all(oracle(c) for c in msg.claims())
+    if hasattr(msg, "high_qc"):
+        own = ("one", msg.digest().to_bytes(), msg.author.to_bytes(), msg.signature.to_bytes())
+        return not (oracle(own) and all(oracle(c) for c in msg.high_qc.claims()))
+    return not oracle(msg.claim())
+
+
+def gc_pause_recorder(pauses: list):
+    """A ``gc.callbacks`` entry that appends each collection's pause (s)."""
+    start = []
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            start[:] = [time.perf_counter()]
+        elif start:
+            pauses.append(time.perf_counter() - start[0])
+
+    return on_gc
+
+
+def coalesced_phase(card: str, nodes: int = COMMITTEE, rounds: int = 4, cores: int = 8,
+                    torch_device=None) -> int:
+    """(b) Coalesced waves from ``cores`` in-process cores through the
+    shared async service; returns the verify kernel's launches in it."""
+    import asyncio
+
+    from hotstuff_tpu_torch.consensus import QC, TC, Vote, timeout_digest
+    from hotstuff_tpu_torch.crypto import Digest, Signature, generate_keypair
+    from hotstuff_tpu_torch.crypto.async_service import AsyncVerifyService
+    from hotstuff_tpu_torch.gpu import dsm
+    from hotstuff_tpu_torch.node import make_verifier
+    from hotstuff_tpu_torch.telemetry import spans
+
+    quorum = 2 * nodes // 3 + 1
+    members = [generate_keypair(b"\x51" * 32, i) for i in range(nodes)]  # the storm's committee
+    forged = {17 % nodes, 101 % nodes, 200 % nodes}
+    t0 = time.perf_counter()
+    waves = []
+    for r in range(rounds):
+        block = Digest.of(b"coalesced block %d" % r)
+        vd = Vote(hash=block, round=20 + r, author=members[0][0]).digest()
+        qc = QC(hash=block, round=20 + r, votes=[(pk, Signature.new(vd, sk)) for pk, sk in members[:quorum]])
+        votes = []
+        for i, (pk, sk) in enumerate(members):
+            v = Vote(hash=Digest.of(b"coalesced next %d" % r), round=21 + r, author=pk)
+            v.signature = Signature.new(v.digest(), members[(i + 1) % nodes][1] if i in forged else sk)
+            votes.append(v.claim())
+        tc = TC(round=20 + r, votes=[(pk, Signature.new(timeout_digest(20 + r, i), sk), i)
+                                     for i, (pk, sk) in enumerate(members[:quorum])])
+        timeouts = tc.claims()
+        check(len(timeouts) == quorum and all(c[0] == "one" for c in timeouts), "distinct-digest timeouts")
+        per_core = [[qc.claims()[0]] + votes[c::cores] + timeouts[c::cores] for c in range(cores)]
+        want = [[oracle(c) for c in cs] for cs in per_core]
+        check(sum(not ok for cs in want for ok in cs) == len(forged), "the oracle rejects the forged votes")
+        waves.append((per_core, want))
+    sigs_per_wave = quorum + nodes + quorum
+    print(f"coalesced fixture + oracle: {rounds} rounds of {sigs_per_wave} unique signatures "
+          f"in {time.perf_counter() - t0:.1f} s (host)")
+
+    host = make_verifier("cuda", device=torch_device)
+    host.precompute([pk.to_bytes() for pk, _ in members])
+    host.warmup(quorum)
+
+    async def run():
+        service = AsyncVerifyService.for_backend(host)
+        try:
+            check(service.device and service.pipeline_depth == 2, "shared device service at depth 2")
+            service.warm_buckets()
+            bucket = next(b for b in service.wave_buckets if b >= sigs_per_wave)
+            dsm.reset_launches()
+
+            async def one_round(svc, per_core):
+                t_r = time.perf_counter()
+                got = await asyncio.gather(*(svc.verify_claims(cs) for cs in per_core))
+                return list(got), time.perf_counter() - t_r
+
+            async def play(svc=service):
+                """All rounds back to back: round r+1 is submitted as soon
+                as wave r departs.  Returns each wave's wall time and the
+                whole run's."""
+                t_all = time.perf_counter()
+                start = svc.dispatches
+                pending = []
+                for r, (per_core, _) in enumerate(waves):
+                    pending.append(asyncio.ensure_future(one_round(svc, per_core)))
+                    # wait until wave r departs; poll with a real sleep, in
+                    # which the loop releases the GIL (a sleep(0) spin would
+                    # keep it from the slot threads)
+                    while svc.dispatches <= start + r:
+                        await asyncio.sleep(0.0002)
+                done = await asyncio.gather(*pending)
+                total = time.perf_counter() - t_all
+                for r, ((got, _), (_, want)) in enumerate(zip(done, waves)):
+                    check(got == want, f"coalesced round {r}: fanned-out verdicts equal the oracle's")
+                return [wall for _, wall in done], total
+
+            # the fixtures left a large heap: collect it now, and record
+            # the collector's pauses during the run
+            gc.collect()
+            pauses: list = []
+            gc.callbacks.append(on_gc := gc_pause_recorder(pauses))
+            try:
+                walls, total = await play()
+            finally:
+                gc.callbacks.remove(on_gc)
+            launches = dsm.launches["verify_compressed"]
+            for r, wall in enumerate(walls):
+                print(f"coalesced wave {r}: {wall * 1e3:.1f} ms host clock from submit to the last "
+                      f"verdict, {sum(map(len, waves[r][0]))} verdicts to {cores} cores [{card}]")
+            print(f"coalesced run: {total * 1e3:.1f} ms host clock for {rounds} waves, "
+                  f"{rounds * sigs_per_wave / total:.0f} unique sigs/s; garbage-collector pauses "
+                  f"{len(pauses)}, longest {max(pauses, default=0.0) * 1e3:.1f} ms [{card}]")
+            print(service.stats_line())
+            # the router decides each wave from the measured dispatch time,
+            # so a host stall may send a wave to the CPU; the device waves
+            # are checked for what they must show
+            on_device = service.device_dispatches + service.probe_dispatches
+            check(service.device_dispatches >= 1, "the coalesced waves took the device route")
+            kernels_run = host.device.type == "cuda"  # a CPU rehearsal runs the plain versions
+            check(launches == (on_device if kernels_run else 0),
+                  "one verify-kernel launch for each wave on the device")
+            check(service.device_sigs + service.cpu_sigs == rounds * sigs_per_wave,
+                  "cross-core dedup: one QC claim a wave, however many cores sent it")
+            check(service.packed_waves == on_device
+                  and service.pad_sigs == on_device * (bucket - sigs_per_wave),
+                  f"device waves padded to the {bucket} bucket")
+            print(f"coalesced phase: {rounds} waves of {sigs_per_wave} signatures, "
+                  f"{service.device_dispatches} on the device padded to {bucket}, "
+                  f"{service.cpu_dispatches} on the CPU, peak in flight {service.peak_inflight} "
+                  f"(depth {service.pipeline_depth}), verify kernel launches {launches} "
+                  f"({launches / max(on_device, 1):.2f} a device wave) [{card}]")
+
+            # where a wave's time goes: the same waves again, pinned to the
+            # device, with the span recorder on and the challenge memo
+            # cleared (as for claims seen for the first time), through the
+            # shared service and then through a private one at depth 1
+            os.environ["HOTSTUFF_FORCE_DEVICE_ROUTE"] = "1"
+            single = AsyncVerifyService(host, device=True, pipeline_depth=1)
+            try:
+                for label, svc in (("depth 2, shared service", service),
+                                   ("depth 1, new service", single)):
+                    host.async_backend._device._challenge_memo.clear()
+                    gc.collect()
+                    rec = spans.enable()
+                    try:
+                        walls, total = await play(svc)
+                        rows = rec.drain()
+                    finally:
+                        spans.disable()
+                    check(svc.device_dispatches >= rounds, f"{label}: every replayed wave on the device")
+                    stages: dict = {}
+                    for name, _t0, dur, _depth, _thread in rows:
+                        stages.setdefault(name, []).append(dur / 1e6)
+                    occupancy = stages.pop("pipeline.occupancy", [0.0])
+                    print(f"coalesced replay ({label}): {total * 1e3:.1f} ms host clock, waves "
+                          + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+                          + f" ms; mean occupancy at spawn {sum(occupancy) / len(occupancy) * 1e6:.2f} [{card}]")
+                    print(f"coalesced replay ({label}) span stages (mean ms x count): " + ", ".join(
+                        f"{k} {sum(v) / len(v):.3f} x{len(v)}" for k, v in stages.items()))
+                    print(f"coalesced replay ({label}) per wave, prepare / dispatch.wall ms: " + ", ".join(
+                        f"{p:.1f}/{w:.1f}" for p, w in zip(stages.get("prepare", []),
+                                                          stages.get("dispatch.wall", []))))
+            finally:
+                del os.environ["HOTSTUFF_FORCE_DEVICE_ROUTE"]
+                await drained(single)
+                single.close()
+            return launches
+        finally:
+            await drained(service)
+            service.close()
+
+    async def drained(svc, limit_s: float = 10.0) -> None:
+        """Let every in-flight wave (a probe included) land before the
+        service closes, so no slot thread is left mid-launch."""
+        t_end = time.perf_counter() + limit_s
+        while svc._inflight and time.perf_counter() < t_end:
+            await asyncio.sleep(0.001)
+
+    return asyncio.run(run())
+
+
 def main() -> int:
     import torch
 
@@ -345,17 +633,42 @@ def main() -> int:
     wall = (time.perf_counter() - t0) / reps
     print(f"verify_device, 1024-claim wave: {wall * 1e3:.1f} ms host clock, "
           f"{WAVE / wall:.0f} sigs/s [{card}]")
-    rec = spans.enable()
-    try:
+    def waves(clear: bool) -> None:
         for _ in range(reps):
+            if clear:
+                v._challenge_memo.clear()
             v.verify_device(msgs, wpks, sigs)
-        stages = {}
-        for name, _t0, dur, _depth, _thread in rec.drain():
-            stages[name] = stages.get(name, 0) + dur / reps / 1e6
-    finally:
-        spans.disable()
-    print("verify_device stages (ms, mean of %d): %s" % (
-        reps, ", ".join(f"{k} {ms:.3f}" for k, ms in stages.items())))
+
+    def on_thread(clear: bool) -> None:  # a second thread, as the wave service's slots are
+        worker = threading.Thread(target=waves, args=(clear,))
+        worker.start()
+        worker.join()
+
+    # cleared: as for claims seen for the first time
+    for label, run, clear in (("challenge memo kept", waves, False),
+                              ("challenge memo cleared", waves, True),
+                              ("challenge memo cleared, on a second thread", on_thread, True)):
+        rec = spans.enable()
+        try:
+            run(clear)
+            stages = {}
+            for name, _t0, dur, _depth, _thread in rec.drain():
+                stages[name] = stages.get(name, 0) + dur / reps / 1e6
+        finally:
+            spans.disable()
+        print("verify_device stages, %s (ms, mean of %d): %s" % (
+            label, reps, ", ".join(f"{k} {ms:.3f}" for k, ms in stages.items())))
+
+    # 7. (a) the view-change storm, 8. (b) coalesced waves: each its own
+    #    main-path run, counted from 0
+    t0 = time.perf_counter()
+    storm_launches = storm_phase(card)
+    print(f"phase (a) took {time.perf_counter() - t0:.1f} s")
+    check(storm_launches > 0, "the storm never launched the verify kernel")
+    t0 = time.perf_counter()
+    wave_launches = coalesced_phase(card)
+    print(f"phase (b) took {time.perf_counter() - t0:.1f} s")
+    check(wave_launches > 0, "the coalesced waves never launched the verify kernel")
 
     B = WAVE
     v_bound, s_bound = bounds(B)
@@ -365,7 +678,7 @@ def main() -> int:
             "route": "cuda",
             "source": "hotstuff_tpu_torch/gpu/csrc/dsm_kernels.cu",
             "replaces": "hotstuff_tpu/tpu/pallas_dsm.py:587",
-            "launches": main_launches["verify_compressed"],
+            "launches": main_launches["verify_compressed"] + storm_launches + wave_launches,
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

@@ -1,4 +1,4 @@
-"""The verifier backend protocol and the CPU backend.
+"""The verifier backend protocol, the CPU backend and the signing service.
 
 Copied from ``hotstuff_tpu.crypto.service`` without the native batch
 library branch (``native_ed25519`` is not part of the port yet): the CPU
@@ -14,7 +14,7 @@ from typing import Protocol
 
 from ..telemetry import spans as _spans
 from .digest import Digest
-from .keys import PublicKey
+from .keys import PublicKey, SecretKey
 from .signature import CryptoError, Signature
 
 
@@ -25,12 +25,22 @@ class VerifierBackend(Protocol):
     attributes via ``getattr``; absence means the default shown:
 
     - ``name = "?"`` — backend label for stats/telemetry tags;
+    - ``async_kind`` (unset) — advertises the off-loop coalescing claim
+      path (``crypto/async_service.py``); one shared service per (event
+      loop, kind);
+    - ``device_ready = True`` — the device verifier is warm; the service
+      never routes to a backend that would build kernels mid-consensus;
+    - ``dispatch_deadline_s = 0.1`` — floor for the per-dispatch
+      deadline (raised adaptively from the dispatch EWMA);
     - ``device_key_cache = False`` — committee key tables are staged
       device-resident once per rebuild and gathered by row id per wave;
     - ``supports_wave_padding = False`` — device-routed waves may be
       pre-padded to fixed bucket shapes with always-valid filler claims
       (only backends whose per-claim verdicts are independent of the
-      other claims in the batch may opt in).
+      other claims in the batch may opt in);
+    - ``wave_bucket_shapes`` (unset) — the backend's own bucket ladder
+      for that padding, overriding the default (but not an explicit
+      ``HOTSTUFF_WAVE_BUCKETS``).
     """
 
     def verify_one(self, digest: Digest, pk: PublicKey, sig: Signature) -> bool: ...
@@ -91,3 +101,27 @@ class CpuVerifier:
 
         with _spans.span("host.verify"):
             return batch_verify_arrays(digests, pks, sigs)
+
+
+class SignatureService:
+    """The service owning the node's secret key (reference
+    ``SignatureService``, crypto/src/lib.rs:232-257).  Signs inline: under
+    asyncio's single thread an actor hop would cost more than the sign.
+    ``shutdown()`` drops the key and wipes the secret, after which
+    requests raise."""
+
+    def __init__(self, secret: SecretKey):
+        self._secret = secret
+        self._closed = False
+
+    async def request_signature(self, digest: Digest) -> Signature:
+        return self.sign_sync(digest)
+
+    def sign_sync(self, digest: Digest) -> Signature:
+        if self._closed:
+            raise RuntimeError("SignatureService is shut down")
+        return Signature.new(digest, self._secret)
+
+    def shutdown(self) -> None:
+        self._closed = True
+        self._secret.wipe()

@@ -35,6 +35,8 @@ kernel launches per wrapper.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -83,11 +85,19 @@ BTAB_T2D = _bake_t2d(curve.B_TABLE8)  # [256, 4, 20] int32, T -> T*2d
 F.register_const("btab_t2d", BTAB_T2D)
 
 launches = {"verify_compressed": 0, "dual_scalar_mult": 0}
+# the wave service launches from several slot threads at once
+_launches_lock = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -161,7 +171,7 @@ def verify_compressed(s_win, k_win, a_point, r_y, r_sign) -> torch.Tensor:
         (*a_point, s_win, k_win, r_y, r_sign, ok),
         batch,
     )
-    launches["verify_compressed"] += 1
+    _count_launch("verify_compressed")
     return ok != 0
 
 
@@ -179,5 +189,5 @@ def dual_scalar_mult(s_win, k_win, a_point):
         (*a_point, s_win, k_win, *out.unbind(0)),
         batch,
     )
-    launches["dual_scalar_mult"] += 1
+    _count_launch("dual_scalar_mult")
     return tuple(out.unbind(0))

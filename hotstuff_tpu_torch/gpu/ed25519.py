@@ -21,6 +21,7 @@ multiples of the kernel tile; larger batches go in 1024-lane chunks.
 from __future__ import annotations
 
 import threading
+from contextlib import ExitStack
 
 import numpy as np
 import torch
@@ -134,8 +135,8 @@ class _Slot:
 
 class BatchVerifier:
     """Host-side driver: prepares batches, caches committee points, runs
-    the verify kernel.  Thread-compatible: per-thread staging slots, and
-    caches keyed by immutable bytes.
+    the verify kernel.  Thread-compatible: per-thread staging slots and
+    CUDA streams, and caches keyed by immutable bytes.
 
     Hybrid routing: batches smaller than ``min_device_batch`` are
     verified on the host instead — a dispatch has a fixed cost that
@@ -156,11 +157,12 @@ class BatchVerifier:
         # _table_lock serializes cache inserts and rebuilds
         self._table_lock = threading.Lock()
         self._tables: tuple | None = None
-        # the device-resident copy of the published build's tables,
-        # [4, k, 20], and the build it mirrors
-        self._device_tables: torch.Tensor | None = None
-        self._device_src: tuple | None = None
-        # per-thread staging slots, keyed by padded size
+        # (build, device-resident copy of its tables [4, k, 20]),
+        # published with one assignment
+        self._device_staged: tuple | None = None
+        # per-thread staging slots (keyed by padded size) and, on CUDA,
+        # the thread's own stream: the wave service's slot threads stage
+        # and launch concurrently, and each waits only on its own work
         self._scratch = threading.local()
         # challenge-hash memo: k = H(R||A||M) per claim; pad claims and
         # re-verified claims hit it.  Bounded; cleared when full.
@@ -210,13 +212,24 @@ class BatchVerifier:
 
     def _device_build(self, build) -> torch.Tensor:
         """The device-resident copy of ``build``'s stacked tables, staged
-        on first use after each rebuild (last writer wins; every copy is
-        of the same immutable build)."""
-        if self._device_src is not build:
+        on first use after each rebuild and published with the build it
+        mirrors in one assignment (last writer wins; every copy is of
+        the same immutable build)."""
+        staged = self._device_staged
+        if staged is None or staged[0] is not build:
             tables, _ = build
-            self._device_tables = torch.from_numpy(np.stack(tables)).to(self.device)
-            self._device_src = build
-        return self._device_tables
+            staged = (build, torch.from_numpy(np.stack(tables)).to(self.device))
+            if self.device.type == "cuda":
+                # the upload ran on this thread's stream: finish it
+                # before another thread's stream can read the table
+                torch.cuda.current_stream(self.device).synchronize()
+            self._device_staged = staged
+        table = staged[1]
+        if self.device.type == "cuda":
+            # read on this thread's stream: the allocator must not reuse
+            # the memory after a rebuild until that read is done
+            table.record_stream(torch.cuda.current_stream(self.device))
+        return table
 
     def _slot_for(self, padded: int) -> _Slot:
         pool = getattr(self._scratch, "pool", None)
@@ -296,24 +309,39 @@ class BatchVerifier:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _on_thread_stream(self) -> ExitStack:
+        """Make the verifier's device and this thread's stream current
+        (nothing on the CPU).  The CUDA current device and stream are
+        per thread, so every slot thread sets both."""
+        ctx = ExitStack()
+        if self.device.type == "cuda":
+            stream = getattr(self._scratch, "stream", None)
+            if stream is None:
+                stream = self._scratch.stream = torch.cuda.Stream(self.device)
+            ctx.enter_context(torch.cuda.device(self.device))
+            ctx.enter_context(torch.cuda.stream(stream))
+        return ctx
 
     def _run_staged(self, stage_fn, n: int) -> np.ndarray:
-        """Stage, launch and read back one wave of ``n`` claims."""
+        """Stage, launch and read back one wave of ``n`` claims on this
+        thread's stream."""
         rec = _spans.recorder()
-        if rec is None:
-            valid_host, arrays = stage_fn()
-            ok = self._run_kernel(*arrays)
-            return ok[:n].cpu().numpy() & valid_host
-        # profiling: the dispatch split into its waterfall stages
-        with rec.span("prepare"):
-            valid_host, arrays = stage_fn()
-        with rec.span("dispatch"):
-            ok = self._run_kernel(*arrays)
-        with rec.span("device.execute"):
-            self._sync()
-        with rec.span("readback"):
-            return ok[:n].cpu().numpy() & valid_host
+        with self._on_thread_stream():
+            if rec is None:
+                valid_host, arrays = stage_fn()
+                ok = self._run_kernel(*arrays)
+                return ok[:n].cpu().numpy() & valid_host
+            # profiling: the dispatch split into its waterfall stages
+            with rec.span("prepare"):
+                valid_host, arrays = stage_fn()
+            with rec.span("dispatch"):
+                ok = self._run_kernel(*arrays)
+            with rec.span("device.execute"):
+                self._sync()
+            with rec.span("readback"):
+                return ok[:n].cpu().numpy() & valid_host
 
     def verify_device(
         self,

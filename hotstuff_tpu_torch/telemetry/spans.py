@@ -1,15 +1,21 @@
 """Verify-pipeline span recorder: where a verify call's wall time goes.
 
 A reduced copy of ``hotstuff_tpu.telemetry.spans``: only what
-``gpu.ed25519.BatchVerifier`` uses (``recorder()``, ``span()``, and the
-switches that turn recording on and off).  The stage names are the
-reference's, so a waterfall reads the same on both packages:
+``gpu.ed25519.BatchVerifier`` and ``crypto.async_service`` use
+(``recorder()``, ``span()``, ``SpanRecorder.add``, and the switches that
+turn recording on and off).  The stage names are the reference's, so a
+waterfall reads the same on both packages:
 
     prepare          host staging: key-row lookup, hashing, padding, H2D
     dispatch         kernel launch (device enqueue)
     device.execute   waiting for the device to finish the launch
     readback         device -> host copy of the verdict lanes
     host.verify      CPU evaluation (the hybrid route for small batches)
+
+and, from the wave service: ``flatten``, ``route.decide``,
+``stage.pack``, ``stage.slot_wait``, ``dispatch.wall``,
+``coalesce.wait``, ``pipeline.wait``, ``verdict.fanout`` and ``e2e``
+(and ``pipeline.occupancy``, whose duration field holds a count).
 
 Off by default: :func:`enable` turns it on.  Disabled, :func:`span`
 returns one shared no-op context and :func:`recorder` returns ``None``.
@@ -90,6 +96,13 @@ class SpanRecorder:
 
     def span(self, name: str) -> _Span:
         return _Span(self, name)
+
+    def add(self, name: str, t0_ns: int, dur_ns: int) -> None:
+        """A manually-timed span (stages whose start predates the code
+        that can observe them, e.g. coalesce.wait from submit stamps)."""
+        self._ring.append(
+            (name, t0_ns, max(0, int(dur_ns)), 0, threading.current_thread().name)
+        )
 
     def drain(self) -> list[tuple]:
         out = list(self._ring)

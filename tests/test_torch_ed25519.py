@@ -271,6 +271,42 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert int(proc.stdout.split()[0]) >= len(modules)
 
 
+def _relative_imports(path):
+    """(level, module, names) of every relative import in ``path``,
+    including those inside functions."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level > 0:
+            yield node.level, node.module, [a.name for a in node.names]
+
+
+def test_every_relative_import_resolves_to_a_port_module():
+    """A lazy import left pointing at a module the port does not have
+    (native_ed25519, bls, the telemetry registry) fails only when its
+    branch runs; here every relative import of the package, at any
+    depth, must name a module of the port and names it defines."""
+    import importlib
+
+    seen = 0
+    for path in sorted(PKG.rglob("*.py")):
+        parts = path.relative_to(PKG.parent).with_suffix("").parts
+        package = parts[:-1]  # the package a module's relative imports start from
+        for level, module, names in _relative_imports(path):
+            base = package[: len(package) - (level - 1)]
+            target = base + (tuple(module.split(".")) if module else ())
+            where = PKG.parent.joinpath(*target)
+            is_pkg = (where / "__init__.py").exists()
+            assert is_pkg or where.with_suffix(".py").exists(), f"{path}: no module {'.'.join(target)}"
+            mod = importlib.import_module(".".join(target))
+            for name in names:
+                sub = where / f"{name}.py"
+                assert (is_pkg and (sub.exists() or (where / name).is_dir())) or hasattr(mod, name), (
+                    f"{path}: {'.'.join(target)} has no {name}"
+                )
+            seen += 1
+    assert seen >= 60
+
+
 def test_keys_and_digest_copies_match_the_reference():
     from hotstuff_tpu.crypto import Digest as JDigest, generate_keypair as jgen
 
