@@ -49,9 +49,20 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    padded to the 1024 bucket, and the verify kernel's launch count must
    rise; wave wall times, launches per wave and the service's stats
    line are printed;
-9. a ``{"kernels": [...]}`` line, then the last line
+9. (c) a 64-node co-located committee (``bench/committee.py``
+   ``run_committee(nodes=64, rate=1000, duration=20, size=512,
+   verifier="cuda")``, quorum 43, 5,000 ms timeout delay, no faults):
+   64 consensus stacks in one event loop sharing ``make_verifier("cuda")``
+   and its wave service, fed 1,000 producer frames a second of 512-byte
+   bodies over TCP.  Every node must commit at least 5 non-genesis
+   blocks, all 64 chains must agree on their common prefix, the verify
+   kernel must launch after boot and the service must route waves to the
+   device; everything ``run_committee`` returns is printed (the chains
+   as lengths and the common prefix), with the wall times of boot and
+   shutdown;
+10. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the three main-path runs (3, 7 and 8).
+   over the four main-path runs (3, 7, 8 and 9).
 
 Any mismatch raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device it exits with 2 and prints no result.
@@ -60,6 +71,7 @@ printed.  Without a CUDA device it exits with 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import faulthandler
 import gc
 import json
 import os
@@ -79,6 +91,7 @@ PAD_SIZES = (128, 256, 1024)
 TIMED_LAUNCHES = 10
 REPEATED_LAUNCHES = 20
 QC_CALLS = 20
+WATCHDOG_S = 900
 
 # Peak rates of one H100 SXM used for the bound (at its 700 W limit):
 # HBM 3.35 TB/s (data sheet); int32 multiply-adds at 64 lanes per SM per
@@ -487,12 +500,58 @@ def coalesced_phase(card: str, nodes: int = COMMITTEE, rounds: int = 4, cores: i
     return asyncio.run(run())
 
 
+def committee_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
+                    torch_device=None) -> int:
+    """(c) A co-located committee on the device host; returns the verify
+    kernel's launches in it (boot included)."""
+    from hotstuff_tpu_torch.bench.committee import run_committee
+    from hotstuff_tpu_torch.gpu import dsm
+    from hotstuff_tpu_torch.gpu.ed25519 import resolve_device
+
+    dsm.reset_launches()
+    t0 = time.perf_counter()
+    # the phase gets its own deadline: boot, the load and shutdown take
+    # about duration + 15 s
+    faulthandler.dump_traceback_later(duration + 120, exit=True)
+    try:
+        r = run_committee(nodes=nodes, rate=rate, duration=duration, size=512,
+                          verifier="cuda", device=torch_device)
+    finally:
+        faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    wall = time.perf_counter() - t0
+    launches = dsm.launches["verify_compressed"]
+    chains = r.pop("chains")
+    print("committee result: " + json.dumps(r))
+    lengths = [len(c) for c in chains]
+    prefix = [d.to_bytes().hex()[:8] for d in chains[0][:r["common_prefix"]]]
+    if len(prefix) > 16:
+        prefix[8:-8] = ["..."]
+    print(f"committee chains: {nodes} chains of {min(lengths)}-{max(lengths)} blocks, common prefix "
+          f"{r['common_prefix']}, agree {r['chains_agree']}; prefix digests: " + " ".join(prefix))
+    print(f"committee phase: {nodes} nodes, {rate} tx/s of 512 B for {duration} s: boot {r['boot_s']:.2f} s, "
+          f"shutdown {r['shutdown_s']:.2f} s, {wall:.1f} s in all (host clock); blocks per node "
+          f"{min(r['blocks'])}-{max(r['blocks'])}; {r['payloads_per_s']:.0f} payloads/s; latency mean "
+          f"{(r['latency_mean_s'] or 0) * 1e3:.0f} ms, p50 {(r['latency_p50_s'] or 0) * 1e3:.0f} ms; "
+          f"view-change timeouts {r['timeouts']}; verify kernel launches {launches} "
+          f"({r['k1_launches']} after boot); worst loop lag {r['max_loop_lag_s'] * 1e3:.1f} ms [{card}]")
+    check(min(r["blocks"]) >= 5, "committee: every node commits at least 5 non-genesis blocks")
+    check(r["chains_agree"], "committee: all chains agree on their common prefix")
+    svc = r["service"]
+    check(svc is not None and svc["device"] > 0, "committee: the wave service routed waves to the device")
+    if resolve_device(torch_device).type == "cuda":  # a CPU rehearsal runs the plain versions
+        check(r["k1_launches"] > 0, "committee: the verify kernel launched after boot")
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    # a hang anywhere dumps every thread's stack and exits non-zero well
+    # inside the run's 1200 s limit
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, ROOT)
     from hotstuff_tpu_torch.gpu import _build, dsm, field as F
     from hotstuff_tpu_torch.gpu.ed25519 import BatchVerifier
@@ -659,8 +718,8 @@ def main() -> int:
         print("verify_device stages, %s (ms, mean of %d): %s" % (
             label, reps, ", ".join(f"{k} {ms:.3f}" for k, ms in stages.items())))
 
-    # 7. (a) the view-change storm, 8. (b) coalesced waves: each its own
-    #    main-path run, counted from 0
+    # 7. (a) the view-change storm, 8. (b) coalesced waves, 9. (c) the
+    #    committee: each its own main-path run, counted from 0
     t0 = time.perf_counter()
     storm_launches = storm_phase(card)
     print(f"phase (a) took {time.perf_counter() - t0:.1f} s")
@@ -669,6 +728,9 @@ def main() -> int:
     wave_launches = coalesced_phase(card)
     print(f"phase (b) took {time.perf_counter() - t0:.1f} s")
     check(wave_launches > 0, "the coalesced waves never launched the verify kernel")
+    t0 = time.perf_counter()
+    committee_launches = committee_phase(card)
+    print(f"phase (c) took {time.perf_counter() - t0:.1f} s")
 
     B = WAVE
     v_bound, s_bound = bounds(B)
@@ -678,7 +740,8 @@ def main() -> int:
             "route": "cuda",
             "source": "hotstuff_tpu_torch/gpu/csrc/dsm_kernels.cu",
             "replaces": "hotstuff_tpu/tpu/pallas_dsm.py:587",
-            "launches": main_launches["verify_compressed"] + storm_launches + wave_launches,
+            "launches": (main_launches["verify_compressed"] + storm_launches + wave_launches
+                         + committee_launches),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

@@ -4,9 +4,14 @@ The port stands beside ``hotstuff_tpu`` (the JAX reference) and imports
 nothing from it: what it needs is copied and trimmed.  Layers, top down:
 
 - ``bench/storm.py``: the view-change-storm micro-benchmark;
+  ``bench/committee.py``: ``run_committee``, a co-located committee;
 - ``node/node.py``: the device-verifier host (``make_verifier``);
-- ``consensus/``: the certificate layer — messages, wire, committee
-  configuration, reconfiguration ops and the vote/timeout aggregators;
+- ``consensus/``: the protocol engine — core, proposer, synchronizer,
+  helper, leader election, timer and ``Consensus.spawn`` — over the
+  certificate layer: messages, wire, committee configuration,
+  reconfiguration ops and the vote/timeout aggregators;
+- ``network/``, ``store/``, ``ingest/``: the asyncio transport, the
+  write-ahead-log store and producer admission;
 - ``crypto/async_service.py``: the wave service that coalesces claims
   from many cores into padded device waves; the rest of ``crypto/``,
   ``utils/`` and ``telemetry/`` are the host crypto and helpers;

@@ -1,10 +1,17 @@
-"""The certificate layer of the consensus protocol: messages, committee
-configuration and the vote/timeout aggregators, copied from
-``hotstuff_tpu.consensus``.  The protocol engine itself (core, proposer,
-synchronizer, helper and their wiring) is not ported yet."""
+"""Consensus layer: the 2-chain HotStuff protocol engine, copied from
+``hotstuff_tpu.consensus``.
+
+Parity map (SURVEY.md §2.4): messages (Block/Vote/QC/Timeout/TC), config
+(Committee/Parameters), aggregator (QCMaker/TCMaker), leader elector,
+timer, core state machine, proposer, synchronizer, helper, and the
+Consensus wiring — reference crate ``consensus/``.  State sync and
+Handel aggregation are not ported.
+"""
 
 from .aggregator import Aggregator, QCMaker, TCMaker
 from .config import Authority, Committee, CommitteeSchedule, Parameters
+from .consensus import CHANNEL_CAPACITY, Consensus, ConsensusReceiverHandler
+from .core import ConsensusState, Core, ProposerMessage
 from .errors import (
     AuthorityReuse,
     ConsensusError,
@@ -15,7 +22,12 @@ from .errors import (
     UnknownAuthority,
     WrongLeader,
 )
+from .helper import Helper
+from .leader import LeaderElector, RoundRobinLeaderElector
 from .messages import QC, TC, Block, Round, Timeout, Vote, timeout_digest
+from .proposer import Proposer
+from .synchronizer import Synchronizer
+from .timer import Timer
 
 __all__ = [
     "Aggregator",
@@ -25,6 +37,12 @@ __all__ = [
     "Committee",
     "CommitteeSchedule",
     "Parameters",
+    "CHANNEL_CAPACITY",
+    "Consensus",
+    "ConsensusReceiverHandler",
+    "ConsensusState",
+    "Core",
+    "ProposerMessage",
     "AuthorityReuse",
     "ConsensusError",
     "InvalidSignature",
@@ -33,6 +51,9 @@ __all__ = [
     "TCRequiresQuorum",
     "UnknownAuthority",
     "WrongLeader",
+    "Helper",
+    "LeaderElector",
+    "RoundRobinLeaderElector",
     "QC",
     "TC",
     "Block",
@@ -40,4 +61,7 @@ __all__ = [
     "Timeout",
     "Vote",
     "timeout_digest",
+    "Proposer",
+    "Synchronizer",
+    "Timer",
 ]

@@ -4,11 +4,12 @@ Parity target: ``ConsensusMessage`` (reference consensus/src/consensus.rs:
 30-38): Propose(Block), Vote, Timeout, TC, SyncRequest(digest, origin),
 Producer(digest) — the fork's payload-ingest message.
 
-A copy of ``hotstuff_tpu.consensus.wire`` without the producer ingest
-ACK and the state-sync frames (tags 7-10), which belong to the network
-and store layers the port does not have yet: a frame with one of those
-tags is an unknown tag here.  Every other frame encodes and decodes to
-the same bytes and objects as in the JAX package.
+A copy of ``hotstuff_tpu.consensus.wire`` without the state-sync frames
+(tags 7-10), which belong to state sync, not ported yet: a frame with
+one of those tags is an unknown tag here.  The store form of the
+certified schedule links (which the state-sync manifest also carries)
+is kept for the core.  Every other frame encodes and decodes to the
+same bytes and objects as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from ..utils.codec import CodecError, Decoder, Encoder
 from .errors import SerializationError
 from .messages import (
     MAX_SIGNER_BITMAP,
-    QC,
     TC,
     Block,
     Timeout,
@@ -145,6 +145,77 @@ def encode_producer_batch(items) -> bytes:
     return enc.finish()
 
 
+# ---- ingest ACK (the reply frame on the producer socket) -------------------
+
+#: first byte of an ingest ACK — disjoint from the legacy ``b"Ack"``
+#: (0x41) so a reply frame's kind is decidable from one byte
+INGEST_ACK_TAG = 0xA2
+INGEST_OK = 0
+INGEST_BUSY = 1
+
+
+class IngestAck:
+    """Typed producer ACK: the admission decision for one frame.
+
+    ``status`` is INGEST_BUSY when anything was shed; ``credit`` is the
+    node's current credit window (payloads the client may have in
+    flight before the next ACK); ``retry_after_ms`` is the node's
+    drain-rate-derived pause hint (0 unless busy)."""
+
+    __slots__ = ("status", "accepted", "shed", "credit", "retry_after_ms")
+
+    def __init__(self, status, accepted, shed, credit, retry_after_ms):
+        self.status = status
+        self.accepted = accepted
+        self.shed = shed
+        self.credit = credit
+        self.retry_after_ms = retry_after_ms
+
+    @property
+    def busy(self) -> bool:
+        return self.status == INGEST_BUSY
+
+
+def encode_ingest_ack(
+    accepted: int, shed: int, credit: int, retry_after_ms: int
+) -> bytes:
+    status = INGEST_BUSY if shed else INGEST_OK
+    u32max = (1 << 32) - 1
+    return (
+        Encoder()
+        .u8(INGEST_ACK_TAG)
+        .u8(PRODUCER_FRAME_VERSION)
+        .u8(status)
+        .u32(min(u32max, max(0, accepted)))
+        .u32(min(u32max, max(0, shed)))
+        .u32(min(u32max, max(0, credit)))
+        .u32(min(u32max, max(0, retry_after_ms)))
+        .finish()
+    )
+
+
+def decode_ingest_ack(data: bytes) -> IngestAck | None:
+    """Reply-frame decode for producer clients: None for the legacy
+    ``b"Ack"`` (or any frame that isn't an ingest ACK), the typed ACK
+    otherwise.  Raises SerializationError on a malformed ingest ACK."""
+    if not data or data[0] != INGEST_ACK_TAG:
+        return None
+    try:
+        dec = Decoder(data)
+        dec.u8()
+        version = dec.u8()
+        if version != PRODUCER_FRAME_VERSION:
+            raise CodecError(f"unknown ingest ACK version {version}")
+        status = dec.u8()
+        if status not in (INGEST_OK, INGEST_BUSY):
+            raise CodecError(f"invalid ingest ACK status {status}")
+        ack = IngestAck(status, dec.u32(), dec.u32(), dec.u32(), dec.u32())
+        dec.finish()
+        return ack
+    except CodecError as e:
+        raise SerializationError(str(e)) from e
+
+
 # ---- reconfiguration submission (docs/RECONFIG.md) -------------------------
 
 
@@ -157,6 +228,46 @@ def encode_reconfig(op: ReconfigOp) -> bytes:
     enc = Encoder().u8(TAG_RECONFIG)
     op.encode(enc)
     return enc.finish()
+
+
+# ---- certified schedule links (docs/RECONFIG.md) ---------------------------
+
+#: decode-time cap on schedule links in one manifest (one per epoch
+#: change since genesis — 32 epoch changes is far beyond any run)
+MAX_SCHEDULE_LINKS = 32
+#: decode-time cap on one serialized link element (a reconfig block or
+#: its certifying QC; a 128-member committee plus a full certificate
+#: stays well under this)
+MAX_SCHEDULE_LINK_BYTES = 131_072
+
+
+def encode_schedule_links(links) -> bytes:
+    """Store form of the certified schedule-link list (core persists one
+    ``(reconfig block bytes, certifying QC bytes)`` pair per committed
+    epoch change; the state-sync server serves them in the manifest)."""
+    enc = Encoder().u16(len(links))
+    for block_bytes, qc_bytes in links:
+        enc.var_bytes(block_bytes)
+        enc.var_bytes(qc_bytes)
+    return enc.finish()
+
+
+def decode_schedule_links(data: bytes) -> list:
+    dec = Decoder(data)
+    n = dec.u16()
+    if n > MAX_SCHEDULE_LINKS:
+        raise CodecError(
+            f"schedule link count {n} exceeds cap {MAX_SCHEDULE_LINKS}"
+        )
+    out = [
+        (
+            dec.var_bytes(MAX_SCHEDULE_LINK_BYTES),
+            dec.var_bytes(MAX_SCHEDULE_LINK_BYTES),
+        )
+        for _ in range(n)
+    ]
+    dec.finish()
+    return out
 
 
 def decode_message(data: bytes, scheme: str | None = None):

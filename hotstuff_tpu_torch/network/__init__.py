@@ -1,0 +1,40 @@
+"""Network layer: length-delimited TCP receiver and senders.
+
+A copy of the asyncio transport of ``hotstuff_tpu.network`` (the native
+transport, WAN emulation, fault plane and flow accounting are not
+ported).  Parity map (SURVEY.md §2.3): Receiver/MessageHandler/Writer, SimpleSender
+(best-effort), ReliableSender (ACK-paired with backoff retransmit) —
+reference crate ``network/``.
+"""
+
+from .errors import (
+    AckError,
+    ConnectError,
+    ListenError,
+    NetworkError,
+    ReceiveError,
+    SendError,
+)
+from .framing import FramingError, read_frame, send_frame, write_frame
+from .receiver import MessageHandler, Receiver, Writer
+from .reliable_sender import CancelHandler, ReliableSender
+from .simple_sender import SimpleSender
+
+__all__ = [
+    "NetworkError",
+    "ConnectError",
+    "ListenError",
+    "SendError",
+    "ReceiveError",
+    "AckError",
+    "FramingError",
+    "read_frame",
+    "send_frame",
+    "write_frame",
+    "MessageHandler",
+    "Receiver",
+    "Writer",
+    "CancelHandler",
+    "ReliableSender",
+    "SimpleSender",
+]

@@ -1,0 +1,112 @@
+"""Network receiver: TCP listener dispatching frames to a handler.
+
+A copy of ``hotstuff_tpu.network.receiver`` without the zero-copy
+ingest taps, the fault plane and flow accounting: every frame goes
+straight to ``handler.dispatch(writer, bytes)``.  Parity target:
+reference ``Receiver<Handler>`` (network/src/receiver.rs:18-89): bind a
+TCP listener, spawn one runner per accepted connection, decode
+length-delimited frames, hand each to the handler with the connection's
+writer so it can send replies or ACKs back on the same socket (the
+proposer's quorum-ACK back-pressure depends on this).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import Protocol
+
+from .errors import classify
+from .framing import FramingError, read_frame, send_frame, set_nodelay
+
+log = logging.getLogger(__name__)
+
+
+class Writer:
+    """Reply-channel handed to MessageHandler.dispatch."""
+
+    def __init__(self, stream_writer: asyncio.StreamWriter):
+        self._writer = stream_writer
+
+    async def send(self, payload: bytes) -> None:
+        await send_frame(self._writer, payload)
+
+    @property
+    def peer(self):
+        return self._writer.get_extra_info("peername")
+
+
+class MessageHandler(Protocol):
+    async def dispatch(self, writer: Writer, message: bytes) -> None: ...
+
+
+class Receiver:
+    """Listens on ``address`` and dispatches every frame to ``handler``."""
+
+    def __init__(self, host: str, port: int, handler: MessageHandler):
+        self.host = host
+        self.port = port
+        self.handler = handler
+        self._server: asyncio.AbstractServer | None = None
+        self._closing = False
+        # insertion-ordered (dict-as-set): shutdown closes connections
+        # in accept order, so teardown is reproducible — a plain set
+        # iterates in id() order, which varies with heap layout
+        self._writers: dict[asyncio.StreamWriter, None] = {}
+
+    async def spawn(self) -> None:
+        try:
+            self._server = await asyncio.start_server(
+                self._handle_connection, self.host, self.port
+            )
+        except OSError as e:
+            raise classify(e, "listen", (self.host, self.port)) from e
+        log.debug("Listening on %s:%d", self.host, self.port)
+
+    async def _handle_connection(
+        self, reader: asyncio.StreamReader, stream_writer: asyncio.StreamWriter
+    ) -> None:
+        peer = stream_writer.get_extra_info("peername")
+        if self._closing:
+            # accepted before shutdown closed the listener but handed to
+            # us after it closed the live connections: without this,
+            # wait_closed() would wait on this connection forever (a
+            # race the JAX Receiver has too; co-located committees,
+            # whose senders keep reconnecting during shutdown, hit it)
+            stream_writer.close()
+            return
+        set_nodelay(stream_writer)
+        log.debug("Incoming connection from %s", peer)
+        self._writers[stream_writer] = None
+        writer = Writer(stream_writer)
+        try:
+            while True:
+                frame = await read_frame(reader)
+                await self.handler.dispatch(writer, frame)
+        except (
+            asyncio.IncompleteReadError,
+            ConnectionError,
+            OSError,
+            FramingError,
+        ):
+            log.debug("Connection from %s closed", peer)
+        finally:
+            self._writers.pop(stream_writer, None)
+            stream_writer.close()
+
+    @property
+    def connections(self) -> int:
+        """Live accepted connections."""
+        return len(self._writers)
+
+    async def shutdown(self) -> None:
+        if self._server is not None:
+            self._closing = True
+            self._server.close()
+            # Persistent peers hold their connections open; close them so
+            # wait_closed() (which in 3.12 waits on every live connection)
+            # can complete.
+            for w in list(self._writers):
+                w.close()
+            await self._server.wait_closed()
+            self._server = None

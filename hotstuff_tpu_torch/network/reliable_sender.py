@@ -1,0 +1,231 @@
+"""Reliable sender: per-message ACK futures, reconnect with backoff,
+retransmission of un-ACKed messages.
+
+A copy of ``hotstuff_tpu.network.reliable_sender`` without the WAN link
+scheduler, the fault plane and flow accounting.  Parity target:
+reference ``ReliableSender`` (network/src/reliable_sender.rs:25-248),
+semantics reproduced exactly (the proposer's 2f+1-ACK back-pressure
+depends on them):
+
+- every ``send`` returns a CancelHandler (here: an asyncio Future) resolved
+  with the peer's ACK payload for that message;
+- each peer has one connection task pairing sent frames with ACK frames
+  FIFO;
+- on connection failure, un-ACKed messages are retransmitted after
+  reconnecting with exponential backoff (200 ms doubling, capped at 60 s —
+  reference reliable_sender.rs:131,166) with FULL JITTER: each retry
+  sleeps uniform(0, delay) so the whole committee doesn't reconnect-
+  stampede the instant a partition heals;
+- messages whose future was cancelled by the caller are dropped instead of
+  retransmitted (the reference drops messages whose CancelHandler receiver
+  was dropped).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from collections import deque
+
+from ..utils.clock import default_clock, default_connector, default_rng
+from .errors import UnexpectedAckError, classify
+from .framing import FramingError, read_frame, send_frame, set_nodelay
+from .pool import BoundedPoolMixin, abort_writer
+
+log = logging.getLogger(__name__)
+
+CHANNEL_CAPACITY = 1000
+RETRY_DELAY_S = 0.2
+RETRY_CAP_S = 60.0
+
+Address = tuple[str, int]
+CancelHandler = asyncio.Future  # resolves to the ACK payload (bytes)
+
+
+class _Connection:
+    def __init__(self, address: Address):
+        self.address = address
+        #: retries whose backoff sleep was jittered (stampede-avoided
+        #: reconnect attempts)
+        self.jittered_retries = 0
+        self.queue: asyncio.Queue = asyncio.Queue(maxsize=CHANNEL_CAPACITY)
+        # un-ACKed in-flight messages, FIFO-paired with incoming ACKs
+        self.pending: deque[tuple[bytes, CancelHandler]] = deque()
+        self._waiting = False  # writer_loop parked on an empty queue
+        self._writer: asyncio.StreamWriter | None = None
+        self.connect_failures = 0
+        self.task = asyncio.get_running_loop().create_task(
+            self._run(), name=f"reliable-conn-{address}"
+        )
+
+    @property
+    def idle(self) -> bool:
+        """Nothing queued AND every sent frame ACKed — eviction loses
+        no message and cancels no caller's ACK future.
+
+        A connection stuck in connect-retry (``_writer`` unset: never
+        established, or between reconnect attempts) has no writer_loop
+        to park, so ``_waiting`` never becomes True — without the first
+        branch a dead peer would pin its pool slot forever, un-evictable
+        while it backs off toward the 60 s retry cap."""
+        if self._writer is None:
+            return self.queue.empty() and not self.pending
+        return self._waiting and self.queue.empty() and not self.pending
+
+    async def _run(self) -> None:
+        delay = RETRY_DELAY_S
+        while True:
+            try:
+                reader, writer = await default_connector()(*self.address)
+            except OSError as e:
+                self.connect_failures += 1
+                log.debug("%s", classify(e, "connect", self.address))
+                # full jitter: sleep uniform(0, delay) while the CEILING
+                # doubles — peers that lost the same partition at the
+                # same instant spread their reconnects across the window
+                # instead of stampeding the healed link in lockstep
+                if delay > RETRY_DELAY_S:
+                    self.jittered_retries += 1
+                    await default_clock().sleep(default_rng().uniform(0, delay))
+                else:
+                    await default_clock().sleep(delay)
+                delay = min(delay * 2, RETRY_CAP_S)
+                continue
+            set_nodelay(writer)
+            self._writer = writer
+            log.debug("Outgoing connection established with %s", self.address)
+            delay = RETRY_DELAY_S  # reset on success
+            try:
+                await self._keep_alive(reader, writer)
+            except (
+                ConnectionError,
+                OSError,
+                asyncio.IncompleteReadError,
+                FramingError,
+            ) as e:
+                # classify by what broke: the ACK pairing (un-ACKed
+                # frames in flight -> retransmitted on reconnect) vs a
+                # plain receive failure
+                op = "ack" if self.pending else "receive"
+                log.warning("%s", classify(e, op, self.address))
+            finally:
+                writer.close()
+                self._writer = None  # disconnected: back to retry state
+
+    async def _keep_alive(
+        self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
+    ) -> None:
+        # retransmit un-ACKed messages first (skip cancelled),
+        # reference reliable_sender.rs:187-199
+        self.pending = deque(
+            (d, f) for d, f in self.pending if not f.cancelled()
+        )
+        for data, _ in self.pending:
+            await send_frame(writer, data)
+
+        async def writer_loop():
+            while True:
+                self._waiting = True
+                try:
+                    data, fut = await self.queue.get()
+                finally:
+                    self._waiting = False
+                if fut.cancelled():
+                    continue
+                # join `pending` BEFORE the write: a connection drop
+                # mid-write must leave the message where the reconnect
+                # path retransmits it (and close() cancels its future)
+                self.pending.append((data, fut))
+                await send_frame(writer, data)
+
+        async def reader_loop():
+            while True:
+                ack = await read_frame(reader)
+                # each ACK pairs FIFO with exactly one sent frame; a frame
+                # whose caller cancelled still consumed this ACK slot
+                if self.pending:
+                    _, fut = self.pending.popleft()
+                    if not fut.cancelled():
+                        fut.set_result(ack)
+                else:
+                    # protocol desync the reference surfaces as
+                    # UnexpectedAck (error.rs): keep the connection (the
+                    # peer may just have double-ACKed) but say so
+                    log.warning(
+                        "%s", UnexpectedAckError(self.address, "no frame in flight")
+                    )
+
+        wtask = asyncio.ensure_future(writer_loop())
+        rtask = asyncio.ensure_future(reader_loop())
+        return await self._supervise(wtask, rtask)
+
+    @staticmethod
+    async def _supervise(wtask: asyncio.Task, rtask: asyncio.Task) -> None:
+        try:
+            done, _ = await asyncio.wait(
+                {wtask, rtask}, return_when=asyncio.FIRST_EXCEPTION
+            )
+            for t in done:
+                exc = t.exception()
+                if exc is not None:
+                    raise exc
+        finally:
+            wtask.cancel()
+            rtask.cancel()
+
+    def close(self) -> None:
+        self.task.cancel()
+        # release the socket immediately (pool.abort_writer docstring);
+        # eviction only targets fully-ACKed idle connections
+        abort_writer(self._writer)
+        self._writer = None
+        # fail every outstanding ACK future so no caller hangs
+        while not self.queue.empty():
+            _, fut = self.queue.get_nowait()
+            if not fut.done():
+                fut.cancel()
+        for _, fut in self.pending:
+            if not fut.done():
+                fut.cancel()
+        self.pending.clear()
+
+
+class ReliableSender(BoundedPoolMixin):
+    """``max_conns``: bounded connection pool (None = reference parity).
+    Only IDLE connections — empty queue, every frame ACKed — are LRU
+    evicted, so reliability semantics (retransmit, ACK futures) are
+    untouched; a proposer's broadcast may transiently exceed the cap
+    and the pool shrinks back as ACKs drain.  Pool machinery shared
+    with SimpleSender (network/pool.py)."""
+
+    def __init__(self, max_conns: int | None = None):
+        self._connections: dict[Address, _Connection] = {}
+        self._max_conns = max_conns
+        self._sweeper: asyncio.Task | None = None
+
+    def _connection(self, address: Address) -> _Connection:
+        conn = self._lru_hit(address)
+        if conn is not None:
+            return conn
+        conn = _Connection(address)
+        self._admit(address, conn)
+        return conn
+
+    async def _enqueue(self, address: Address, data: bytes) -> CancelHandler:
+        fut: CancelHandler = asyncio.get_running_loop().create_future()
+        conn = self._connection(address)
+        await conn.queue.put((data, fut))
+        return fut
+
+    async def send(self, address: Address, data: bytes) -> CancelHandler:
+        """Queue ``data`` for reliable delivery; the returned future resolves
+        with the peer's ACK payload."""
+        return await self._enqueue(address, data)
+
+    async def broadcast(
+        self, addresses: list[Address], data: bytes
+    ) -> list[CancelHandler]:
+        return [await self._enqueue(addr, data) for addr in addresses]
+
+    def close(self) -> None:
+        self._close_pool()

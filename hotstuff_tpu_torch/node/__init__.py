@@ -1,6 +1,5 @@
 """Node layer of the port: the device-verifier host (``make_verifier``).
-The composition root and the CLI come with the port of the consensus
-core."""
+The composition root and the CLI are not ported yet."""
 
 from .node import LazyDeviceVerifier, make_verifier
 

@@ -7,8 +7,8 @@ A copy of ``hotstuff_tpu/node/node.py:52-224`` — ``_DeviceDispatch``,
 ``gpu.ed25519.BatchVerifier(min_device_batch=64)``.  ``"cpu"`` is the
 host verifier.  The mesh kinds (``"tpu-sharded"``, ``"mesh"``) and BLS
 device verifiers are not ported yet and raise.  The ``Node`` class, the
-composition root that wires store, signing service and consensus, comes
-with the port of the consensus core.
+composition root that wires store, signing service and consensus, is
+not ported yet (``bench/committee.py`` wires the consensus stacks).
 """
 
 from __future__ import annotations

@@ -1,0 +1,92 @@
+"""Store: a single-writer store serializing all storage access.
+
+A copy of ``hotstuff_tpu.store`` that always opens the Python
+``WalEngine`` (the native engine is not ported; both speak the same
+on-disk format).  ``notify_read`` is the blocking-read primitive the
+synchronizer's "wait for a missing parent block" is built on: if the key
+is missing, the caller's future is parked in an obligations map and
+resolved by a later write of that key.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from collections import deque
+
+from .engine import Engine, WalEngine
+
+
+class Store:
+    """Single-writer store with the reference's command semantics,
+    executed INLINE on the event loop.
+
+    Under asyncio there is exactly one thread, so the loop itself
+    already provides the single-writer discipline: operations execute
+    synchronously in the caller's coroutine, in call order, which is the
+    same total order a command queue would impose.  The ``notify_read``
+    obligations map (park a future until a later write of that key) is
+    the primitive the synchronizer's missing-parent wait is built on.
+    """
+
+    def __init__(self, path: str, engine: Engine | None = None):
+        self.engine = engine if engine is not None else WalEngine(path)
+        self._obligations: dict[bytes, deque[asyncio.Future]] = {}
+        self._closed = False
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("Store is closed")
+
+    async def write(self, key: bytes, value: bytes) -> None:
+        self._check_open()
+        self.engine.put(key, value)
+        waiters = self._obligations.pop(key, None)
+        if waiters:
+            for fut in waiters:
+                if not fut.done():
+                    fut.set_result(value)
+
+    async def read(self, key: bytes) -> bytes | None:
+        self._check_open()
+        return self.engine.get(key)
+
+    async def delete(self, key: bytes) -> None:
+        """Remove a key (no obligation wake-up — deletes never resolve a
+        parked notify_read).  Used by the payload-body budget's eviction
+        of uncommitted producer bodies."""
+        self._check_open()
+        self.engine.delete(key)
+
+    async def notify_read(self, key: bytes) -> bytes:
+        """Read that resolves when the key exists (possibly immediately)."""
+        self._check_open()
+        value = self.engine.get(key)
+        if value is not None:
+            return value
+        fut = asyncio.get_running_loop().create_future()
+        self._obligations.setdefault(key, deque()).append(fut)
+        return await fut
+
+    def cancel_notify(self, key: bytes) -> None:
+        """Cancel and drop every future parked on ``key``.  The
+        synchronizer calls this when it gives up on a missing parent:
+        waiter tasks cancelled from outside leave their (cancelled)
+        futures in the obligations deque, and absent a later write of
+        that exact key the entry would pin memory forever."""
+        waiters = self._obligations.pop(key, None)
+        if waiters:
+            for fut in waiters:
+                if not fut.done():
+                    fut.cancel()
+
+    def close(self) -> None:
+        self._closed = True
+        for waiters in self._obligations.values():
+            for fut in waiters:
+                if not fut.done():
+                    fut.cancel()
+        self._obligations.clear()
+        self.engine.close()
+
+
+__all__ = ["Store", "Engine", "WalEngine"]
