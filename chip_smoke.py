@@ -60,9 +60,24 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    device; everything ``run_committee`` returns is printed (the chains
    as lengths and the common prefix), with the wall times of boot and
    shutdown;
-10. a ``{"kernels": [...]}`` line, then the last line
+10. (d) the same committee for 60 s with one crash and recovery
+   (``run_committee(..., duration=60, restart={"node": 1, "down_at_s":
+   5.0, "behind_rounds": 16, "deadline_s": 30.0})``): node 1's stack is
+   stopped 5 s into the load, spawned again on its store once the live
+   nodes are 16 rounds past its commit cursor, and catches up from a
+   peer's certified delta snapshot before it enters the protocol.  The
+   restarted node must adopt a snapshot at least 8 rounds past its
+   cursor with entries in it, log the advance of its commit cursor and
+   commit at least 5 blocks after the restart; every node must commit
+   at least 5 blocks; the chains must agree round by round and the state
+   roots version by version over all 64 nodes; every ledger read of a
+   payload committed during the outage must find it at the restarted
+   node where a live node does; and the verify kernel must launch in
+   the phase.  The result is printed with the sync's outcome, its times
+   and the routes of the manifest certificate checks;
+11. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the four main-path runs (3, 7, 8 and 9).
+   over the five main-path runs (3, 7, 8, 9 and 10).
 
 Any mismatch raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device it exits with 2 and prints no result.
@@ -521,7 +536,10 @@ def committee_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
     wall = time.perf_counter() - t0
     launches = dsm.launches["verify_compressed"]
     chains = r.pop("chains")
+    roots = r.pop("state_roots")
     print("committee result: " + json.dumps(r))
+    print(f"committee state roots: {sum(map(len, roots))} reports over {nodes} nodes, agree "
+          f"{r['roots_agree']}; " + summarize_roots(roots))
     lengths = [len(c) for c in chains]
     prefix = [d.to_bytes().hex()[:8] for d in chains[0][:r["common_prefix"]]]
     if len(prefix) > 16:
@@ -540,6 +558,90 @@ def committee_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
     check(svc is not None and svc["device"] > 0, "committee: the wave service routed waves to the device")
     if resolve_device(torch_device).type == "cuda":  # a CPU rehearsal runs the plain versions
         check(r["k1_launches"] > 0, "committee: the verify kernel launched after boot")
+    return launches
+
+
+def summarize_roots(roots) -> str:
+    """``version:root-prefix xnodes`` for each applied version, the
+    versions two nodes disagree on marked with ``!``."""
+    by_version: dict = collections.defaultdict(collections.Counter)
+    for node in roots:
+        for version, (root, _) in node.items():
+            by_version[version][root] += 1
+    parts = []
+    for version in sorted(by_version):
+        seen = by_version[version]
+        mark = "!" if len(seen) > 1 else ""
+        parts.append(f"{version}:" + "/".join(f"{r[:8]}x{n}" for r, n in seen.items()) + mark)
+    if len(parts) > 16:
+        parts[8:-8] = ["..."]
+    return " ".join(parts)
+
+
+def restart_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 60,
+                  torch_device=None, timeout_delay: int = 5_000, sync_retry_delay: int = 10_000,
+                  restart=None) -> int:
+    """(d) The committee with one node crashed and recovered through
+    state sync; returns the verify kernel's launches in it.  The
+    defaults are the deployment's; a CPU rehearsal at 4 nodes shortens
+    the timers (README, port section)."""
+    from hotstuff_tpu_torch.bench.committee import run_committee
+    from hotstuff_tpu_torch.gpu import dsm
+    from hotstuff_tpu_torch.gpu.ed25519 import resolve_device
+
+    if restart is None:
+        restart = {"node": 1, "down_at_s": 5.0, "behind_rounds": 16, "deadline_s": 30.0}
+    dsm.reset_launches()
+    t0 = time.perf_counter()
+    faulthandler.dump_traceback_later(duration + 150, exit=True)
+    try:
+        r = run_committee(nodes=nodes, rate=rate, duration=duration, size=512, verifier="cuda",
+                          device=torch_device, timeout_delay=timeout_delay,
+                          sync_retry_delay=sync_retry_delay, restart=restart)
+    finally:
+        faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    wall = time.perf_counter() - t0
+    launches = dsm.launches["verify_compressed"]
+    chains = r.pop("chains")
+    roots = r.pop("state_roots")
+    sync = r["state_sync"]
+    k = sync["node"]
+    print("restart result: " + json.dumps(r))
+    lengths = [len(c) for c in chains]
+    print(f"restart chains: {nodes} chains of {min(lengths)}-{max(lengths)} blocks, node {k}'s "
+          f"{lengths[k]} with a gap, common prefix {r['common_prefix']}, agree {r['chains_agree']}")
+    print(f"restart state roots: {sum(map(len, roots))} reports over {nodes} nodes, agree "
+          f"{r['roots_agree']}; node {k} reported {len(roots[k])} versions; " + summarize_roots(roots))
+    print(f"restart sync: node {k} down at {sync['down_at_s']:.2f} s, cursor {sync['cursor_at_stop']}, "
+          f"restarted at {sync['restart_at_s']:.2f} s {sync['rounds_behind']} rounds behind; "
+          f"adopted {sync['adopted']} ({sync['kind']}) version {sync['version']} at round {sync['round']} "
+          f"from {sync['offers']} offers: {sync['chunks']} chunks, {sync['entries']} entries, "
+          f"{sync['reasks']} re-asks, in {(sync['sync_s'] or 0) * 1e3:.0f} ms; cursor line "
+          f"{sync['cursor_advanced']}; first commit {(sync['first_commit_s'] or 0):.2f} s after the "
+          f"restart, {sync['blocks_after']} blocks after it; manifest QC checks by route "
+          f"{sync['qc_check_routes']}; worst loop lag in the sync "
+          f"{sync['max_loop_lag_in_sync_s'] * 1e3:.1f} ms [{card}]")
+    print(f"restart phase: {nodes} nodes, {rate} tx/s of 512 B for {duration} s: boot {r['boot_s']:.2f} s, "
+          f"shutdown {r['shutdown_s']:.2f} s, {wall:.1f} s in all (host clock); blocks per node "
+          f"{min(r['blocks'])}-{max(r['blocks'])}; {r['payloads_per_s']:.0f} payloads/s; latency mean "
+          f"{(r['latency_mean_s'] or 0) * 1e3:.0f} ms, p50 {(r['latency_p50_s'] or 0) * 1e3:.0f} ms; "
+          f"view-change timeouts {r['timeouts']}; verify kernel launches {launches} "
+          f"({r['k1_launches']} after boot); worst loop lag {r['max_loop_lag_s'] * 1e3:.1f} ms at "
+          f"{r['max_loop_lag_at_s']:.2f} s; ledger reads {r['ledger_reads']} [{card}]")
+    check(sync["adopted"] and sync["entries"] > 0, "restart: the node adopted a snapshot with entries")
+    check(sync["round"] >= sync["cursor_at_stop"] + 8,
+          "restart: the snapshot is at least 8 rounds past the node's commit cursor")
+    check(sync["cursor_advanced"] is not None and sync["cursor_advanced"][1] == sync["round"],
+          "restart: the node logged its commit cursor's advance to the snapshot round")
+    check(sync["blocks_after"] >= 5, "restart: the node committed at least 5 blocks after the restart")
+    check(min(r["blocks"]) >= 5, "restart: every node commits at least 5 non-genesis blocks")
+    check(r["chains_agree"], "restart: all chains agree round by round")
+    check(r["roots_agree"], "restart: all state roots agree version by version")
+    reads = r["ledger_reads"]
+    check(reads["reads"] > 0 and reads["matched"] == reads["reads"],
+          "restart: every ledger read at the restarted node matches a live node's")
+    if resolve_device(torch_device).type == "cuda":  # a CPU rehearsal runs the plain versions
+        check(launches > 0, "restart: the verify kernel launched in the phase")
     return launches
 
 
@@ -731,6 +833,9 @@ def main() -> int:
     t0 = time.perf_counter()
     committee_launches = committee_phase(card)
     print(f"phase (c) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    restart_launches = restart_phase(card)
+    print(f"phase (d) took {time.perf_counter() - t0:.1f} s")
 
     B = WAVE
     v_bound, s_bound = bounds(B)
@@ -741,7 +846,7 @@ def main() -> int:
             "source": "hotstuff_tpu_torch/gpu/csrc/dsm_kernels.cu",
             "replaces": "hotstuff_tpu/tpu/pallas_dsm.py:587",
             "launches": (main_launches["verify_compressed"] + storm_launches + wave_launches
-                         + committee_launches),
+                         + committee_launches + restart_launches),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

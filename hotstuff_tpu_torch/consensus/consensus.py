@@ -10,14 +10,15 @@ Parity target: reference ``Consensus::spawn`` + ``ConsensusReceiverHandler``
 
 Dispatch rules (consensus.rs:133-168): SyncRequest -> helper;
 Propose -> ACK on the same socket, then core; Producer -> ACK, then
-proposer; Vote/Timeout/TC -> core, no ACK.
+proposer; Vote/Timeout/TC -> core, no ACK; StateRequest -> the
+state-sync server; StateManifest/StateChunk -> the boot-time sync
+client; StateRead -> answered inline from the execution layer.
 
 A copy of ``hotstuff_tpu.consensus.consensus`` with the asyncio
-transport only.  Not ported, so cut: the execution layer
-(``StateMachine``) and state sync with their wire tags, join mode, WAN
-emulation, the fault and adversary planes, flow accounting, telemetry,
-the native and sim transports, and the receiver's native producer-v2
-fast path.
+transport only.  Not ported, so cut: join mode, WAN emulation, the
+fault and adversary planes, flow accounting, telemetry (with the
+execution layer's gauges), the native and sim transports, and the
+receiver's native producer-v2 fast path.
 """
 
 from __future__ import annotations
@@ -33,22 +34,30 @@ from ..network import Receiver as NetworkReceiver
 from ..network import ReliableSender, SimpleSender, Writer
 from ..network.pool import parse_max_conns
 from ..store import Store
+from ..store.state import StateMachine
 from .config import Committee, Parameters
-from .core import Core, make_event_channels
+from .core import CONSENSUS_STATE_KEY, Core, make_event_channels
 from .errors import SerializationError
 from .helper import Helper
 from .leader import LeaderElector
 from .proposer import Proposer
+from .statesync import StateSyncClient, StateSyncServer
 from .synchronizer import Synchronizer
 from .wire import (
     ACK,
     SCHEME_WIRE_SIZES,
+    STATE_READ_LEDGER,
     TAG_PRODUCER,
     TAG_PRODUCER_V2,
     TAG_PROPOSE,
+    TAG_STATE_CHUNK,
+    TAG_STATE_MANIFEST,
+    TAG_STATE_READ,
+    TAG_STATE_REQUEST,
     TAG_SYNC_REQUEST,
     decode_message,
     encode_ingest_ack,
+    encode_state_value,
 )
 
 log = logging.getLogger(__name__)
@@ -137,6 +146,9 @@ class ConsensusReceiverHandler:
         scheme: str | None = None,
         bodies: PayloadBodies | None = None,
         admission=None,
+        tx_state_requests: asyncio.Queue | None = None,
+        tx_state_sync: asyncio.Queue | None = None,
+        state=None,
         committee=None,
     ):
         self.tx_consensus = tx_consensus
@@ -152,6 +164,15 @@ class ConsensusReceiverHandler:
             if committee is not None
             else None
         )
+        # State-sync plumbing (consensus/statesync.py): peer snapshot
+        # requests go to the server actor; manifest/chunk replies go to
+        # the boot-time sync client.  ``state`` is the node's
+        # StateMachine, consulted inline for TAG_STATE_READ (the
+        # QC-anchored stale-read path — a lagging node answers at its
+        # last applied version while it catches up).
+        self.tx_state_requests = tx_state_requests
+        self.tx_state_sync = tx_state_sync
+        self.state = state
         # Ingest admission controller (ingest/admission.py): every
         # producer frame consults it; None keeps the legacy
         # always-accept path (bare component tests).
@@ -254,8 +275,51 @@ class ConsensusReceiverHandler:
                 )
             except (ConnectionError, OSError):
                 pass
+        elif tag == TAG_STATE_REQUEST:
+            if self.tx_state_requests is not None:
+                await self.tx_state_requests.put(payload)
+        elif tag in (TAG_STATE_MANIFEST, TAG_STATE_CHUNK):
+            # replies matter only while the one-shot boot catch-up is
+            # collecting; afterwards nothing drains the queue, so late
+            # frames are shed instead of wedging the receiver on a put
+            if self.tx_state_sync is not None:
+                try:
+                    self.tx_state_sync.put_nowait((tag, payload))
+                except asyncio.QueueFull:
+                    pass
+        elif tag == TAG_STATE_READ:
+            await self._serve_state_read(writer, payload)
         else:
             await self.tx_consensus.put((tag, payload))
+
+    async def _serve_state_read(self, writer: Writer, payload) -> None:
+        """QC-anchored stale read: answer at the last applied version —
+        by construction while catching up, too — with the anchor
+        (version, root, last_round) in the reply."""
+        space, key = payload
+        state = self.state
+        if state is None:
+            reply = encode_state_value(False, 0, b"\x00" * 32, 0, 0, b"")
+        else:
+            version, root, last_round = state.anchor()
+            found, entry_round, value = False, 0, b""
+            if space == STATE_READ_LEDGER:
+                hit = state.read_ledger(key)
+                if hit is not None:
+                    entry_round, seq = hit
+                    found, value = True, seq.to_bytes(4, "little")
+            else:
+                hit = state.read_user(key)
+                if hit is not None:
+                    entry_round, value = hit
+                    found = True
+            reply = encode_state_value(
+                found, version, root, last_round, entry_round, value
+            )
+        try:
+            await writer.send(reply)
+        except (ConnectionError, OSError):
+            pass
 
 
 class Consensus:
@@ -269,6 +333,8 @@ class Consensus:
         self.synchronizer: Synchronizer | None = None
         self.tx_producer: asyncio.Queue | None = None
         self.admission = None
+        self.state_machine = None
+        self.state_server = None
         self._tasks: list[asyncio.Task] = []
 
     @classmethod
@@ -299,6 +365,16 @@ class Consensus:
             verifier = CpuVerifier()
 
         payload_bodies = PayloadBodies(store, parameters.payload_body_budget)
+        # Replicated execution layer (store/state.py): the commit path
+        # applies every committed block through it; the receiver serves
+        # QC-anchored stale reads from it; the state-sync actors below
+        # snapshot it for crash-recovered peers.
+        state_machine = StateMachine(store)
+        self.state_machine = state_machine
+        tx_state_requests: asyncio.Queue = asyncio.Queue(
+            maxsize=CHANNEL_CAPACITY
+        )
+        tx_state_sync: asyncio.Queue = asyncio.Queue(maxsize=CHANNEL_CAPACITY)
         # Ingest admission controller (ingest/admission.py): constructed
         # before the receiver so the handler can consult it from the
         # first frame; bound to the proposer's buffer once the proposer
@@ -319,8 +395,8 @@ class Consensus:
 
         address = committee.address(name)
         if address is None:
-            # joining through a certified reconfiguration needs state
-            # sync, which is not ported
+            # join mode (booting outside the committee and joining
+            # through a certified reconfiguration) is not ported
             raise ValueError("Our public key is not in the committee")
         # Bounded per-sender connection pools for big co-located
         # committees (absent/non-positive = reference parity, unbounded)
@@ -343,6 +419,9 @@ class Consensus:
                 scheme=committee.wire_scheme(),
                 bodies=payload_bodies,
                 admission=admission,
+                tx_state_requests=tx_state_requests,
+                tx_state_sync=tx_state_sync,
+                state=state_machine,
                 committee=committee,
             ),
         )
@@ -380,7 +459,40 @@ class Consensus:
             tx_commit=tx_commit,
             network=make_sender(),
             payload_bodies=payload_bodies,
+            state_machine=state_machine,
         )
+        # State-sync plane (statesync.py): every node serves snapshots;
+        # a recovering node (surviving consensus state ⇒ this is a
+        # restart, not a first boot) additionally runs the one-shot
+        # boot catch-up before entering the protocol.  Modes:
+        # HOTSTUFF_STATE_SYNC=auto (default: catch up when recovering),
+        # always (also on a first boot), 0/off (never).
+        self.state_server = StateSyncServer(
+            name,
+            committee,
+            state_machine,
+            rx_requests=tx_state_requests,
+            high_qc=lambda c=self.core: c.high_qc,
+            network=make_sender(),
+            store=store,
+        )
+        sync_mode = os.environ.get("HOTSTUFF_STATE_SYNC", "auto").lower()
+        if sync_mode not in ("0", "off", "never"):
+            recovering = (await store.read(CONSENSUS_STATE_KEY)) is not None
+            if (recovering or sync_mode == "always") and (
+                committee.broadcast_addresses(name)
+            ):
+                self.core.state_sync = StateSyncClient(
+                    name,
+                    committee,
+                    state_machine,
+                    verifier,
+                    rx_replies=tx_state_sync,
+                    network=make_sender(),
+                    store=store,
+                    synchronizer=self.synchronizer,
+                )
+        self._tasks.append(self.state_server.spawn())
         self._tasks.append(self.core.spawn())
 
         self.proposer = Proposer(
@@ -414,9 +526,16 @@ class Consensus:
     async def shutdown(self) -> None:
         if self.receiver is not None:
             await self.receiver.shutdown()
-        for component in (self.core, self.proposer, self.helper):
+        for component in (
+            self.core, self.proposer, self.helper, self.state_server,
+        ):
             if component is not None:
                 component.shutdown()
+        if self.core is not None and self.core.state_sync is not None:
+            # the one-shot catch-up's sender outlives its bootstrap: a
+            # stack stopped in a process that goes on must not leave
+            # its connections and their tasks behind
+            self.core.state_sync.network.close()
         if self.synchronizer is not None:
             self.synchronizer.shutdown()
         for task in self._tasks:

@@ -20,12 +20,14 @@ enter the aggregator unverified and each certificate's signature set is
 batch-verified once at quorum, on the pluggable VerifierBackend (CPU or
 the CUDA kernel behind ``make_verifier("cuda")``).
 
-A copy of ``hotstuff_tpu.consensus.core`` without the telemetry,
-adversary, execution-layer (``StateMachine``) and state-sync seams:
-those planes are not ported, so their branches are cut.  Every other
-path — event channels, voting, QC/TC handling, commit, the persisted
-consensus state and reconfiguration with its persisted schedule links —
-is unchanged.
+A copy of ``hotstuff_tpu.consensus.core`` without the telemetry and
+adversary seams (the journal, the trace ring and the collude policy's
+shadow commits): those planes are not ported, so their branches are
+cut.  Every other path — event channels, voting, QC/TC handling,
+commit, the execution layer's apply and ``State root`` line after each
+commit, the boot-time state-sync catch-up, the persisted consensus
+state and reconfiguration with its persisted schedule links — is
+unchanged.
 """
 
 from __future__ import annotations
@@ -305,6 +307,7 @@ class Core:
         timeout_backoff: float = 2.0,
         timeout_cap_ms: int = 60_000,
         payload_bodies=None,
+        state_machine=None,
     ):
         self.name = name
         self.committee = committee
@@ -368,6 +371,13 @@ class Core:
             os.environ.get("HOTSTUFF_RECONFIG_GRACE_ROUNDS", "16")
         )
         self.retired = False
+        # Replicated execution layer (store/state.py): committed blocks
+        # are applied in commit order and summarized by a state root.
+        self.state = state_machine
+        # Boot-time snapshot catch-up (statesync.StateSyncClient), set
+        # by Consensus.spawn on recovering nodes; run() consults it
+        # once, right after load_state.
+        self.state_sync = None
         self.aggregator = Aggregator(committee, verifier, self_key=name)
         # Async claim preverifier (crypto/async_service.py): device
         # backends get a coalescing off-loop dispatch service (shared
@@ -508,6 +518,17 @@ class Core:
             # logging hides the other blocks' payloads from the harness
             # and undercounts TPS after every view change.
             self.log.info("Committed block %d -> %s", b.round, b.digest())
+            if self.state is not None:
+                # execution layer: apply in commit order
+                root = self.state.apply_block(b)
+                if root is not None:
+                    # NOTE: this log entry is used to compute performance.
+                    self.log.info(
+                        "State root %d -> %s (round %d)",
+                        self.state.version,
+                        Digest(root),
+                        b.round,
+                    )
             if b.reconfig is not None:
                 await self._apply_reconfig(b, cqc)
         # Tell the proposer what committed: (a) it prunes those digests
@@ -1192,9 +1213,33 @@ class Core:
     async def run(self) -> None:
         await self.load_state()
 
+        # Snapshot catch-up BEFORE entering the protocol: adopt a
+        # QC-anchored peer snapshot and jump the commit cursor past the
+        # missed history, so the first post-rejoin commit's ancestor
+        # walk spans only the sync window — never the outage (the
+        # "no history replay" half of state-sync; statesync.py).
+        if self.state_sync is not None:
+            try:
+                adopted = await self.state_sync.bootstrap(
+                    self.last_committed_round
+                )
+            except Exception as e:  # noqa: BLE001 — catch-up is an
+                # optimization; any failure degrades to normal replay
+                self.log.warning("State-sync bootstrap failed: %s", e)
+                adopted = 0
+            if adopted > self.last_committed_round:
+                self.log.info(
+                    "State sync advanced commit cursor %d -> %d "
+                    "(history replay skipped)",
+                    self.last_committed_round,
+                    adopted,
+                )
+                self.last_committed_round = adopted
+                self.state_changed = True
+
         # Epoch tracking starts at the CURRENT round's committee — only
-        # now, after recovery, so a restart inside a later epoch does
-        # not replay old activations.
+        # now, after recovery and any state-sync schedule splices, so a
+        # restart inside a later epoch does not replay old activations.
         com_now = self.committee.for_round(self.round)
         self._active_epoch = com_now.epoch
         if com_now.stake(self.name) <= 0:

@@ -31,9 +31,7 @@ change, and every voter re-checks the sponsor signature inside
 verification (the ``byz-reconfig`` adversary policy exercises exactly
 this path).
 
-A copy of ``hotstuff_tpu.consensus.reconfig`` without
-``splice_schedule_links``, the state-sync walk over certified schedule
-links, which comes with the port's store and state sync.
+A copy of ``hotstuff_tpu.consensus.reconfig``, whole.
 """
 
 from __future__ import annotations
@@ -256,3 +254,77 @@ def validate_reconfig(op: ReconfigOp, committee, round_, verifier=None):
     except InvalidCommittee as e:
         raise InvalidReconfig(str(e)) from e
 
+
+def splice_schedule_links(
+    links,
+    committee,
+    verifier,
+    qc_cache: set | None = None,
+    journal=None,
+    log=None,
+) -> int:
+    """Verified-successor acceptance (docs/RECONFIG.md): walk a certified
+    ``(reconfig block bytes, certifying QC bytes)`` chain — served in a
+    state-sync manifest or replayed from the local store at boot — and
+    splice every epoch change not yet present into the schedule.
+
+    Each link is self-certifying: the op is re-validated against the
+    schedule *as extended so far*, and the QC must certify exactly that
+    block under the committee in effect at its round.  A node that
+    started from only the genesis committee file therefore ends up with
+    the same schedule a live witness holds, or the chain is rejected.
+
+    Returns the number of links spliced; raises :class:`InvalidReconfig`
+    on the first link that fails verification (callers discard the whole
+    chain — a partial splice is still safe, since every applied link was
+    individually certified)."""
+    from ..utils.codec import CodecError, Decoder
+    from .errors import ConsensusError
+    from .messages import QC, Block
+
+    if not links:
+        return 0
+    if not hasattr(committee, "splice"):
+        raise InvalidReconfig(
+            "static committee cannot accept schedule links"
+        )
+    spliced = 0
+    for raw_block, raw_qc in links:
+        try:
+            block = Block.deserialize(raw_block)
+            dec = Decoder(raw_qc)
+            qc = QC.decode(dec)
+            dec.finish()
+        except (CodecError, ConsensusError, ValueError) as e:
+            raise InvalidReconfig(f"corrupt schedule link: {e}") from e
+        op = block.reconfig
+        if op is None:
+            raise InvalidReconfig("schedule link carries no reconfig op")
+        if op.new_committee.epoch <= newest_epoch(committee):
+            continue  # already spliced (earlier chain, or live witness)
+        validate_reconfig(op, committee, block.round, verifier=verifier)
+        if qc.hash != block.digest() or qc.round != block.round:
+            raise InvalidReconfig(
+                "schedule link QC does not certify its block"
+            )
+        try:
+            qc.verify(committee, verifier, cache=qc_cache)
+        except ConsensusError as e:
+            raise InvalidReconfig(
+                f"schedule link QC failed to verify: {e}"
+            ) from e
+        activation = block.round + op.margin
+        try:
+            committee.splice(activation, op.new_committee)
+        except InvalidCommittee as e:
+            raise InvalidReconfig(str(e)) from e
+        spliced += 1
+        if journal is not None:
+            journal.record("reconfig.link", block.round)
+        if log is not None:
+            log.info(
+                "Verified schedule link: epoch %d activates at round %d",
+                op.new_committee.epoch,
+                activation,
+            )
+    return spliced

@@ -4,12 +4,10 @@ Parity target: ``ConsensusMessage`` (reference consensus/src/consensus.rs:
 30-38): Propose(Block), Vote, Timeout, TC, SyncRequest(digest, origin),
 Producer(digest) — the fork's payload-ingest message.
 
-A copy of ``hotstuff_tpu.consensus.wire`` without the state-sync frames
-(tags 7-10), which belong to state sync, not ported yet: a frame with
-one of those tags is an unknown tag here.  The store form of the
-certified schedule links (which the state-sync manifest also carries)
-is kept for the core.  Every other frame encodes and decodes to the
-same bytes and objects as in the JAX package.
+A copy of ``hotstuff_tpu.consensus.wire``, whole, the state-sync frames
+(tags 7-10) and the state-read reply included: every frame encodes and
+decodes to the same bytes and objects as in the JAX package, so the two
+packages' nodes serve each other snapshots.
 """
 
 from __future__ import annotations
@@ -19,6 +17,7 @@ from ..utils.codec import CodecError, Decoder, Encoder
 from .errors import SerializationError
 from .messages import (
     MAX_SIGNER_BITMAP,
+    QC,
     TC,
     Block,
     Timeout,
@@ -36,7 +35,10 @@ TAG_TC = 3
 TAG_SYNC_REQUEST = 4
 TAG_PRODUCER = 5
 TAG_PRODUCER_V2 = 6
-# tags 7-10 are the state-sync frames (not ported yet)
+TAG_STATE_REQUEST = 7
+TAG_STATE_MANIFEST = 8
+TAG_STATE_CHUNK = 9
+TAG_STATE_READ = 10
 TAG_RECONFIG = 11
 
 ACK = b"Ack"
@@ -230,8 +232,14 @@ def encode_reconfig(op: ReconfigOp) -> bytes:
     return enc.finish()
 
 
-# ---- certified schedule links (docs/RECONFIG.md) ---------------------------
+# ---- state-sync frames (docs/STATE.md) -------------------------------------
 
+#: versioned like the producer v2 frame: the byte is explicit so a v2
+#: snapshot layout can change the body without new tags; any other
+#: value is a CodecError.  v2: the manifest carries the certified
+#: committee-schedule links (one committed reconfig block + its QC per
+#: epoch change) so a joiner can verify the schedule it never saw.
+STATE_FRAME_VERSION = 2
 #: decode-time cap on schedule links in one manifest (one per epoch
 #: change since genesis — 32 epoch changes is far beyond any run)
 MAX_SCHEDULE_LINKS = 32
@@ -239,8 +247,6 @@ MAX_SCHEDULE_LINKS = 32
 #: its certifying QC; a 128-member committee plus a full certificate
 #: stays well under this)
 MAX_SCHEDULE_LINK_BYTES = 131_072
-
-
 def encode_schedule_links(links) -> bytes:
     """Store form of the certified schedule-link list (core persists one
     ``(reconfig block bytes, certifying QC bytes)`` pair per committed
@@ -270,12 +276,201 @@ def decode_schedule_links(data: bytes) -> list:
     return out
 
 
+#: request kinds: full-snapshot manifest, one chunk, or a delta
+#: manifest restricted to entries newer than ``from_round`` (what a
+#: crash-recovered node with surviving state asks for)
+STATE_REQ_MANIFEST = 0
+STATE_REQ_CHUNK = 1
+STATE_REQ_DELTA = 2
+#: read spaces for TAG_STATE_READ (store/state.py namespaces)
+STATE_READ_LEDGER = 0
+STATE_READ_USER = 1
+
+#: wire sanity bounds for snapshot entries: keys are namespace prefix +
+#: digest or a typed-op key (<= 256), values are headers + at most one
+#: producer body
+MAX_STATE_KEY = 512
+MAX_STATE_VALUE = MAX_PAYLOAD_BODY + 64
+MAX_STATE_CHUNK_ENTRIES = 1024
+
+
+class StateRequest:
+    __slots__ = ("kind", "index", "from_round", "origin")
+
+    def __init__(self, kind: int, index: int, from_round: int,
+                 origin: PublicKey):
+        self.kind = kind
+        self.index = index
+        self.from_round = from_round
+        self.origin = origin
+
+
+class StateManifestMsg:
+    """A peer's snapshot offer: its state cursor plus the high QC that
+    anchors it (the client checks ``qc.round >= last_round`` and
+    verifies the certificate against its own committee before trusting
+    the offered root).  ``origin`` names the offering peer so chunk
+    requests go back to the same snapshot, not a random committee
+    member at a different version."""
+
+    __slots__ = ("version", "root", "last_round", "applied_payloads",
+                 "chunk_count", "from_round", "qc", "origin", "links")
+
+    def __init__(self, version, root, last_round, applied_payloads,
+                 chunk_count, from_round, qc, origin, links=()):
+        self.version = version
+        self.root = root
+        self.last_round = last_round
+        self.applied_payloads = applied_payloads
+        self.chunk_count = chunk_count
+        self.from_round = from_round
+        self.qc = qc
+        self.origin = origin
+        # certified schedule links: (reconfig block bytes, certifying QC
+        # bytes) per committed epoch change, oldest first — the joiner
+        # verifies each link against the previous epoch's committee
+        # before splicing (statesync.py)
+        self.links = links
+
+
+class StateChunkMsg:
+    __slots__ = ("version", "index", "from_round", "entries")
+
+    def __init__(self, version, index, from_round, entries):
+        self.version = version
+        self.index = index
+        self.from_round = from_round
+        self.entries = entries  # tuple of (key, value) bytes pairs
+
+
+def encode_state_request(kind: int, origin: PublicKey, index: int = 0,
+                         from_round: int = 0) -> bytes:
+    enc = (
+        Encoder().u8(TAG_STATE_REQUEST).u8(STATE_FRAME_VERSION)
+        .u8(kind).u32(index).u64(from_round)
+    )
+    encode_pk(enc, origin)
+    return enc.finish()
+
+
+def encode_state_manifest(version: int, root: bytes, last_round: int,
+                          applied_payloads: int, chunk_count: int,
+                          from_round: int, qc, origin: PublicKey,
+                          links=()) -> bytes:
+    if len(links) > MAX_SCHEDULE_LINKS:
+        raise ValueError(
+            f"manifest carries {len(links)} schedule links "
+            f"(cap {MAX_SCHEDULE_LINKS})"
+        )
+    enc = (
+        Encoder().u8(TAG_STATE_MANIFEST).u8(STATE_FRAME_VERSION)
+        .u64(version).raw(root).u64(last_round).u64(applied_payloads)
+        .u32(chunk_count).u64(from_round)
+    )
+    qc.encode(enc)
+    encode_pk(enc, origin)
+    enc.u16(len(links))
+    for block_bytes, qc_bytes in links:
+        enc.var_bytes(block_bytes)
+        enc.var_bytes(qc_bytes)
+    return enc.finish()
+
+
+def encode_state_chunk(version: int, index: int, from_round: int,
+                       entries) -> bytes:
+    if len(entries) > MAX_STATE_CHUNK_ENTRIES:
+        raise ValueError(
+            f"state chunk carries {len(entries)} entries "
+            f"(cap {MAX_STATE_CHUNK_ENTRIES})"
+        )
+    enc = (
+        Encoder().u8(TAG_STATE_CHUNK).u8(STATE_FRAME_VERSION)
+        .u64(version).u32(index).u64(from_round).u32(len(entries))
+    )
+    for key, value in entries:
+        enc.var_bytes(key)
+        enc.var_bytes(value)
+    return enc.finish()
+
+
+def encode_state_read(space: int, key: bytes) -> bytes:
+    """Client-facing read at the node's last applied version (QC-anchored
+    stale read — the reply carries the version/root anchor)."""
+    return (
+        Encoder().u8(TAG_STATE_READ).u8(STATE_FRAME_VERSION)
+        .u8(space).var_bytes(key).finish()
+    )
+
+
+def _decode_state_version(dec: Decoder) -> None:
+    version = dec.u8()
+    if version != STATE_FRAME_VERSION:
+        raise CodecError(f"unknown state frame version {version}")
+
+
+# ---- state read reply (the reply frame on the read socket) -----------------
+
+#: first byte of a state-read reply — disjoint from INGEST_ACK_TAG and
+#: the legacy ``b"Ack"`` so reply kinds stay decidable from one byte
+STATE_VALUE_TAG = 0xA3
+
+
+class StateValue:
+    """Typed read reply: the value (if found) plus the server's stale-
+    read anchor — its applied version, state root and last applied
+    round, so the client knows exactly how stale the answer is."""
+
+    __slots__ = ("found", "state_version", "root", "last_round",
+                 "entry_round", "value")
+
+    def __init__(self, found, state_version, root, last_round,
+                 entry_round, value):
+        self.found = found
+        self.state_version = state_version
+        self.root = root
+        self.last_round = last_round
+        self.entry_round = entry_round
+        self.value = value
+
+
+def encode_state_value(found: bool, state_version: int, root: bytes,
+                       last_round: int, entry_round: int,
+                       value: bytes) -> bytes:
+    return (
+        Encoder().u8(STATE_VALUE_TAG).u8(STATE_FRAME_VERSION)
+        .flag(found).u64(state_version).raw(root).u64(last_round)
+        .u64(entry_round).var_bytes(value).finish()
+    )
+
+
+def decode_state_value(data: bytes) -> StateValue | None:
+    """Reply-frame decode for read clients: None for any frame that is
+    not a state-read reply; SerializationError on a malformed one."""
+    if not data or data[0] != STATE_VALUE_TAG:
+        return None
+    try:
+        dec = Decoder(data)
+        dec.u8()
+        _decode_state_version(dec)
+        found = dec.flag()
+        out = StateValue(
+            found, dec.u64(), dec.raw(32), dec.u64(), dec.u64(),
+            dec.var_bytes(MAX_STATE_VALUE),
+        )
+        dec.finish()
+        return out
+    except CodecError as e:
+        raise SerializationError(str(e)) from e
+
+
 def decode_message(data: bytes, scheme: str | None = None):
     """bytes -> (tag, payload). Raises SerializationError on malformed input.
 
     Payload by tag: Propose -> Block, Vote -> Vote, Timeout -> Timeout,
     TC -> TC, SyncRequest -> (Digest, PublicKey), Producer ->
     (Digest, body), ProducerV2 -> tuple of (Digest, body) pairs,
+    StateRequest -> StateRequest, StateManifest -> StateManifestMsg,
+    StateChunk -> StateChunkMsg, StateRead -> (space, key),
     Reconfig -> ReconfigOp.
 
     ``scheme`` (the committee's signature scheme) narrows accepted
@@ -324,6 +519,52 @@ def decode_message(data: bytes, scheme: str | None = None):
                 (Digest(dec.raw(Digest.SIZE)), dec.var_bytes(MAX_PAYLOAD_BODY))
                 for _ in range(count)
             )
+        elif tag == TAG_STATE_REQUEST:
+            _decode_state_version(dec)
+            kind = dec.u8()
+            if kind not in (STATE_REQ_MANIFEST, STATE_REQ_CHUNK,
+                            STATE_REQ_DELTA):
+                raise CodecError(f"invalid state request kind {kind}")
+            out = StateRequest(kind, dec.u32(), dec.u64(), decode_pk(dec))
+        elif tag == TAG_STATE_MANIFEST:
+            _decode_state_version(dec)
+            out = StateManifestMsg(
+                dec.u64(), dec.raw(32), dec.u64(), dec.u64(),
+                dec.u32(), dec.u64(), QC.decode(dec), decode_pk(dec),
+            )
+            n_links = dec.u16()
+            if n_links > MAX_SCHEDULE_LINKS:
+                raise CodecError(
+                    f"manifest link count {n_links} exceeds cap "
+                    f"{MAX_SCHEDULE_LINKS}"
+                )
+            out.links = tuple(
+                (
+                    dec.var_bytes(MAX_SCHEDULE_LINK_BYTES),
+                    dec.var_bytes(MAX_SCHEDULE_LINK_BYTES),
+                )
+                for _ in range(n_links)
+            )
+        elif tag == TAG_STATE_CHUNK:
+            _decode_state_version(dec)
+            version, index, from_round = dec.u64(), dec.u32(), dec.u64()
+            count = dec.u32()
+            if count > MAX_STATE_CHUNK_ENTRIES:
+                raise CodecError(
+                    f"state chunk count {count} exceeds cap "
+                    f"{MAX_STATE_CHUNK_ENTRIES}"
+                )
+            entries = tuple(
+                (dec.var_bytes(MAX_STATE_KEY), dec.var_bytes(MAX_STATE_VALUE))
+                for _ in range(count)
+            )
+            out = StateChunkMsg(version, index, from_round, entries)
+        elif tag == TAG_STATE_READ:
+            _decode_state_version(dec)
+            space = dec.u8()
+            if space not in (STATE_READ_LEDGER, STATE_READ_USER):
+                raise CodecError(f"invalid state read space {space}")
+            out = (space, dec.var_bytes(MAX_STATE_KEY))
         elif tag == TAG_RECONFIG:
             out = ReconfigOp.decode(dec)
         else:

@@ -6,9 +6,11 @@ A copy of ``hotstuff_tpu/node/node.py:52-224`` — ``_DeviceDispatch``,
 ``"cuda"``, which materializes the port's
 ``gpu.ed25519.BatchVerifier(min_device_batch=64)``.  ``"cpu"`` is the
 host verifier.  The mesh kinds (``"tpu-sharded"``, ``"mesh"``) and BLS
-device verifiers are not ported yet and raise.  The ``Node`` class, the
-composition root that wires store, signing service and consensus, is
-not ported yet (``bench/committee.py`` wires the consensus stacks).
+device verifiers are not ported yet and raise.  Added to the copy:
+``LazyDeviceVerifier.routes``, the inline batches each route took.  The
+``Node`` class, the composition root that wires store, signing service
+and consensus, is not ported yet (``bench/committee.py`` wires the
+consensus stacks).
 """
 
 from __future__ import annotations
@@ -82,6 +84,9 @@ class LazyDeviceVerifier:
         self._cpu = CpuVerifier()
         self._precomputed: list[bytes] = []
         self.name = kind
+        # batches this instance verified inline, by route (the wave
+        # service's off-loop claims are counted by the service)
+        self.routes = {"cpu": 0, "device": 0}
         # Advertises the async off-loop claim path to AsyncVerifyService
         # (one coalescing service per kind and device per loop).
         self.async_kind = f"{kind}@{self.device}"
@@ -140,14 +145,18 @@ class LazyDeviceVerifier:
 
     def verify_shared_msg(self, digest, votes) -> bool:
         if len(votes) < self.min_device_batch:
+            self.routes["cpu"] += 1
             return self._cpu.verify_shared_msg(digest, votes)
+        self.routes["device"] += 1
         return self._materialize().verify_shared_msg(digest, votes)
 
     def verify_many(
         self, digests, pks, sigs, aggregate_ok: bool = False
     ) -> list[bool]:
         if len(digests) < self.min_device_batch:
+            self.routes["cpu"] += 1
             return self._cpu.verify_many(digests, pks, sigs)
+        self.routes["device"] += 1
         return self._materialize().verify_many(
             digests, pks, sigs, aggregate_ok=aggregate_ok
         )

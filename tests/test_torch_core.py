@@ -11,6 +11,7 @@ every port a peer listens on comes from the OS (``reserve_ports``)."""
 
 import asyncio
 import importlib
+import logging
 import os
 from types import SimpleNamespace
 
@@ -137,9 +138,10 @@ async def listener(sock, expected: bytes | None = None, reply: bytes = b"Ack") -
     return frame
 
 
-def make_core(tmp_path, name_idx, timeout_ms=10_000, side=S):
+def make_core(tmp_path, name_idx, timeout_ms=10_000, side=S, state=False):
     """A core (not spawned) on a real store, signing service and
-    synchronizer; ``socks`` holds the committee's reserved ports."""
+    synchronizer, with an execution layer when ``state``; ``socks``
+    holds the committee's reserved ports."""
     socks = reserve_ports(4)
     store = side.store.Store(str(tmp_path / f"db-{side.root}"))
     com = side.committee([s.getsockname()[1] for s in socks])
@@ -161,6 +163,10 @@ def make_core(tmp_path, name_idx, timeout_ms=10_000, side=S):
         rx_loopback=loopback,
         tx_proposer=tx_proposer,
         tx_commit=tx_commit,
+        state_machine=(
+            importlib.import_module(f"{side.root}.store.state").StateMachine(store)
+            if state else None
+        ),
     )
     return SimpleNamespace(
         core=core, store=store, committee=com, name=name, secret=secret,
@@ -832,7 +838,31 @@ class _Peer:
         self.server = await asyncio.start_server(handle, sock=self.sock)
 
 
-async def _script(side: Side, tmp_path) -> dict:
+class _Lines(logging.Handler):
+    """The log lines of the named loggers, by logger name, as a node log
+    holds them: a fixed timestamp, then the message (the form
+    benchmark/logs.py parses)."""
+
+    def __init__(self, *logger_names: str):
+        super().__init__(logging.INFO)
+        self.lines: dict[str, list[str]] = {name: [] for name in logger_names}
+        self._loggers = [logging.getLogger(name) for name in logger_names]
+        self._levels = [logger.level for logger in self._loggers]
+        for logger in self._loggers:
+            logger.setLevel(logging.INFO)
+            logger.addHandler(self)
+
+    def emit(self, record) -> None:
+        self.lines[record.name].append("2026-01-01T00:00:00.000Z " + record.getMessage())
+
+    def close(self) -> None:
+        for logger, level in zip(self._loggers, self._levels):
+            logger.removeHandler(self)
+            logger.setLevel(level)
+        super().close()
+
+
+async def _script(side: Side, tmp_path, state: bool = False) -> dict:
     """Drive node 0's core and proposer through one scripted sequence by
     calling the handlers the run loop calls, in order, persisting after
     each step as the run loop does:
@@ -843,8 +873,12 @@ async def _script(side: Side, tmp_path) -> dict:
     b4 with a buffered payload, broadcast to the peers; b4 loops back
     (commits b2, votes to node 1); the round-4 timer fires (a Timeout to
     every peer); timeouts of nodes 1 and 2 form the TC, broadcast to
-    every peer; the core moves to round 5 and its timer fires again."""
-    h = make_core(tmp_path, 0, timeout_ms=60_000, side=side)
+    every peer; the core moves to round 5 and its timer fires again.
+    With ``state``, the core applies each commit to a ``StateMachine``
+    and the core logger's lines are returned."""
+    h = make_core(tmp_path, 0, timeout_ms=60_000, side=side, state=state)
+    core_log = f"{side.root}.consensus.core.{str(h.name)[:8]}"
+    lines = _Lines(core_log)
     peers = [_Peer(s) for s in h.socks[1:]]
     for p in peers:
         await p.start()
@@ -908,8 +942,10 @@ async def _script(side: Side, tmp_path) -> dict:
             "last_voted_round": core.last_voted_round,
             "high_qc": core.high_qc,
             "store_path": str(tmp_path / f"db-{side.root}"),
+            "lines": lines.lines[core_log],
         }
     finally:
+        lines.close()
         proposer.shutdown()
         for p in peers:
             p.server.close()
@@ -932,6 +968,31 @@ def test_scripted_sequence_same_frames_commits_and_state(tmp_path):
     assert port["state"] == jax["state"] and port["state"] is not None
     assert port["wal"] == jax["wal"]
     assert (port["round"], port["last_voted_round"]) == (jax["round"], jax["last_voted_round"])
+
+
+def test_scripted_sequence_with_state_machine_same_roots_and_store(tmp_path):
+    """The scripted sequence with an execution layer on both cores: the
+    same frames and commits, the same ``State root`` lines (as
+    benchmark/logs.py parses them, one per commit, chained from the
+    genesis root), and byte-equal store logs, the ``s/`` ledger and the
+    meta cursor included."""
+    from benchmark.logs import RE_STATE_ROOT
+
+    jax = asyncio.run(_script(JAX, tmp_path / "jax", state=True))
+    port = asyncio.run(_script(PORT, tmp_path / "port", state=True))
+    assert port["frames"] == jax["frames"]
+    assert port["committed"] == jax["committed"] and len(port["committed"]) == 2
+    roots = [RE_STATE_ROOT.findall(line) for line in port["lines"]]
+    roots = [m[0][1:] for m in roots if m]
+    assert roots == [
+        m[0][1:] for m in (RE_STATE_ROOT.findall(line) for line in jax["lines"]) if m
+    ]
+    assert [(v, rnd) for v, _, rnd in roots] == [("1", "1"), ("2", "2")]
+    assert port["wal"] == jax["wal"]
+    for key in (b"s/meta", b"s/l"):
+        assert key in port["wal"]
+    plain = asyncio.run(_script(PORT, tmp_path / "plain"))
+    assert b"s/meta" not in plain["wal"]
 
 
 @pytest.mark.parametrize("writer,reader", [(JAX, PORT), (PORT, JAX)], ids=["jax-to-port", "port-to-jax"])
@@ -1027,7 +1088,7 @@ def _frames(side: Side) -> list[bytes]:
         w.encode_producer(items[1][0]),  # digest only
         w.encode_producer_batch(items[2:] + [poisoned]),
         w.encode_producer(*items[0]),  # replayed body
-        b"\x07\x02garbage",  # a state-sync tag: unported, dropped
+        b"\x07\x02garbage",  # a malformed state request: dropped
         b"\xff",
         b"",
     ]
@@ -1170,3 +1231,111 @@ def test_unported_transports_raise(tmp_path):
             store.close()
 
     asyncio.run(body())
+
+
+# ---- the handler's state-sync routes and state reads ----------------------
+
+
+def _state_store(path):
+    """A store written by the JAX package: a chain of 6 blocks applied,
+    two of them with typed-op bodies."""
+    from hotstuff_tpu.store import Store as JStore
+    from hotstuff_tpu.store.state import OP_BODY_OFFSET, StateMachine, encode_ops
+
+    store = JStore(str(path))
+    blocks = JAX.chain(6)
+    for i, ops in ((1, [("put", b"user", b"v1"), ("put", b"gone", b"x")]), (4, [("del", b"gone")])):
+        store.engine.put(
+            b"p" + blocks[i].payloads[0].to_bytes(),
+            bytes(OP_BODY_OFFSET) + encode_ops(ops),
+        )
+    sm = StateMachine(store)
+    for b in blocks:
+        sm.apply_block(b)
+    store.close()
+    return [b.payloads[0].to_bytes() for b in blocks]
+
+
+async def _reads(side: Side, path, ledger_keys) -> list[bytes]:
+    w = side.wire
+    store = side.store.Store(str(path))
+    try:
+        sm = importlib.import_module(f"{side.root}.store.state").StateMachine(store)
+        writer = _Writer()
+        for state in (sm, None):
+            handler = side.consensus.ConsensusReceiverHandler(
+                asyncio.Queue(), asyncio.Queue(), asyncio.Queue(), state=state
+            )
+            for key in ledger_keys + [bytes(32)]:
+                await handler.dispatch(writer, w.encode_state_read(w.STATE_READ_LEDGER, key))
+            for key in (b"user", b"gone", b"never"):
+                await handler.dispatch(writer, w.encode_state_read(w.STATE_READ_USER, key))
+        return writer.sent
+    finally:
+        store.close()
+
+
+def test_state_read_replies_match_jax(tmp_path):
+    """``TAG_STATE_READ`` through both packages' handlers over the same
+    store: byte-equal replies for ledger hits and misses, a live, a
+    deleted and a never-written user key, and from a handler without an
+    execution layer."""
+    keys = _state_store(tmp_path / "db")
+    port = asyncio.run(_reads(PORT, tmp_path / "db", keys))
+    assert port == asyncio.run(_reads(JAX, tmp_path / "db", keys))
+    replies = [PORT.wire.decode_state_value(r) for r in port]
+    assert [r.found for r in replies[:10]] == [True] * 6 + [False, True, False, False]
+    assert replies[0].entry_round == 1 and replies[0].value == bytes(4)
+    assert replies[7].value == b"v1" and replies[7].state_version == 6
+    assert not any(r.found for r in replies[10:])
+
+
+def _state_frames(side: Side) -> list[bytes]:
+    w = side.wire
+    ks = side.keys()
+    qc = side.qc_for_block(side.chain(2)[-1])
+    return [
+        w.encode_state_request(w.STATE_REQ_MANIFEST, ks[1][0]),
+        w.encode_state_request(w.STATE_REQ_CHUNK, ks[2][0], index=3, from_round=7),
+        w.encode_state_manifest(4, bytes(range(32)), 2, 9, 1, 0, qc, ks[1][0]),
+        w.encode_state_chunk(4, 0, 0, [(b"s/l" + bytes(32), bytes(12))]),
+        w.encode_state_chunk(4, 1, 0, []),  # the reply queue is full: shed
+        b"\x07\x02\x09",  # an invalid request kind: dropped
+    ]
+
+
+async def _route(side: Side, with_queues: bool) -> dict:
+    queues = [asyncio.Queue() for _ in range(3)]
+    requests, replies = asyncio.Queue(), asyncio.Queue(maxsize=2)
+    handler = side.consensus.ConsensusReceiverHandler(
+        *queues,
+        tx_state_requests=requests if with_queues else None,
+        tx_state_sync=replies if with_queues else None,
+    )
+    writer = _Writer()
+    for frame in _state_frames(side):
+        await handler.dispatch(writer, frame)
+    from .test_torch_state import _norm as norm
+
+    return {
+        "requests": [norm(requests.get_nowait()) for _ in range(requests.qsize())],
+        "replies": [(tag, norm(p)) for tag, p in (replies.get_nowait() for _ in range(replies.qsize()))],
+        "others": [q.qsize() for q in queues],
+        "sent": writer.sent,
+    }
+
+
+@pytest.mark.parametrize("with_queues", [True, False], ids=["sync-node", "bare-handler"])
+def test_state_sync_tags_routed_like_jax(with_queues):
+    """Tag 7 goes to the state-sync server's queue, tags 8 and 9 to the
+    sync client's (shed when full), nothing to the core, helper or
+    proposer and no reply — the same in both packages; a handler built
+    without the queues drops them."""
+    port = asyncio.run(_route(PORT, with_queues))
+    assert port == asyncio.run(_route(JAX, with_queues))
+    assert port["others"] == [0, 0, 0] and port["sent"] == []
+    if with_queues:
+        assert [dict(r)["kind"] for r in port["requests"]] == [0, 1]
+        assert [tag for tag, _ in port["replies"]] == [8, 9]
+    else:
+        assert port["requests"] == port["replies"] == []
