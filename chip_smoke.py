@@ -75,9 +75,25 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    node where a live node does; and the verify kernel must launch in
    the phase.  The result is printed with the sync's outcome, its times
    and the routes of the manifest certificate checks;
-11. a ``{"kernels": [...]}`` line, then the last line
+11. (e) the node CLI on the card: 64 key files (one written by
+   ``python -m hotstuff_tpu_torch.node keys``, 63 by ``Secret``), a
+   committee on OS-assigned ports and default parameters, then
+   ``python -m hotstuff_tpu_torch.node -vv run-many --verifier cuda``
+   and, as a second process, ``python -m hotstuff_tpu_torch.node.client
+   --rate 1000 --size 512 --duration 20 --warmup 2`` (the deployment of
+   ``results/bench-0-64-1000-tpu-1proc.txt``).  3 s after the client
+   exits the node process gets SIGTERM and must stop within 60 s.  Both
+   logs are parsed with this script's own copies of the harness's
+   regexes (``benchmark/logs.py``): 64 boots, at least 5 non-genesis
+   commits a node, one digest a committed round, one state root a
+   version, device waves and device signatures in the last stats line,
+   K1 launched (the process logs its launch counts as it stops), no
+   traceback.  Boot seconds, committed rounds, consensus and end-to-end
+   payloads a second, sample latency, timeouts, routes and the phase's
+   wall time are printed;
+12. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the five main-path runs (3, 7, 8, 9 and 10).
+   over the six main-path runs (3, 7, 8, 9, 10 and 11).
 
 Any mismatch raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device it exits with 2 and prints no result.
@@ -645,6 +661,216 @@ def restart_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float 
     return launches
 
 
+# the harness's log contract (benchmark/logs.py), held here as copies:
+# the script imports nothing of the JAX package or its harness
+_TS = r"(\d{4}-\d{2}-\d{2}T\d{2}:\d{2}:\d{2}\.\d{3})Z"
+RE_BOOTED = re.compile(_TS + r".*Node (\S+) successfully booted")
+RE_CREATED = re.compile(_TS + r".*Created block (\d+) \(payloads (\S*)\) -> (\S+)")
+RE_COMMITTED = re.compile(_TS + r".*Committed block (\d+) -> (\S+)")
+RE_STATE_ROOT = re.compile(r"\] (\S+) State root (\d+) -> (\S+) \(round (\d+)\)")
+RE_TIMEOUT = re.compile(r"Timeout reached for round (\d+)")
+RE_VERIFY_STATS = re.compile(
+    r"Verify service stats \[(\S+)\]: dispatches=(\d+) device=(\d+) "
+    r"(?:cpu=(\d+) probe=(\d+) )?"
+    r"device_sigs=(\d+) cpu_sigs=(\d+) deadline_misses=(\d+) "
+    r"(?:waits=(\d+) depth=(\d+) )?"
+    r"(?:mesh=(\d+) )?"
+    r"(?:agg=(\d+) agg_sigs=(\d+) )?"
+    r"ewma_ms=([\d.]+)"
+    r"(?: zc=(\d+) fb=(\d+))?"
+)
+RE_LAUNCHES = re.compile(r"Kernel launches: (.*)")
+RE_CLIENT_RATE = re.compile(_TS + r".*Transactions rate: (\d+) tx/s")
+RE_SAMPLE = re.compile(_TS + r".*Sending sample payload (\S+)")
+
+
+def _ts(stamp: str) -> float:
+    import datetime
+
+    return datetime.datetime.strptime(stamp, "%Y-%m-%dT%H:%M:%S.%f").timestamp()
+
+
+def parse_node_logs(node_log: str, client_log: str) -> dict:
+    """What ``benchmark/logs.py`` ``LogParser`` reads from a run's logs,
+    by the same definitions: commits and proposals merged over all nodes
+    at their earliest observation, consensus payloads a second (unique
+    committed payloads over first proposal to last commit), end-to-end
+    payloads a second (over client start to last commit), and the
+    latency of each committed sample payload (client send to the commit
+    of its block)."""
+    proposals, block_payloads, payload_block = {}, {}, {}
+    for ts, _rnd, payloads, block in RE_CREATED.findall(node_log):
+        t = _ts(ts)
+        proposals[block] = min(t, proposals.get(block, t))
+        block_payloads[block] = tuple(p for p in payloads.split(",") if p)
+        for p in block_payloads[block]:
+            payload_block[p] = block
+    commits, by_round, n_commits = {}, collections.defaultdict(set), 0
+    for ts, rnd, block in RE_COMMITTED.findall(node_log):
+        if int(rnd) == 0:
+            continue
+        n_commits += 1
+        t = _ts(ts)
+        commits[block] = min(t, commits.get(block, t))
+        by_round[int(rnd)].add(block)
+    roots = collections.defaultdict(set)
+    for _node, version, root, _rnd in RE_STATE_ROOT.findall(node_log):
+        roots[int(version)].add(root)
+    commits = {b: t for b, t in commits.items() if b in proposals}
+    unique = {p for b in commits for p in block_payloads.get(b, ())}
+    out = {
+        "booted": len(RE_BOOTED.findall(node_log)),
+        "boot_at": max((_ts(ts) for ts, _ in RE_BOOTED.findall(node_log)), default=None),
+        "commit_lines": n_commits,
+        "committed_rounds": len(by_round),
+        "rounds_agree": all(len(ds) == 1 for ds in by_round.values()),
+        "versions": len(roots),
+        "roots_agree": all(len(rs) == 1 for rs in roots.values()),
+        "timeouts": len(RE_TIMEOUT.findall(node_log)),
+        "committed_payloads": len(unique),
+        "consensus_payloads_per_s": 0.0,
+        "e2e_payloads_per_s": 0.0,
+        "latency_mean_s": None,
+        "latency_p50_s": None,
+        "stats": None,
+        "launches": None,
+    }
+    if commits:
+        end = max(commits.values())
+        out["consensus_payloads_per_s"] = len(unique) / max(end - min(proposals.values()), 1e-9)
+        m = RE_CLIENT_RATE.search(client_log)
+        if m:
+            out["e2e_payloads_per_s"] = len(unique) / max(end - _ts(m[1]), 1e-9)
+    lat = sorted(
+        commits[payload_block[p]] - _ts(ts)
+        for ts, p in RE_SAMPLE.findall(client_log)
+        if payload_block.get(p) in commits
+    )
+    if lat:
+        out["latency_mean_s"] = sum(lat) / len(lat)
+        out["latency_p50_s"] = lat[(len(lat) - 1) // 2]
+    stats = RE_VERIFY_STATS.findall(node_log)
+    if stats:
+        last = stats[-1]
+        out["stats"] = {
+            "dispatches": int(last[1]), "device": int(last[2]), "cpu": int(last[3] or 0),
+            "probe": int(last[4] or 0), "device_sigs": int(last[5]), "cpu_sigs": int(last[6]),
+            "deadline_misses": int(last[7]), "ewma_ms": float(last[13]),
+        }
+    m = RE_LAUNCHES.findall(node_log)
+    if m:
+        out["launches"] = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", m[-1])}
+    return out
+
+
+def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
+               verifier: str = "cuda") -> int:
+    """(e) The node CLI: a ``run-many`` committee process and the
+    producer client process, both started from the command line; returns
+    the verify kernel's launches in the node process (boot included).
+    ``verifier="cpu"`` rehearses the phase without a card: no wave
+    service, so the stats and launch checks are skipped."""
+    import signal
+    import tempfile
+
+    from hotstuff_tpu_torch.bench.committee import reserve_ports
+    from hotstuff_tpu_torch.consensus import Committee, Parameters
+    from hotstuff_tpu_torch.node.config import Secret, write_committee, write_parameters
+
+    t0 = time.perf_counter()
+    logs = os.path.join(ROOT, "chiprun_out", "node_phase")
+    os.makedirs(logs, exist_ok=True)
+    node_log_path = os.path.join(logs, "nodes.log")
+    client_log_path = os.path.join(logs, "client.log")
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    cli = [sys.executable, "-m", "hotstuff_tpu_torch.node"]
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="node-phase-") as tmp:
+        key_files = [os.path.join(tmp, f"key_{i}.json") for i in range(nodes)]
+        subprocess.run(cli + ["keys", "--filename", key_files[0]], env=env, check=True, timeout=120)
+        for path in key_files[1:]:
+            Secret.new().write(path)
+        names = [Secret.read(path).name for path in key_files]
+        socks = reserve_ports(nodes)
+        committee = Committee.new([(pk, 1, ("127.0.0.1", s.getsockname()[1]))
+                                   for pk, s in zip(names, socks)])
+        committee_file = os.path.join(tmp, "committee.json")
+        parameters_file = os.path.join(tmp, "parameters.json")
+        write_committee(committee, committee_file)
+        write_parameters(Parameters(), parameters_file)
+        check(Parameters().timeout_delay == 5_000, "node phase: default 5,000 ms timeout delay")
+        for s in socks:  # free the reserved ports for the nodes' receivers
+            s.close()
+        stopped_in_time = False
+        try:
+            with open(node_log_path, "w") as node_log, open(client_log_path, "w") as client_log:
+                t_launch = time.time()
+                procs.append(subprocess.Popen(
+                    cli + ["-vv", "run-many", "--verifier", verifier, "--keys", ",".join(key_files),
+                           "--committee", committee_file, "--store-prefix", os.path.join(tmp, "db_"),
+                           "--parameters", parameters_file],
+                    stdout=node_log, stderr=subprocess.STDOUT, env=env))
+                node = procs[0]
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "hotstuff_tpu_torch.node.client", "--committee", committee_file,
+                     "--rate", str(rate), "--size", "512", "--duration", str(duration), "--warmup", "2"],
+                    stdout=client_log, stderr=subprocess.STDOUT, env=env))
+                client = procs[1]
+                # the client waits up to 3 s a node for the ports, then sends
+                client.wait(timeout=3.0 * nodes + duration + 120)
+                check(client.returncode == 0, f"node phase: the client exited with {client.returncode}")
+                check(node.poll() is None, "node phase: the node process is still running after the load")
+                time.sleep(3.0)
+                t_stop = time.perf_counter()
+                node.send_signal(signal.SIGTERM)
+                try:
+                    node.wait(timeout=60)
+                    stopped_in_time = True
+                except subprocess.TimeoutExpired:
+                    pass
+                stop_s = time.perf_counter() - t_stop
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    wall = time.perf_counter() - t0
+    with open(node_log_path) as f:
+        node_text = f.read()
+    with open(client_log_path) as f:
+        client_text = f.read()
+    r = parse_node_logs(node_text, client_text)
+    boot_s = r["boot_at"] - t_launch if r["boot_at"] is not None else None
+    stats = r["stats"] or {}
+    launches = (r["launches"] or {}).get("verify_compressed", 0)
+    print(f"node phase: {nodes} nodes (run-many, --verifier {verifier}), {rate} tx/s of 512 B for {duration} s "
+          f"from the client process: boot {boot_s if boot_s is None else round(boot_s, 2)} s, "
+          f"{r['committed_rounds']} committed rounds ({r['commit_lines']} commit lines), "
+          f"{r['consensus_payloads_per_s']:.1f} consensus payloads/s, {r['e2e_payloads_per_s']:.1f} "
+          f"end-to-end payloads/s, sample latency mean {(r['latency_mean_s'] or 0) * 1e3:.0f} ms p50 "
+          f"{(r['latency_p50_s'] or 0) * 1e3:.0f} ms, timeouts {r['timeouts']}, routes "
+          f"device {stats.get('device')} cpu {stats.get('cpu')} probe {stats.get('probe')} "
+          f"(device_sigs {stats.get('device_sigs')}, cpu_sigs {stats.get('cpu_sigs')}), ewma_ms "
+          f"{stats.get('ewma_ms')}, verify kernel launches {launches}, {r['versions']} state versions; "
+          f"stopped in {stop_s:.1f} s; {wall:.1f} s in all (host clock) [{card}]")
+    print("node phase result: " + json.dumps({**r, "boot_s": boot_s, "stop_s": stop_s, "wall_s": wall}))
+    check(stopped_in_time, "node phase: the node process stopped within 60 s of SIGTERM")
+    check("Traceback" not in node_text and "Traceback" not in client_text,
+          "node phase: no traceback in the node or client log")
+    check(r["booted"] == nodes, f"node phase: {nodes} 'successfully booted' lines")
+    check(r["commit_lines"] >= nodes * 5, "node phase: at least 5 committed blocks a node")
+    check(r["rounds_agree"], "node phase: every committed round names one digest")
+    check(r["versions"] > 0 and r["roots_agree"], "node phase: every version has one state root")
+    if verifier == "cuda":
+        check(stats.get("device", 0) >= 1 and stats.get("device_sigs", 0) > 0,
+              "node phase: the last stats line shows device waves and device signatures")
+        # one device wave of up to 1024 signatures is one verify_device
+        # call, which launches K1 once; the boot's warmup launches too
+        check(launches >= stats["device"] + stats["probe"],
+              "node phase: a verify-kernel launch for every device wave")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -836,6 +1062,9 @@ def main() -> int:
     t0 = time.perf_counter()
     restart_launches = restart_phase(card)
     print(f"phase (d) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    node_launches = node_phase(card)
+    print(f"phase (e) took {time.perf_counter() - t0:.1f} s")
 
     B = WAVE
     v_bound, s_bound = bounds(B)
@@ -846,7 +1075,7 @@ def main() -> int:
             "source": "hotstuff_tpu_torch/gpu/csrc/dsm_kernels.cu",
             "replaces": "hotstuff_tpu/tpu/pallas_dsm.py:587",
             "launches": (main_launches["verify_compressed"] + storm_launches + wave_launches
-                         + committee_launches + restart_launches),
+                         + committee_launches + restart_launches + node_launches),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

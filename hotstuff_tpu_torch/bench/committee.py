@@ -1,11 +1,12 @@
 """Co-located committee driver: n consensus stacks in one event loop,
 fed producer frames over TCP, all verifying through one shared verifier.
 
-The port's counterpart of ``hotstuff_tpu/node/main.py`` ``_run_many``
-trimmed to the consensus stack (the ``Node`` composition root, the node
-CLI and its benchmark client are not ported yet): every node is a
-``Consensus.spawn`` stack on localhost, as the JAX package's end-to-end
-tests drive them, and the load follows ``node/client.py``'s open loop —
+The in-process counterpart of ``python -m hotstuff_tpu_torch.node
+run-many`` plus its producer client, trimmed to the consensus stack:
+every node is a ``Consensus.spawn`` stack on localhost, as the JAX
+package's end-to-end tests drive them, so that a crash and recovery can
+be staged inside the process and the result read from the stacks.  The
+load follows ``node/client.py``'s open loop —
 ``rate`` producer frames a second, each ``encode_producer(digest,
 body)`` with a ``size``-byte body, each to ONE node in round-robin
 order, through the receiver's producer path, ``PayloadBodies`` and
@@ -34,7 +35,6 @@ before it enters the protocol:
 from __future__ import annotations
 
 import asyncio
-import gc
 import logging
 import os
 import random
@@ -56,6 +56,7 @@ from ..crypto import Digest, SignatureService, generate_keypair
 from ..crypto.async_service import AsyncVerifyService
 from ..network.framing import read_frame, set_nodelay, write_frame
 from ..node import make_verifier
+from ..node.main import _freeze_boot_objects, _peer_conn_cap, _raise_fd_limit
 from ..store import Store
 
 log = logging.getLogger(__name__)
@@ -96,87 +97,6 @@ def reserve_ports(n: int, host: str = "127.0.0.1") -> list[socket.socket]:
             s.close()
         raise
     return socks
-
-
-def _raise_fd_limit(target: int) -> None:
-    """Best-effort RLIMIT_NOFILE raise to ``target`` (a copy of
-    ``node/main.py`` ``_raise_fd_limit``): never lowers the hard cap;
-    keeps the current limit when it is enough or the raise is denied."""
-    try:
-        import resource
-
-        soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
-        if soft >= target:
-            return
-        # RLIM_INFINITY is -1 on Linux: touch the hard cap only when it
-        # is finite and below the target
-        if hard != resource.RLIM_INFINITY and hard < target:
-            new_hard = target
-        else:
-            new_hard = hard
-        try:
-            resource.setrlimit(resource.RLIMIT_NOFILE, (target, new_hard))
-        except (ValueError, OSError):
-            # can't raise the hard cap: take everything the soft cap allows
-            resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
-    except (ValueError, OSError, ImportError):
-        pass
-
-
-def _peer_conn_cap(n: int) -> str | None:
-    """``HOTSTUFF_MAX_PEER_CONNS`` for ``n`` co-located nodes when the fd
-    limit cannot cover the quadratic worst case (2 fds a connection, one
-    connection per sender and peer), as ``node/main.py`` sets it; None
-    when it can."""
-    import resource
-
-    soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
-    if n <= 1 or soft >= 2 * n * n + 10_000:
-        return None
-    budget_conns = max(1_000, (soft - 4_000) // 2)
-    return str(max(4, budget_conns // (4 * n)))
-
-
-def _freeze_boot_objects():
-    """Move boot-time immortals (committee state, caches, the torch
-    runtime) out of the collector's generations, and stretch gen2 with a
-    scheduled sweep (the logic of ``node/main.py``
-    ``_freeze_boot_objects``): full collections re-scan every live
-    object and were measured at 30-55 ms a pause on a one-core host.
-    ``HOTSTUFF_GC_GEN2_STRETCH=0`` keeps the default thresholds;
-    ``HOTSTUFF_GC_GEN2_PERIOD`` sets the sweep period (s).  Returns a
-    callable that undoes all of it."""
-    thresholds = gc.get_threshold()
-    gc.collect()
-    gc.freeze()
-    sweep = None
-    stretch = os.environ.get("HOTSTUFF_GC_GEN2_STRETCH", "1").strip().lower()
-    if stretch not in ("", "0", "false", "no", "off"):
-        g0, g1, _ = thresholds
-        gc.set_threshold(g0, g1, 500)
-        period = float(os.environ.get("HOTSTUFF_GC_GEN2_PERIOD", "300") or 300)
-        if period > 0:
-
-            async def _gen2_sweep() -> None:
-                while True:
-                    await asyncio.sleep(period)
-                    t0 = time.perf_counter()
-                    freed = gc.collect(2)
-                    log.debug(
-                        "scheduled gen2 sweep: %d collected in %.1f ms",
-                        freed,
-                        (time.perf_counter() - t0) * 1e3,
-                    )
-
-            sweep = asyncio.ensure_future(_gen2_sweep())
-
-    def undo() -> None:
-        if sweep is not None:
-            sweep.cancel()
-        gc.set_threshold(*thresholds)
-        gc.unfreeze()
-
-    return undo
 
 
 class _ProducerConn:

@@ -15,10 +15,11 @@ state-sync server; StateManifest/StateChunk -> the boot-time sync
 client; StateRead -> answered inline from the execution layer.
 
 A copy of ``hotstuff_tpu.consensus.consensus`` with the asyncio
-transport only.  Not ported, so cut: join mode, WAN emulation, the
-fault and adversary planes, flow accounting, telemetry (with the
-execution layer's gauges), the native and sim transports, and the
-receiver's native producer-v2 fast path.
+transport only, join mode included (``HOTSTUFF_RECONFIG_LISTEN``: a key
+outside the committee listens there and bootstraps through state sync).
+Not ported, so cut: WAN emulation, the fault and adversary planes, flow
+accounting, telemetry (with the execution layer's gauges), the native
+and sim transports, and the receiver's native producer-v2 fast path.
 """
 
 from __future__ import annotations
@@ -394,10 +395,28 @@ class Consensus:
         self.tx_producer = tx_producer
 
         address = committee.address(name)
+        joining = False
         if address is None:
-            # join mode (booting outside the committee and joining
-            # through a certified reconfiguration) is not ported
-            raise ValueError("Our public key is not in the committee")
+            # Join mode (docs/RECONFIG.md): a node whose key is not yet
+            # in any scheduled committee may boot against a peer's
+            # committee file, state-sync the certified schedule in, and
+            # start voting once a committed reconfiguration admits it.
+            listen = os.environ.get("HOTSTUFF_RECONFIG_LISTEN")
+            if not listen:
+                raise ValueError(
+                    "Our public key is not in the committee (set "
+                    "HOTSTUFF_RECONFIG_LISTEN=host:port to join via a "
+                    "certified reconfiguration)"
+                )
+            host, _, port = listen.rpartition(":")
+            address = (host or "127.0.0.1", int(port))
+            joining = True
+            log.info(
+                "Join mode: key not in the committee yet; listening on "
+                "%s:%d and awaiting a certified schedule",
+                address[0],
+                address[1],
+            )
         # Bounded per-sender connection pools for big co-located
         # committees (absent/non-positive = reference parity, unbounded)
         max_conns = parse_max_conns(os.environ.get("HOTSTUFF_MAX_PEER_CONNS"))
@@ -466,7 +485,7 @@ class Consensus:
         # restart, not a first boot) additionally runs the one-shot
         # boot catch-up before entering the protocol.  Modes:
         # HOTSTUFF_STATE_SYNC=auto (default: catch up when recovering),
-        # always (also on a first boot), 0/off (never).
+        # always (also on a fresh join), 0/off (never).
         self.state_server = StateSyncServer(
             name,
             committee,
@@ -479,7 +498,7 @@ class Consensus:
         sync_mode = os.environ.get("HOTSTUFF_STATE_SYNC", "auto").lower()
         if sync_mode not in ("0", "off", "never"):
             recovering = (await store.read(CONSENSUS_STATE_KEY)) is not None
-            if (recovering or sync_mode == "always") and (
+            if (recovering or joining or sync_mode == "always") and (
                 committee.broadcast_addresses(name)
             ):
                 self.core.state_sync = StateSyncClient(
@@ -489,6 +508,10 @@ class Consensus:
                     verifier,
                     rx_replies=tx_state_sync,
                     network=make_sender(),
+                    # a joiner adopts whatever certified snapshot is on
+                    # offer — its alternative is walking history it may
+                    # not be able to fetch at all
+                    min_lag=0 if joining else None,
                     store=store,
                     synchronizer=self.synchronizer,
                 )

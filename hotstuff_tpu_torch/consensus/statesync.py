@@ -80,6 +80,9 @@ SYNC_CHUNK_WAIT_S = 5.0
 #: a chunk request is a single frame, so one drop on a faulty link must
 #: not wedge the whole sync until the deadline
 SYNC_CHUNK_RETRY_S = 1.0
+#: the reply wait wakes at least this often (seconds) to notice a stall
+#: of the event loop, which it gives back to the window
+SYNC_STALL_SLICE_S = 0.05
 
 
 class StateSyncServer:
@@ -221,16 +224,26 @@ class StateSyncClient:
         self.log = logging.getLogger(f"{__name__}.{str(name)[:8]}")
 
     async def _collect(self, deadline: float):
+        """The next reply before ``deadline`` (loop time) and the deadline,
+        moved on by any stall of the event loop meanwhile; (None, deadline)
+        when the window closes first.  A stall — this task's wake-up
+        coming late because other callbacks held the loop, as when the
+        co-located peers' servers each scan their store for the requested
+        manifest — does not count against the window: replies sent inside
+        it are still read once the loop runs again."""
+        loop = asyncio.get_running_loop()
         while True:
-            remaining = deadline - asyncio.get_running_loop().time()
-            if remaining <= 0:
-                return None
+            now = loop.time()
+            if now >= deadline:
+                return None, deadline
+            step = min(deadline - now, SYNC_STALL_SLICE_S)
             try:
-                return await asyncio.wait_for(
-                    self.rx_replies.get(), timeout=remaining
-                )
+                msg = await asyncio.wait_for(self.rx_replies.get(), timeout=step)
+                return msg, deadline
             except asyncio.TimeoutError:
-                return None
+                late = loop.time() - now - step
+                if late > SYNC_STALL_SLICE_S:
+                    deadline += late
 
     async def _apply_schedule_links(self, links) -> bool:
         """Verified-successor acceptance (docs/RECONFIG.md): walk the
@@ -318,7 +331,7 @@ class StateSyncClient:
         best = None
         seen = 0
         while seen < len(peers):
-            msg = await self._collect(deadline)
+            msg, deadline = await self._collect(deadline)
             if msg is None:
                 break
             tag, payload = msg
@@ -361,7 +374,7 @@ class StateSyncClient:
         deadline = loop.time() + self.chunk_wait_s
         retry_at = loop.time() + SYNC_CHUNK_RETRY_S
         while pending:
-            msg = await self._collect(min(deadline, retry_at))
+            msg, _ = await self._collect(min(deadline, retry_at))
             if msg is None:
                 now = loop.time()
                 if now >= deadline:

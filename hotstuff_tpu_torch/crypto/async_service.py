@@ -1013,7 +1013,11 @@ class AsyncVerifyService:
 
     def stats_line(self) -> str:
         """The routing split, padding and dispatch EWMA of this service
-        so far, as one log line."""
+        so far, as one log line.  The fields up to ``fb=`` are the JAX
+        package's, in its order (the harness's log contract,
+        ``hotstuff_tpu/crypto/async_service.py`` ``_log_stats``); the
+        mesh, zero-copy and fallback paths are not ported, so ``mesh``,
+        ``zc`` and ``fb`` stay 0.  The port's own fields follow."""
         return (
             f"Verify service stats [{self._stats_tag}]: "
             f"dispatches={self.dispatches} device={self.device_dispatches} "
@@ -1021,10 +1025,10 @@ class AsyncVerifyService:
             f"device_sigs={self.device_sigs} cpu_sigs={self.cpu_sigs} "
             f"deadline_misses={self.deadline_misses} "
             f"waits={self.pipeline_waits} depth={self.pipeline_depth} "
+            f"mesh=0 agg={self.agg_claims} agg_sigs={self.agg_sigs} "
+            f"ewma_ms={(self._device_ewma_s or 0.0) * 1e3:.1f} zc=0 fb=0 "
             f"peak_inflight={self.peak_inflight} "
-            f"packed={self.packed_waves} pad_sigs={self.pad_sigs} "
-            f"agg={self.agg_claims} agg_sigs={self.agg_sigs} "
-            f"ewma_ms={(self._device_ewma_s or 0.0) * 1e3:.1f}"
+            f"packed={self.packed_waves} pad_sigs={self.pad_sigs}"
         )
 
     def _log_stats(self) -> None:
@@ -1032,6 +1036,11 @@ class AsyncVerifyService:
         if self.device and now >= self._next_stats_log:
             self._next_stats_log = now + 5.0
             log.info("%s", self.stats_line())
+
+    def log_stats(self) -> None:
+        """Log the stats line now, whenever the last one was (a stopping
+        node's totals)."""
+        log.info("%s", self.stats_line())
 
 
 __all__ = [

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import base64
 import hashlib
+import os
 import struct
 
 try:
@@ -124,6 +125,12 @@ def _keypair_from_seed(seed32: bytes) -> tuple[PublicKey, SecretKey]:
 
         pub = public_from_seed(seed32)
     return PublicKey(pub), SecretKey(seed32 + pub)
+
+
+def generate_production_keypair() -> tuple[PublicKey, SecretKey]:
+    """OS-RNG keypair (reference ``generate_production_keypair``,
+    crypto/src/lib.rs:170-173)."""
+    return _keypair_from_seed(os.urandom(32))
 
 
 def generate_keypair(seed: bytes, index: int = 0) -> tuple[PublicKey, SecretKey]:
