@@ -567,7 +567,8 @@ def committee_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
           f"{min(r['blocks'])}-{max(r['blocks'])}; {r['payloads_per_s']:.0f} payloads/s; latency mean "
           f"{(r['latency_mean_s'] or 0) * 1e3:.0f} ms, p50 {(r['latency_p50_s'] or 0) * 1e3:.0f} ms; "
           f"view-change timeouts {r['timeouts']}; verify kernel launches {launches} "
-          f"({r['k1_launches']} after boot); worst loop lag {r['max_loop_lag_s'] * 1e3:.1f} ms [{card}]")
+          f"({r['k1_launches']} after boot); worst loop lag {r['max_loop_lag_s'] * 1e3:.1f} ms; "
+          f"{zc_fb(r)} [{card}]")
     check(min(r["blocks"]) >= 5, "committee: every node commits at least 5 non-genesis blocks")
     check(r["chains_agree"], "committee: all chains agree on their common prefix")
     svc = r["service"]
@@ -575,6 +576,13 @@ def committee_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
     if resolve_device(torch_device).type == "cuda":  # a CPU rehearsal runs the plain versions
         check(r["k1_launches"] > 0, "committee: the verify kernel launched after boot")
     return launches
+
+
+def zc_fb(r) -> str:
+    """The wave service's zero-copy and fallback waves from a
+    ``run_committee`` result."""
+    svc = r["service"] or {}
+    return f"zc={svc.get('zero_copy_waves')} fb={svc.get('fallback_waves')}"
 
 
 def summarize_roots(roots) -> str:
@@ -643,7 +651,7 @@ def restart_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float 
           f"{(r['latency_mean_s'] or 0) * 1e3:.0f} ms, p50 {(r['latency_p50_s'] or 0) * 1e3:.0f} ms; "
           f"view-change timeouts {r['timeouts']}; verify kernel launches {launches} "
           f"({r['k1_launches']} after boot); worst loop lag {r['max_loop_lag_s'] * 1e3:.1f} ms at "
-          f"{r['max_loop_lag_at_s']:.2f} s; ledger reads {r['ledger_reads']} [{card}]")
+          f"{r['max_loop_lag_at_s']:.2f} s; ledger reads {r['ledger_reads']}; {zc_fb(r)} [{card}]")
     check(sync["adopted"] and sync["entries"] > 0, "restart: the node adopted a snapshot with entries")
     check(sync["round"] >= sync["cursor_at_stop"] + 8,
           "restart: the snapshot is at least 8 rounds past the node's commit cursor")
@@ -658,6 +666,232 @@ def restart_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float 
           "restart: every ledger read at the restarted node matches a live node's")
     if resolve_device(torch_device).type == "cuda":  # a CPU rehearsal runs the plain versions
         check(launches > 0, "restart: the verify kernel launched in the phase")
+    return launches
+
+
+def _oracle_rows(rows) -> list:
+    """The oracle's verdicts on ``(sig, pk, digest)`` rows (a worker of
+    the ingest phase's process pool)."""
+    from hotstuff_tpu_torch.crypto import ed25519_ref as ref
+
+    return [ref.verify(sig, pk, digest) for sig, pk, digest in rows]
+
+
+def ingest_phase(card: str, nodes: int = COMMITTEE, waves: int = 16, wave: int = WAVE,
+                 torch_device=None) -> int:
+    """(f) Vote frames from the wire verified from the staging arenas the
+    native reactor packed: one ``NativeReceiver`` feeding a handler that
+    submits ``wave``-claim waves to the shared ``AsyncVerifyService``;
+    returns the verify kernel's launches in the wire run."""
+    import asyncio
+    import multiprocessing
+
+    from hotstuff_tpu_torch.bench.committee import reserve_ports
+    from hotstuff_tpu_torch.consensus import Vote
+    from hotstuff_tpu_torch.consensus.wire import (
+        TAG_VOTE, decode_message, encode_producer_batch, encode_vote,
+    )
+    from hotstuff_tpu_torch.crypto import Digest, Signature, generate_keypair
+    from hotstuff_tpu_torch.crypto import async_service as svc_mod
+    from hotstuff_tpu_torch.gpu import dsm
+    from hotstuff_tpu_torch.gpu.ed25519 import resolve_device
+    from hotstuff_tpu_torch.network import native
+    from hotstuff_tpu_torch.node import make_verifier
+    from hotstuff_tpu_torch.telemetry import spans
+
+    L = 2**252 + 27742317777372353535851937790883648493
+    t0 = time.perf_counter()
+    members = [generate_keypair(b"\x51" * 32, i) for i in range(nodes)]  # the storm's committee
+    # two forged votes a wave at known positions: a flipped signature
+    # byte, and S raised by L (S >= L)
+    flipped, big_s = 333 % wave, 777 % wave
+    frames, claims = [], []
+    for w in range(waves):
+        fw, cw = [], []
+        for i in range(wave):
+            pk, sk = members[(w * wave + i) % nodes]
+            vote = Vote(hash=Digest.of(b"ingest block %d %d" % (w, i)), round=1_000 + w, author=pk)
+            sig = Signature.new(vote.digest(), sk).to_bytes()
+            if i == flipped:
+                sig = sig[:7] + bytes([sig[7] ^ 0x10]) + sig[8:]
+            elif i == big_s:
+                sig = sig[:32] + (int.from_bytes(sig[32:], "little") + L).to_bytes(32, "little")
+            vote.signature = Signature(sig)
+            fw.append(encode_vote(vote))
+            cw.append(vote.claim())
+        frames.append(fw)
+        claims.append(cw)
+    t_sign = time.perf_counter() - t0
+    rows = [(c[3], c[2], c[1]) for cw in claims for c in cw]
+    procs = min(8, os.cpu_count() or 1)
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
+        chunks = pool.map(_oracle_rows, [rows[k : k + 256] for k in range(0, len(rows), 256)])
+    oracle = [ok for chunk in chunks for ok in chunk]
+    want = [oracle[w * wave : (w + 1) * wave] for w in range(waves)]
+    check(all(not want[w][flipped] and not want[w][big_s] for w in range(waves))
+          and sum(oracle) == waves * (wave - 2), "ingest: the oracle rejects exactly the forged votes")
+    print(f"ingest fixture: {waves} waves of {wave} signed votes from {nodes} validators signed in "
+          f"{t_sign:.1f} s, oracle over {len(rows)} signatures in {time.perf_counter() - t0 - t_sign:.1f} s "
+          f"on {procs} processes (host)")
+
+    host = make_verifier("cuda", device=torch_device)
+    host.precompute([pk.to_bytes() for pk, _ in members])
+    host.warmup(wave)
+    # every adopted wave must reach the device view's verify_packed at
+    # its bucket: record the rows of each call
+    dispatch = host.async_backend
+    packed_rows: list = []
+    to_device = dispatch.verify_packed
+
+    def recording(dig, pk, sig, rows):
+        packed_rows.append(rows)
+        return to_device(dig, pk, sig, rows)
+
+    dispatch.verify_packed = recording
+
+    class Handler:
+        """Decodes vote frames; every ``wave`` claims go to the service
+        as one wave.  The producer-v2 ping only proves the connection."""
+
+        def __init__(self, service):
+            self.service = service
+            self.claims: list = []
+            self.waves: list = []
+            self.warmed = asyncio.Event()
+
+        async def dispatch(self, writer, message: bytes) -> None:
+            tag, payload = decode_message(message, scheme="ed25519")
+            if tag != TAG_VOTE:
+                self.warmed.set()
+                return
+            self.claims.append(payload.claim())
+            if len(self.claims) == wave:
+                batch, self.claims = self.claims, []
+                self.waves.append(asyncio.ensure_future(self.service.verify_claims(batch)))
+
+    async def until(cond, what: str, limit_s: float = 30.0) -> None:
+        # a real sleep: a sleep(0) spin would keep the GIL from the slot threads
+        t_end = time.perf_counter() + limit_s
+        while not cond():
+            check(time.perf_counter() < t_end, f"ingest: timed out waiting for {what}")
+            await asyncio.sleep(0.0005)
+
+    async def run():
+        os.environ.pop("HOTSTUFF_ZERO_COPY", None)
+        svc_mod._zero_copy = None  # a fresh plane: earlier phases' receivers noted votes
+        service = svc_mod.AsyncVerifyService.for_backend(host)
+        service.warm_buckets()
+        handler = Handler(service)
+        (sock,) = reserve_ports(1)
+        port = sock.getsockname()[1]
+        sock.close()
+        recv = native.NativeReceiver("127.0.0.1", port, handler)
+        sender = native.NativeSimpleSender()
+        addr = ("127.0.0.1", port)
+        try:
+            await recv.spawn()
+            plane = svc_mod.zero_copy_ingest_if_active()
+            check(plane is not None, "ingest: the receiver created the ingest plane")
+            # the native sender drops frames while it connects, and a lost
+            # vote would desync the packed and claim streams: ping with a
+            # frame the packer ignores until one arrives
+            ping = encode_producer_batch([(Digest.of(b"ingest ping"), b"")])
+            for _ in range(100):
+                await sender.send(addr, ping)
+                try:
+                    await asyncio.wait_for(handler.warmed.wait(), 0.1)
+                    break
+                except asyncio.TimeoutError:
+                    continue
+            check(handler.warmed.is_set(), "ingest: the native sender connected")
+            tx0 = native.Reactor.shared().counters()["tx_frames"]
+            start = service.dispatches
+            dsm.reset_launches()
+            rec = spans.enable()
+            try:
+                t_wire = time.perf_counter()
+                for w in range(waves):
+                    for k in range(0, wave, 128):  # under the reactor's 1000-frame outbox
+                        for frame in frames[w][k : k + 128]:
+                            await sender.send(addr, frame)
+                        await asyncio.sleep(0)
+                    sent = native.Reactor.shared().counters()["tx_frames"] - tx0
+                    # at most two waves outstanding: the dispatcher took
+                    # this one, and the one before it landed
+                    await until(lambda: service.dispatches > start + w,
+                                f"wave {w} to reach the dispatcher ({sent} of "
+                                f"{(w + 1) * wave} frames handed to the reactor)")
+                    if w:
+                        await asyncio.wait_for(asyncio.shield(handler.waves[w - 1]), 30.0)
+                got = await asyncio.wait_for(asyncio.gather(*handler.waves), 30.0)
+                wire_s = time.perf_counter() - t_wire
+                launches = dsm.launches["verify_compressed"]
+                stages: dict = {}
+                for name, _t, dur, _depth, _thread in rec.drain():
+                    stages.setdefault(name, []).append(dur / 1e6)
+            finally:
+                spans.disable()
+            for w in range(waves):
+                check(got[w] == want[w], f"ingest wave {w}: every verdict equals the oracle's")
+            hit = service.zero_copy_sigs / (waves * wave)
+            print(service.stats_line())
+            print(f"ingest plane counters: {plane.counters()}; packed votes {plane.packed_votes}")
+            print(f"ingest phase: {waves} waves x {wave} votes over the native transport, wire to verdict "
+                  f"{wire_s * 1e3:.1f} ms, {waves * wave / wire_s:.0f} sigs/s; adopted {service.zero_copy_waves} "
+                  f"waves ({service.zero_copy_sigs} sigs, hit rate {hit:.3f}), fell back {service.fallback_waves}; "
+                  f"routes device {service.device_dispatches} cpu {service.cpu_dispatches} probe "
+                  f"{service.probe_dispatches}, deadline misses {service.deadline_misses}; verify_packed rows "
+                  f"{sorted(set(packed_rows))} x{len(packed_rows)}; verify kernel launches {launches} [{card}]")
+            print("ingest phase span stages (mean ms x count): " + ", ".join(
+                f"{k} {sum(v) / len(v):.3f} x{len(v)}" for k, v in stages.items()
+                if k != "pipeline.occupancy"))
+            check(hit >= 0.90, "ingest: at least 90% of the signatures verified from the arenas")
+            check(service.dispatches - start == waves and service.device_dispatches == waves
+                  and service.cpu_dispatches == 0 and service.probe_dispatches == 0,
+                  "ingest: every wave took the device route")
+            check(len(packed_rows) == service.zero_copy_waves and set(packed_rows) == {wave},
+                  f"ingest: every adopted wave staged from its arena at the {wave} bucket")
+            if resolve_device(torch_device).type == "cuda":  # a CPU rehearsal runs the plain versions
+                check(launches >= service.device_dispatches,
+                      "ingest: a verify-kernel launch for every device wave")
+            return launches, service
+        finally:
+            sender.close()
+            await recv.shutdown()
+            t_end = time.perf_counter() + 10.0
+            while service._inflight and time.perf_counter() < t_end:
+                await asyncio.sleep(0.001)
+            service.close()
+
+    try:
+        launches, _ = asyncio.run(run())
+    finally:
+        dispatch.verify_packed = to_device
+
+    # the same waves through the arena and through the flatten path, off
+    # the wire and off the service, as bench.py's bench_ingest does
+    target = host.async_backend
+    ing = svc_mod.ZeroCopyIngest(capacity=wave, ring_depth=3)
+    try:
+        t_zc = time.perf_counter()
+        got_zc = []
+        for w in range(waves):
+            for frame in frames[w]:
+                ing.note_vote_frame(frame)
+            adopted = ing.try_adopt(claims[w], (wave,))
+            check(adopted is not None, "ingest: the arena adopted the wave off the wire")
+            got_zc.append(svc_mod.eval_claims_arena(target, adopted, claims[w]))
+        zc_s = time.perf_counter() - t_zc
+    finally:
+        ing.packer.close()
+    t_flat = time.perf_counter()
+    got_flat = [svc_mod.eval_claims_sync(target, claims[w]) for w in range(waves)]
+    flat_s = time.perf_counter() - t_flat
+    check(got_zc == want and got_flat == want, "ingest: arena and flatten verdicts equal the oracle's")
+    sigs = waves * wave
+    print(f"ingest off the wire: {waves} waves of {wave}, pack + adopt + verify_packed {zc_s * 1e3:.1f} ms "
+          f"({sigs / zc_s:.0f} sigs/s) against flatten + verify_device {flat_s * 1e3:.1f} ms "
+          f"({sigs / flat_s:.0f} sigs/s), ratio {flat_s / zc_s:.2f} [{card}]")
     return launches
 
 
@@ -756,6 +990,7 @@ def parse_node_logs(node_log: str, client_log: str) -> dict:
             "dispatches": int(last[1]), "device": int(last[2]), "cpu": int(last[3] or 0),
             "probe": int(last[4] or 0), "device_sigs": int(last[5]), "cpu_sigs": int(last[6]),
             "deadline_misses": int(last[7]), "ewma_ms": float(last[13]),
+            "zc": int(last[14] or 0), "fb": int(last[15] or 0),
         }
     m = RE_LAUNCHES.findall(node_log)
     if m:
@@ -764,10 +999,11 @@ def parse_node_logs(node_log: str, client_log: str) -> dict:
 
 
 def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
-               verifier: str = "cuda") -> int:
-    """(e) The node CLI: a ``run-many`` committee process and the
-    producer client process, both started from the command line; returns
-    the verify kernel's launches in the node process (boot included).
+               verifier: str = "cuda", transport: str = "asyncio"):
+    """(e), and (g) with ``transport="native"``: the node CLI, a
+    ``run-many`` committee process and the producer client process, both
+    started from the command line; returns the verify kernel's launches
+    in the node process (boot included) and what the logs say.
     ``verifier="cpu"`` rehearses the phase without a card: no wave
     service, so the stats and launch checks are skipped."""
     import signal
@@ -778,7 +1014,8 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     from hotstuff_tpu_torch.node.config import Secret, write_committee, write_parameters
 
     t0 = time.perf_counter()
-    logs = os.path.join(ROOT, "chiprun_out", "node_phase")
+    phase = "node phase" if transport == "asyncio" else f"node phase ({transport})"
+    logs = os.path.join(ROOT, "chiprun_out", "node_phase" if transport == "asyncio" else f"node_phase_{transport}")
     os.makedirs(logs, exist_ok=True)
     node_log_path = os.path.join(logs, "nodes.log")
     client_log_path = os.path.join(logs, "client.log")
@@ -798,7 +1035,7 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
         parameters_file = os.path.join(tmp, "parameters.json")
         write_committee(committee, committee_file)
         write_parameters(Parameters(), parameters_file)
-        check(Parameters().timeout_delay == 5_000, "node phase: default 5,000 ms timeout delay")
+        check(Parameters().timeout_delay == 5_000, f"{phase}: default 5,000 ms timeout delay")
         for s in socks:  # free the reserved ports for the nodes' receivers
             s.close()
         stopped_in_time = False
@@ -806,7 +1043,8 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
             with open(node_log_path, "w") as node_log, open(client_log_path, "w") as client_log:
                 t_launch = time.time()
                 procs.append(subprocess.Popen(
-                    cli + ["-vv", "run-many", "--verifier", verifier, "--keys", ",".join(key_files),
+                    cli + ["-vv", "run-many", "--transport", transport, "--verifier", verifier,
+                           "--keys", ",".join(key_files),
                            "--committee", committee_file, "--store-prefix", os.path.join(tmp, "db_"),
                            "--parameters", parameters_file],
                     stdout=node_log, stderr=subprocess.STDOUT, env=env))
@@ -818,8 +1056,8 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
                 client = procs[1]
                 # the client waits up to 3 s a node for the ports, then sends
                 client.wait(timeout=3.0 * nodes + duration + 120)
-                check(client.returncode == 0, f"node phase: the client exited with {client.returncode}")
-                check(node.poll() is None, "node phase: the node process is still running after the load")
+                check(client.returncode == 0, f"{phase}: the client exited with {client.returncode}")
+                check(node.poll() is None, f"{phase}: the node process is still running after the load")
                 time.sleep(3.0)
                 t_stop = time.perf_counter()
                 node.send_signal(signal.SIGTERM)
@@ -843,7 +1081,7 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     boot_s = r["boot_at"] - t_launch if r["boot_at"] is not None else None
     stats = r["stats"] or {}
     launches = (r["launches"] or {}).get("verify_compressed", 0)
-    print(f"node phase: {nodes} nodes (run-many, --verifier {verifier}), {rate} tx/s of 512 B for {duration} s "
+    print(f"{phase}: {nodes} nodes (run-many, --verifier {verifier}), {rate} tx/s of 512 B for {duration} s "
           f"from the client process: boot {boot_s if boot_s is None else round(boot_s, 2)} s, "
           f"{r['committed_rounds']} committed rounds ({r['commit_lines']} commit lines), "
           f"{r['consensus_payloads_per_s']:.1f} consensus payloads/s, {r['e2e_payloads_per_s']:.1f} "
@@ -851,24 +1089,25 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
           f"{(r['latency_p50_s'] or 0) * 1e3:.0f} ms, timeouts {r['timeouts']}, routes "
           f"device {stats.get('device')} cpu {stats.get('cpu')} probe {stats.get('probe')} "
           f"(device_sigs {stats.get('device_sigs')}, cpu_sigs {stats.get('cpu_sigs')}), ewma_ms "
-          f"{stats.get('ewma_ms')}, verify kernel launches {launches}, {r['versions']} state versions; "
+          f"{stats.get('ewma_ms')}, zc {stats.get('zc')} fb {stats.get('fb')}, verify kernel launches {launches}, {r['versions']} state versions; "
           f"stopped in {stop_s:.1f} s; {wall:.1f} s in all (host clock) [{card}]")
-    print("node phase result: " + json.dumps({**r, "boot_s": boot_s, "stop_s": stop_s, "wall_s": wall}))
-    check(stopped_in_time, "node phase: the node process stopped within 60 s of SIGTERM")
+    print(f"{phase} result: " + json.dumps({**r, "boot_s": boot_s, "stop_s": stop_s, "wall_s": wall}))
+    check(stopped_in_time, f"{phase}: the node process stopped within 60 s of SIGTERM")
     check("Traceback" not in node_text and "Traceback" not in client_text,
-          "node phase: no traceback in the node or client log")
-    check(r["booted"] == nodes, f"node phase: {nodes} 'successfully booted' lines")
-    check(r["commit_lines"] >= nodes * 5, "node phase: at least 5 committed blocks a node")
-    check(r["rounds_agree"], "node phase: every committed round names one digest")
-    check(r["versions"] > 0 and r["roots_agree"], "node phase: every version has one state root")
+          f"{phase}: no traceback in the node or client log")
+    check(r["booted"] == nodes, f"{phase}: {nodes} 'successfully booted' lines")
+    check(r["commit_lines"] >= nodes * 5, f"{phase}: at least 5 committed blocks a node")
+    check(r["rounds_agree"], f"{phase}: every committed round names one digest")
+    check(r["versions"] > 0 and r["roots_agree"], f"{phase}: every version has one state root")
     if verifier == "cuda":
         check(stats.get("device", 0) >= 1 and stats.get("device_sigs", 0) > 0,
-              "node phase: the last stats line shows device waves and device signatures")
+              f"{phase}: the last stats line shows device waves and device signatures")
         # one device wave of up to 1024 signatures is one verify_device
         # call, which launches K1 once; the boot's warmup launches too
         check(launches >= stats["device"] + stats["probe"],
-              "node phase: a verify-kernel launch for every device wave")
-    return launches
+              f"{phase}: a verify-kernel launch for every device wave")
+    r.update(boot_s=boot_s, stop_s=stop_s, wall_s=wall, launches=launches)
+    return launches, r
 
 
 def main() -> int:
@@ -1063,8 +1302,19 @@ def main() -> int:
     restart_launches = restart_phase(card)
     print(f"phase (d) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    node_launches = node_phase(card)
+    node_launches, node_r = node_phase(card)
     print(f"phase (e) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ingest_launches = ingest_phase(card)
+    print(f"phase (f) took {time.perf_counter() - t0:.1f} s")
+    check(ingest_launches > 0, "the ingest phase never launched the verify kernel")
+    t0 = time.perf_counter()
+    native_launches, native_r = node_phase(card, transport="native")
+    print(f"phase (g) took {time.perf_counter() - t0:.1f} s")
+    keys = ("boot_s", "committed_rounds", "consensus_payloads_per_s", "latency_mean_s", "latency_p50_s",
+            "timeouts", "launches", "stop_s")
+    for label, r in (("(e) asyncio", node_r), ("(g) native", native_r)):
+        print(f"node CLI {label}: " + ", ".join(f"{k} {r[k]}" for k in keys) + f", stats {r['stats']} [{card}]")
 
     B = WAVE
     v_bound, s_bound = bounds(B)
@@ -1075,7 +1325,8 @@ def main() -> int:
             "source": "hotstuff_tpu_torch/gpu/csrc/dsm_kernels.cu",
             "replaces": "hotstuff_tpu/tpu/pallas_dsm.py:587",
             "launches": (main_launches["verify_compressed"] + storm_launches + wave_launches
-                         + committee_launches + restart_launches + node_launches),
+                         + committee_launches + restart_launches + node_launches
+                         + ingest_launches + native_launches),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

@@ -10,10 +10,13 @@ nothing from it: what it needs is copied and trimmed.  Layers, top down:
   helper, leader election, timer and ``Consensus.spawn`` — over the
   certificate layer: messages, wire, committee configuration,
   reconfiguration ops and the vote/timeout aggregators;
-- ``network/``, ``store/``, ``ingest/``: the asyncio transport, the
-  write-ahead-log store and producer admission;
+- ``network/``, ``store/``, ``ingest/``: the asyncio and native
+  (C++ reactor) transports, the write-ahead-log store and producer
+  admission;
 - ``crypto/async_service.py``: the wave service that coalesces claims
-  from many cores into padded device waves; the rest of ``crypto/``,
+  from many cores into padded device waves, and the zero-copy ingest
+  plane that verifies votes from the staging arenas the receivers
+  packed (``crypto/native_ed25519.py``); the rest of ``crypto/``,
   ``utils/`` and ``telemetry/`` are the host crypto and helpers;
 - ``gpu/``: plain PyTorch versions of the field and curve layers, and
   hand-written CUDA kernels for the fused double-scalar-multiplication

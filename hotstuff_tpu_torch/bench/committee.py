@@ -283,7 +283,7 @@ async def _drained(service, limit_s: float = 10.0) -> None:
 
 async def _committee(
     nodes, rate, duration, size, verifier, device, timeout_delay, sync_retry_delay,
-    seed, restart,
+    seed, restart, transport,
 ) -> dict:
     loop = asyncio.get_running_loop()
     t_boot = time.perf_counter()
@@ -356,6 +356,7 @@ async def _committee(
                     queues[i],
                     verifier=backend,
                     bind_host="127.0.0.1",
+                    transport=transport,
                 )
             except BaseException:
                 store.close()
@@ -556,6 +557,9 @@ async def _committee(
                 "deadline_misses": service.deadline_misses,
                 "peak_inflight": service.peak_inflight,
                 "packed_waves": service.packed_waves,
+                "zero_copy_waves": service.zero_copy_waves,
+                "zero_copy_sigs": service.zero_copy_sigs,
+                "fallback_waves": service.fallback_waves,
                 "stats_line": service.stats_line(),
             }
     finally:
@@ -634,6 +638,7 @@ def run_committee(
     seed: int = 0,
     restart: dict | None = None,
     sync_retry_delay: int = 10_000,
+    transport: str = "asyncio",
 ) -> dict:
     """Boot ``nodes`` co-located consensus stacks sharing one
     ``make_verifier(verifier, device=device)``, feed them ``rate``
@@ -652,9 +657,10 @@ def run_committee(
     - ``latency_mean_s`` / ``latency_p50_s``: a payload's send to its
       first commit at any node, over those payloads;
     - ``timeouts``: local round timeouts over all nodes (view changes);
-    - ``service``: the shared wave service's route counts and device
-      waves (None for the inline CPU service); ``k1_launches``: verify
-      kernel launches after boot;
+    - ``service``: the shared wave service's route counts, device
+      waves, and waves adopted from an ingest arena or resynced (None
+      for the inline CPU service); ``k1_launches``: verify kernel
+      launches after boot;
     - ``max_loop_lag_s``: the worst lag of a 5 ms event-loop heartbeat,
       and ``max_loop_lag_at_s`` when it began, in seconds into the load
       window;
@@ -664,7 +670,8 @@ def run_committee(
       nodes both applied has one root.
 
     ``timeout_delay`` and ``sync_retry_delay`` (ms) are the nodes'
-    ``Parameters``.  ``restart`` (None, or a dict such as ``{"node": 1, "down_at_s": 5.0,
+    ``Parameters``; ``transport`` (``"asyncio"`` or ``"native"``) goes
+    to every stack's ``Consensus.spawn``.  ``restart`` (None, or a dict such as ``{"node": 1, "down_at_s": 5.0,
     "behind_rounds": 16, "deadline_s": 30.0}``) crashes and recovers
     one node inside the load window: ``down_at_s`` into the window its
     stack is stopped hard (tasks, listener, sockets, store; the client's
@@ -693,6 +700,6 @@ def run_committee(
     return asyncio.run(
         _committee(
             nodes, rate, duration, size, verifier, device, timeout_delay,
-            sync_retry_delay, seed, restart,
+            sync_retry_delay, seed, restart, transport,
         )
     )

@@ -14,12 +14,14 @@ proposer; Vote/Timeout/TC -> core, no ACK; StateRequest -> the
 state-sync server; StateManifest/StateChunk -> the boot-time sync
 client; StateRead -> answered inline from the execution layer.
 
-A copy of ``hotstuff_tpu.consensus.consensus`` with the asyncio
-transport only, join mode included (``HOTSTUFF_RECONFIG_LISTEN``: a key
-outside the committee listens there and bootstraps through state sync).
-Not ported, so cut: WAN emulation, the fault and adversary planes, flow
-accounting, telemetry (with the execution layer's gauges), the native
-and sim transports, and the receiver's native producer-v2 fast path.
+A copy of ``hotstuff_tpu.consensus.consensus`` with the asyncio and
+native transports, join mode included (``HOTSTUFF_RECONFIG_LISTEN``: a
+key outside the committee listens there and bootstraps through state
+sync), and the receiver's native producer-v2 fast path
+(``dispatch_producer_v2``).  Not ported, so cut: WAN emulation, the
+fault and adversary planes, flow accounting, telemetry (with the
+execution layer's gauges and the handler's journal line) and the sim
+transport.
 """
 
 from __future__ import annotations
@@ -293,6 +295,49 @@ class ConsensusReceiverHandler:
         else:
             await self.tx_consensus.put((tag, payload))
 
+    async def dispatch_producer_v2(
+        self, writer: Writer, frame: bytes, digests: bytes, spans: list
+    ) -> None:
+        """Zero-copy ingest fast path for batched producer frames: the
+        native parser already checked the wire bounds and emitted the
+        digest column plus ``(offset, length)`` body windows into
+        ``frame``, so this mirrors the TAG_PRODUCER_V2 branch of
+        ``dispatch`` without building per-item payload tuples — bodies
+        stay memoryview windows and only ACCEPTED items materialize
+        bytes for the body store.  Any frame the native parser rejects
+        takes the normal decode path instead of this one."""
+        mv = memoryview(frame)
+        valid = []
+        for i, (off, ln) in enumerate(spans):
+            digest = Digest(bytes(digests[i * 32 : (i + 1) * 32]))
+            body = mv[off : off + ln]
+            if ln and Digest.of(body) != digest:
+                log.warning(
+                    "Dropping batched producer payload whose body "
+                    "does not match its digest"
+                )
+                continue
+            valid.append((digest, body))
+        if self.admission is not None:
+            decision = self.admission.admit(len(valid))
+        else:
+            decision = Decision(len(valid), 0, 0, 0)
+        for digest, body in valid[: decision.accepted]:
+            if len(body) and self.bodies is not None:
+                await self.bodies.admit(digest, bytes(body))
+            await self.tx_producer.put(digest)
+        try:
+            await writer.send(
+                encode_ingest_ack(
+                    decision.accepted,
+                    decision.shed,
+                    decision.credit,
+                    decision.retry_after_ms,
+                )
+            )
+        except (ConnectionError, OSError):
+            pass
+
     async def _serve_state_read(self, writer: Writer, payload) -> None:
         """QC-anchored stale read: answer at the last applied version —
         by construction while catching up, too — with the anchor
@@ -351,7 +396,11 @@ class Consensus:
         bind_host: str = "0.0.0.0",
         transport: str = "asyncio",
     ) -> "Consensus":
-        if transport != "asyncio":
+        """Spawn one node's stack.  ``transport`` is ``"asyncio"`` or
+        ``"native"`` (the C++ reactor of ``network/native.py``: a
+        library that cannot build raises here, never a quiet fall back
+        to asyncio); the simulator's ``"sim"`` is not ported."""
+        if transport not in ("asyncio", "native"):
             raise NotImplementedError(
                 f"the '{transport}' transport is not ported yet"
             )
@@ -417,19 +466,34 @@ class Consensus:
                 address[0],
                 address[1],
             )
-        # Bounded per-sender connection pools for big co-located
-        # committees (absent/non-positive = reference parity, unbounded)
-        max_conns = parse_max_conns(os.environ.get("HOTSTUFF_MAX_PEER_CONNS"))
+        if transport == "native":
+            from ..network.native import (
+                NativeReceiver,
+                NativeReliableSender,
+                NativeSimpleSender,
+            )
 
-        def make_sender():
-            return SimpleSender(max_conns=max_conns)
+            receiver_cls = NativeReceiver
+            make_sender = NativeSimpleSender
+            make_reliable = NativeReliableSender
+        else:
+            receiver_cls = NetworkReceiver
+            # Bounded per-sender connection pools for big co-located
+            # committees (absent/non-positive = reference parity,
+            # unbounded)
+            max_conns = parse_max_conns(
+                os.environ.get("HOTSTUFF_MAX_PEER_CONNS")
+            )
 
-        def make_reliable():
-            return ReliableSender(max_conns=max_conns)
+            def make_sender():
+                return SimpleSender(max_conns=max_conns)
+
+            def make_reliable():
+                return ReliableSender(max_conns=max_conns)
 
         # Bind on all interfaces, listen on our committee port
         # (consensus.rs:61-73 rewrites the IP to 0.0.0.0).
-        self.receiver = NetworkReceiver(
+        self.receiver = receiver_cls(
             bind_host,
             address[1],
             ConsensusReceiverHandler(

@@ -51,9 +51,13 @@ lands on a shape ``warm_buckets`` already ran; an optional round window
 claims from the same round merge into one dispatch with a claim-table
 fanout on readback.
 
-Not ported: the zero-copy ingest arena (``native/wave_pack.cpp``), the
-native batch-equation CPU route (``native_ed25519``), the BLS
-aggregate-preferring route, and the telemetry registry's instruments.
+Zero-copy ingest: receivers note vote frames to a native wave packer
+(``ZeroCopyIngest`` over ``native/wave_pack.cpp``), and a dispatch wave
+whose claims are exactly the packed prefix adopts the arena the packer
+filled (``AdoptedWave``), staged by ``verify_packed`` from ``frombuffer``
+views.  Not ported: the native batch-equation CPU route
+(``libhs_ed25519.so``), the BLS aggregate-preferring route, and the
+telemetry registry's instruments.
 """
 
 from __future__ import annotations
@@ -274,6 +278,272 @@ def make_pad_claim() -> tuple:
     return _pad_claim_cached
 
 
+# ---------------------------------------------------------------------------
+# Zero-copy wire -> device ingest
+#
+# Receivers note every vote frame to a native wave packer
+# (native/wave_pack.cpp), which parses it and packs its digest, pk and
+# sig columns straight into bucket-shaped staging arenas.  When a
+# dispatch wave's claim stream turns out to be exactly the packed arena
+# prefix (receive order == claim submission order), the service ADOPTS
+# the arena — the verifier stages from frombuffer views over memory the
+# native parser already filled — instead of walking Python claim
+# tuples.  Adoption is an exact byte-level match; any divergence
+# (deduped duplicates, dropped votes, mixed QC+vote waves, co-located
+# multi-node dedup) falls back to flatten_claims.  The arena is an
+# accelerator, never a correctness dependency.
+# ---------------------------------------------------------------------------
+
+#: wire tag of a vote frame (consensus/wire.py TAG_VOTE); importing
+#: consensus.wire here would cycle (wire imports crypto), so the tests
+#: hold this constant against the live one
+INGEST_TAG_VOTE = 1
+
+DEFAULT_INGEST_RING_DEPTH = 6
+
+
+def zero_copy_from_env() -> bool:
+    """HOTSTUFF_ZERO_COPY: "0"/"off" disables the ingest arenas;
+    default on."""
+    import os
+
+    raw = os.environ.get("HOTSTUFF_ZERO_COPY", "").strip().lower()
+    return raw not in ("0", "off", "no", "false", "none")
+
+
+def ingest_arena_rows_from_env() -> int:
+    """HOTSTUFF_INGEST_ARENA_ROWS: staging-arena capacity in claim rows;
+    default the largest canonical wave bucket, so every bucket-shaped
+    wave is a prefix view of one arena."""
+    import os
+
+    raw = os.environ.get("HOTSTUFF_INGEST_ARENA_ROWS", "")
+    try:
+        rows = int(raw)
+    except ValueError:
+        rows = 0
+    return rows if rows > 0 else DEFAULT_WAVE_BUCKETS[-1]
+
+
+def ingest_ring_from_env() -> int:
+    """HOTSTUFF_INGEST_RING: staging arenas in the native ring (min 2:
+    one open for packing while sealed ones are in flight); default 6 —
+    pipeline depth 2, a probe, and headroom before packing resyncs."""
+    import os
+
+    raw = os.environ.get("HOTSTUFF_INGEST_RING", "")
+    try:
+        depth = int(raw)
+    except ValueError:
+        depth = 0
+    return depth if depth >= 2 else DEFAULT_INGEST_RING_DEPTH
+
+
+class AdoptedWave:
+    """A sealed native staging arena adopted as one verification wave:
+    ``n`` real claim rows followed by valid pad rows up to ``rows`` (the
+    wave bucket).  The column views die when ``release`` recycles the
+    arena — every consumer releases in a ``finally``, after its last
+    read of the columns."""
+
+    __slots__ = (
+        "ingest", "arena", "n", "rows",
+        "dig", "pk", "sig", "dig_addr", "pk_addr", "sig_addr",
+        "_released",
+    )
+
+    def __init__(self, ingest, arena: int, n: int, rows: int, info):
+        from .native_ed25519 import column_view
+
+        self.ingest = ingest
+        self.arena = arena
+        self.n = n
+        self.rows = rows
+        self.dig_addr, self.pk_addr, self.sig_addr = info[0], info[1], info[2]
+        self.dig = column_view(self.dig_addr, rows * 32)
+        self.pk = column_view(self.pk_addr, rows * 32)
+        self.sig = column_view(self.sig_addr, rows * 64)
+        self._released = False
+
+    def release(self) -> None:
+        """Recycle the arena (idempotent; runs on verifier slot threads
+        — the native mutex serializes it with event-loop packing)."""
+        if not self._released:
+            self._released = True
+            self.ingest.packer.recycle(self.arena)
+
+
+class ZeroCopyIngest:
+    """Process-global zero-copy ingest plane: owns the native arena
+    ring and the Python-side key mirror that proves adoption safe.
+
+    ``note_vote_frame`` (event loop, receive path) packs each vote's
+    digest/pk/sig columns natively and mirrors the claim KEY (the exact
+    bytes ``Vote.claim()`` would produce).  ``try_adopt`` (event loop,
+    dispatcher) hands the arena over iff the wave's claims are exactly
+    the packed key prefix — verdicts bind positionally downstream, so
+    the match must be exact, and the mirror makes it checkable without
+    decoding anything twice."""
+
+    def __init__(
+        self, capacity: int | None = None, ring_depth: int | None = None
+    ):
+        from .native_ed25519 import WavePacker
+
+        cap = capacity if capacity else ingest_arena_rows_from_env()
+        depth = ring_depth if ring_depth else ingest_ring_from_env()
+        self.packer = WavePacker(cap, depth)
+        pad = make_pad_claim()
+        if not self.packer.set_pad(pad[1], pad[2], pad[3]):
+            raise RuntimeError("wave packer pad install failed")
+        self._keys: list[tuple] = []
+        self.packed_votes = 0
+        self.zero_copy_waves = 0
+        self.fallback_waves = 0
+
+    @property
+    def active(self) -> bool:
+        """Any packed votes pending adoption?  The dispatcher skips the
+        adoption attempt entirely when nothing was packed."""
+        return bool(self._keys)
+
+    def note_vote_frame(self, frame: bytes) -> bool:
+        r = self.packer.pack_vote(frame)
+        if isinstance(r, int):
+            if r == -2:
+                # open arena full: the pack stream outran adoption (an
+                # idle service, or votes that never became claims) —
+                # resync rather than wedge with a full arena forever
+                self._resync()
+            return False
+        _slot, digest = r
+        # the claim key mirrors Vote.claim(): (digest, author pk, sig) —
+        # pk/sig slices at the fixed ed25519 vote-frame offsets
+        self._keys.append((digest, frame[45:77], frame[81:145]))
+        self.packed_votes += 1
+        return True
+
+    def try_adopt(self, claims: list, buckets) -> AdoptedWave | None:
+        """Adopt the packed prefix as ``claims``' wave, or None.
+
+        On a mismatch that OVERLAPS the packed stream (a packed vote is
+        in this wave but not at its packed position: dedup, a dropped
+        vote, a mixed QC+vote wave) the open arena is discarded — those
+        rows can never line up again.  A wave fully DISJOINT from the
+        packed keys (a pure QC/proposal wave between vote bursts) leaves
+        the arena untouched for the next wave."""
+        keys = self._keys
+        n = len(claims)
+        if n <= len(keys):
+            for i in range(n):
+                c = claims[i]
+                if c[0] != "one" or (c[1], c[2], c[3]) != keys[i]:
+                    break
+            else:
+                rows = next((b for b in buckets if b >= n), None)
+                if rows is None or rows > self.packer.capacity:
+                    rows = n
+                arena = self.packer.seal(n)
+                if arena is None:
+                    self._resync()
+                    return None
+                info = self.packer.arena_info(arena)
+                if info is None:  # unreachable right after seal
+                    self.packer.recycle(arena)
+                    self._resync()
+                    return None
+                del keys[:n]
+                self.zero_copy_waves += 1
+                return AdoptedWave(self, arena, n, rows, info)
+        key_set = set(keys)
+        if any(
+            c[0] == "one" and (c[1], c[2], c[3]) in key_set for c in claims
+        ):
+            self._resync()
+            self.fallback_waves += 1
+        return None
+
+    def _resync(self) -> None:
+        self.packer.discard()
+        self._keys.clear()
+
+    def counters(self) -> dict:
+        out = self.packer.counters()
+        out["zero_copy_waves"] = self.zero_copy_waves
+        out["fallback_waves"] = self.fallback_waves
+        return out
+
+
+#: None = never created; False = disabled (HOTSTUFF_ZERO_COPY=0); else
+#: the live ZeroCopyIngest
+_zero_copy: "ZeroCopyIngest | bool | None" = None
+
+
+def zero_copy_ingest() -> "ZeroCopyIngest | None":
+    """The process-global ingest plane, created by the first receiver;
+    None when disabled (``HOTSTUFF_ZERO_COPY=0``).  With the plane
+    enabled, a library that fails to build or load raises here — the
+    JAX package logs and goes on without the plane; the port names the
+    switch instead of degrading quietly."""
+    global _zero_copy
+    if _zero_copy is None:
+        if not zero_copy_from_env():
+            _zero_copy = False
+        else:
+            try:
+                _zero_copy = ZeroCopyIngest()
+            except Exception as e:
+                raise RuntimeError(
+                    f"the zero-copy ingest plane failed to start ({e}); "
+                    "set HOTSTUFF_ZERO_COPY=0 to run without it"
+                ) from e
+    return _zero_copy if type(_zero_copy) is ZeroCopyIngest else None
+
+
+def zero_copy_ingest_if_active() -> "ZeroCopyIngest | None":
+    """The ingest plane IF a receiver already created it — the
+    dispatcher-side accessor: never triggers a native build from the
+    verify path."""
+    return _zero_copy if type(_zero_copy) is ZeroCopyIngest else None
+
+
+def ingest_note_frame(frame: bytes) -> None:
+    """Receiver-side hook: feed one raw inbound frame to the zero-copy
+    plane just before handler dispatch.  Only vote frames are packed;
+    anything else is a cheap tag test.  A packing error never reaches
+    the receive loop: the wave falls back to the Python path."""
+    if not frame or frame[0] != INGEST_TAG_VOTE:
+        return
+    ing = zero_copy_ingest()
+    if ing is not None:
+        try:
+            ing.note_vote_frame(frame)
+        except Exception:  # noqa: BLE001 — a packer bug must not kill
+            # the connection; the wave simply falls back to Python
+            log.exception("zero-copy vote pack failed")
+
+
+def eval_claims_arena(backend, wave: AdoptedWave, claims: list) -> list[bool]:
+    """Evaluate an adopted zero-copy wave: the arena columns ARE the
+    staging arrays — no flatten, no per-claim bytes.  Device backends
+    verify through ``verify_packed`` (frombuffer views over the columns,
+    at the pre-padded bucket shape), which has consumed every arena byte
+    by the time it returns: ``BatchVerifier.prepare_packed`` copies the
+    rows into its own staging slot before any asynchronous copy to the
+    card.  A backend without a packed path evaluates the claim list with
+    ``eval_claims_sync`` (the native batch-equation CPU route of the JAX
+    package is not ported).  Always releases the arena."""
+    try:
+        n = wave.n
+        fn = getattr(backend, "verify_packed", None)
+        if fn is not None:
+            out = fn(wave.dig, wave.pk, wave.sig, wave.rows)
+            return [bool(v) for v in out[:n]]
+        return eval_claims_sync(backend, claims)
+    finally:
+        wave.release()
+
+
 #: every live _DispatchLoop, for interpreter-exit shutdown: slot threads
 #: are daemons AND get an explicit sentinel at atexit
 _live_dispatch_loops: "set[_DispatchLoop]" = set()
@@ -434,6 +704,11 @@ class AsyncVerifyService:
         self.deadline_misses = 0
         self.pipeline_waits = 0
         self.peak_inflight = 0
+        # zero-copy ingest plane: waves adopted straight from a native
+        # staging arena vs. vote-overlapping waves that had to resync
+        self.zero_copy_waves = 0
+        self.zero_copy_sigs = 0
+        self.fallback_waves = 0
         self._next_stats_log = 0.0
 
     @property
@@ -668,6 +943,7 @@ class AsyncVerifyService:
         claims: list,
         measure_only: bool = False,
         deadline: float | None = None,
+        wave: "AdoptedWave | None" = None,
     ):
         """Start a device dispatch on the dedicated dispatch loop and
         register it in the in-flight table (occupancy + deadline stamp
@@ -737,7 +1013,7 @@ class AsyncVerifyService:
                 self._inflight.pop(serial, None)
 
         self._dispatch.submit(
-            lambda: self._dispatch_sync(claims, t_spawn, end_holder),
+            lambda: self._dispatch_sync(claims, t_spawn, end_holder, wave),
             _on_done,
         )
         return fut, end_holder
@@ -747,9 +1023,12 @@ class AsyncVerifyService:
         claims: list,
         t_spawn: int | None = None,
         end_holder: list | None = None,
+        wave: "AdoptedWave | None" = None,
     ) -> list[bool]:
         """Slot-thread body: evaluate on the forced-device dispatch
-        view, timing the dispatch for the routing EWMA."""
+        view, timing the dispatch for the routing EWMA.  An adopted
+        zero-copy wave stages from its arena columns instead of
+        flattening claim tuples (released inside eval_claims_arena)."""
         rec = _spans.recorder()
         if rec is not None:
             t_enter = time.perf_counter_ns()
@@ -759,7 +1038,10 @@ class AsyncVerifyService:
                 rec.add("stage.slot_wait", t_spawn, t_enter - t_spawn)
         target = getattr(self.backend, "async_backend", self.backend)
         t0 = time.perf_counter()
-        out = eval_claims_sync(target, claims)
+        if wave is not None:
+            out = eval_claims_arena(target, wave, claims)
+        else:
+            out = eval_claims_sync(target, claims)
         wall = time.perf_counter() - t0
         if rec is not None:
             end_ns = time.perf_counter_ns()
@@ -843,6 +1125,22 @@ class AsyncVerifyService:
                 self.agg_sigs += sum(len(c[3]) for c in agg_in_wave)
             self.dispatches += 1
 
+            # zero-copy adoption: if a receiver packed this wave's votes
+            # into a staging arena and the claim stream matches the
+            # packed prefix exactly, adopt the arena — staging becomes
+            # frombuffer views.  Passive accessor: the verify path never
+            # triggers a native build; only receivers create the plane.
+            adopted = None
+            ing = zero_copy_ingest_if_active()
+            if ing is not None and ing.active:
+                with _spans.span("native.pack"):
+                    fb_before = ing.fallback_waves
+                    adopted = ing.try_adopt(claims, self.wave_buckets)
+                if adopted is not None:
+                    self.zero_copy_waves += 1
+                    self.zero_copy_sigs += n_sigs
+                elif ing.fallback_waves != fb_before:
+                    self.fallback_waves += 1
             try:
                 with _spans.span("route.decide"):
                     route = self._route_device(n_sigs)
@@ -867,10 +1165,16 @@ class AsyncVerifyService:
                         )
                     route = self._route_device(n_sigs)
                 dispatch_claims = claims
-                if route in ("device", "probe") and self._packing_on:
+                if (
+                    route in ("device", "probe")
+                    and self._packing_on
+                    and adopted is None
+                ):
                     # fixed-shape wave: pad to the bucket so
                     # the dispatch hits a warmed shape.  Probes pack
                     # too — they measure the shape real waves use.
+                    # Adopted waves skip this: the arena is already
+                    # bucket-shaped with native-padded rows.
                     with _spans.span("stage.pack"):
                         dispatch_claims = self._pack_wave(claims, n_sigs)
                 if route == "probe":
@@ -879,14 +1183,20 @@ class AsyncVerifyService:
                     # itself is served from the CPU so a degraded device
                     # never adds wave latency
                     self.probe_dispatches += 1
-                    self._spawn_device(loop, dispatch_claims, measure_only=True)
+                    self._spawn_device(
+                        loop, dispatch_claims, measure_only=True,
+                        wave=adopted,
+                    )
+                    adopted = None  # released by the probe dispatch
                 if route == "device":
                     self.device_dispatches += 1
                     self.device_sigs += n_sigs
                     deadline = self._deadline_s()
                     exec_fut, end_holder = self._spawn_device(
-                        loop, dispatch_claims, deadline=deadline
+                        loop, dispatch_claims, deadline=deadline,
+                        wave=adopted,
                     )
+                    adopted = None  # released by the slot thread
                     # async readback: the dispatcher does NOT
                     # await the device — a per-wave lander task lands
                     # this wave's verdicts when its completion future
@@ -906,19 +1216,27 @@ class AsyncVerifyService:
                     continue
                 self.cpu_dispatches += 1
                 self.cpu_sigs += n_sigs
-                await self._serve_cpu(batch)
+                if adopted is not None:
+                    wave_held, adopted = adopted, None
+                    await self._serve_cpu_arena(batch, claims, wave_held)
+                else:
+                    await self._serve_cpu(batch)
                 if wave_t0 is not None:
                     rec.add(
                         "e2e", wave_t0, time.perf_counter_ns() - wave_t0
                     )
                 self._log_stats()
             except asyncio.CancelledError:
+                if adopted is not None:
+                    adopted.release()
                 for _, fut in batch:
                     if not fut.done():
                         fut.cancel()
                 raise
             except Exception as e:  # noqa: BLE001 — backend failure must
                 # reach every waiter, not kill the dispatcher
+                if adopted is not None:
+                    adopted.release()
                 log.warning("verify dispatch failed: %s", e)
                 for _, fut in batch:
                     if not fut.done():
@@ -944,6 +1262,19 @@ class AsyncVerifyService:
                 results = eval_claims_sync(cpu, todo)
                 for c, r in zip(todo, results):
                     memo[c] = r
+            if not fut.done():
+                fut.set_result([memo[c] for c in cs])
+            await asyncio.sleep(0)
+
+    async def _serve_cpu_arena(self, batch, claims: list, wave) -> None:
+        """CPU serving for an adopted zero-copy wave: the CPU backend
+        has no packed path, so ``eval_claims_arena`` evaluates the
+        unique claims with ``eval_claims_sync`` and releases the arena;
+        verdicts then fan out per submission exactly like _serve_cpu."""
+        cpu = getattr(self.backend, "cpu_backend", self.backend)
+        results = eval_claims_arena(cpu, wave, claims)
+        memo = dict(zip(claims, results))
+        for cs, fut in batch:
             if not fut.done():
                 fut.set_result([memo[c] for c in cs])
             await asyncio.sleep(0)
@@ -1015,9 +1346,11 @@ class AsyncVerifyService:
         """The routing split, padding and dispatch EWMA of this service
         so far, as one log line.  The fields up to ``fb=`` are the JAX
         package's, in its order (the harness's log contract,
-        ``hotstuff_tpu/crypto/async_service.py`` ``_log_stats``); the
-        mesh, zero-copy and fallback paths are not ported, so ``mesh``,
-        ``zc`` and ``fb`` stay 0.  The port's own fields follow."""
+        ``hotstuff_tpu/crypto/async_service.py`` ``_log_stats``):
+        ``zc`` counts waves adopted from an ingest arena and ``fb``
+        vote-overlapping waves that resynced the plane and flattened;
+        the mesh is not ported, so ``mesh`` stays 0.  The port's own
+        fields follow."""
         return (
             f"Verify service stats [{self._stats_tag}]: "
             f"dispatches={self.dispatches} device={self.device_dispatches} "
@@ -1026,7 +1359,8 @@ class AsyncVerifyService:
             f"deadline_misses={self.deadline_misses} "
             f"waits={self.pipeline_waits} depth={self.pipeline_depth} "
             f"mesh=0 agg={self.agg_claims} agg_sigs={self.agg_sigs} "
-            f"ewma_ms={(self._device_ewma_s or 0.0) * 1e3:.1f} zc=0 fb=0 "
+            f"ewma_ms={(self._device_ewma_s or 0.0) * 1e3:.1f} "
+            f"zc={self.zero_copy_waves} fb={self.fallback_waves} "
             f"peak_inflight={self.peak_inflight} "
             f"packed={self.packed_waves} pad_sigs={self.pad_sigs}"
         )
@@ -1044,7 +1378,17 @@ class AsyncVerifyService:
 
 
 __all__ = [
+    "AdoptedWave",
     "AsyncVerifyService",
+    "ZeroCopyIngest",
+    "eval_claims_arena",
+    "ingest_arena_rows_from_env",
+    "ingest_note_frame",
+    "ingest_ring_from_env",
+    "zero_copy_from_env",
+    "zero_copy_ingest",
+    "zero_copy_ingest_if_active",
+    "INGEST_TAG_VOTE",
     "claim_sig_count",
     "eval_claims_sync",
     "flatten_claims",

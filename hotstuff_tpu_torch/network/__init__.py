@@ -1,8 +1,9 @@
 """Network layer: length-delimited TCP receiver and senders.
 
-A copy of the asyncio transport of ``hotstuff_tpu.network`` (the native
-transport, WAN emulation, fault plane and flow accounting are not
-ported).  Parity map (SURVEY.md §2.3): Receiver/MessageHandler/Writer, SimpleSender
+A copy of ``hotstuff_tpu.network``: the asyncio transport and the native
+C++ reactor (``native``: ``NativeReceiver``, ``NativeSimpleSender``,
+``NativeReliableSender``).  WAN emulation, the fault plane and flow
+accounting are not ported.  Parity map (SURVEY.md §2.3): Receiver/MessageHandler/Writer, SimpleSender
 (best-effort), ReliableSender (ACK-paired with backoff retransmit) —
 reference crate ``network/``.
 """
@@ -16,7 +17,14 @@ from .errors import (
     SendError,
 )
 from .framing import FramingError, read_frame, send_frame, write_frame
-from .receiver import MessageHandler, Receiver, Writer
+from .native import (
+    NativeReceiver,
+    NativeReliableSender,
+    NativeSimpleSender,
+    NativeWriter,
+    Reactor,
+)
+from .receiver import MessageHandler, Receiver, Writer, dispatch_ingest
 from .reliable_sender import CancelHandler, ReliableSender
 from .simple_sender import SimpleSender
 
@@ -34,6 +42,12 @@ __all__ = [
     "MessageHandler",
     "Receiver",
     "Writer",
+    "dispatch_ingest",
+    "NativeReceiver",
+    "NativeReliableSender",
+    "NativeSimpleSender",
+    "NativeWriter",
+    "Reactor",
     "CancelHandler",
     "ReliableSender",
     "SimpleSender",

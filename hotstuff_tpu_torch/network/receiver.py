@@ -1,8 +1,9 @@
 """Network receiver: TCP listener dispatching frames to a handler.
 
-A copy of ``hotstuff_tpu.network.receiver`` without the zero-copy
-ingest taps, the fault plane and flow accounting: every frame goes
-straight to ``handler.dispatch(writer, bytes)``.  Parity target:
+A copy of ``hotstuff_tpu.network.receiver`` without the fault plane and
+flow accounting: every frame goes through ``dispatch_ingest`` (the
+zero-copy ingest taps, shared with the native receiver) to
+``handler.dispatch(writer, bytes)``.  Parity target:
 reference ``Receiver<Handler>`` (network/src/receiver.rs:18-89): bind a
 TCP listener, spawn one runner per accepted connection, decode
 length-delimited frames, hand each to the handler with the connection's
@@ -16,10 +17,47 @@ import asyncio
 import logging
 from typing import Protocol
 
+from ..crypto.async_service import ingest_note_frame, zero_copy_ingest
 from .errors import classify
 from .framing import FramingError, read_frame, send_frame, set_nodelay
 
 log = logging.getLogger(__name__)
+
+#: wire tags mirrored from consensus/wire.py — importing it here would
+#: cycle (consensus imports this module for the Writer protocol); the
+#: tests hold these against the live constants
+_TAG_VOTE = 1
+_TAG_PRODUCER_V2 = 6
+
+
+async def dispatch_ingest(handler, writer, frame: bytes) -> None:
+    """Frame dispatch through the zero-copy ingest taps, shared by the
+    asyncio and native receivers.
+
+    Vote frames are also noted to the native wave packer — the verify
+    service later adopts the packed digest/pk/sig columns instead of
+    flattening Python claim tuples.  Batched producer-v2 frames parse
+    natively into a digest column and body windows and skip per-item
+    payload tuples when the handler has ``dispatch_producer_v2``.  A
+    plane switched off (``HOTSTUFF_ZERO_COPY=0``), a handler without the
+    fast path, or a frame the native parser rejects falls through to
+    ``handler.dispatch`` unchanged (the differential fuzz holds native
+    and Python accept/reject to byte parity)."""
+    if frame:
+        tag = frame[0]
+        if tag == _TAG_VOTE:
+            ingest_note_frame(frame)
+        elif tag == _TAG_PRODUCER_V2:
+            fast = getattr(handler, "dispatch_producer_v2", None)
+            if fast is not None and zero_copy_ingest() is not None:
+                from ..crypto import native_ed25519
+
+                parsed = native_ed25519.parse_producer(frame)
+                if parsed is not None:
+                    digests, spans = parsed
+                    await fast(writer, frame, digests, spans)
+                    return
+    await handler.dispatch(writer, frame)
 
 
 class Writer:
@@ -55,6 +93,9 @@ class Receiver:
         self._writers: dict[asyncio.StreamWriter, None] = {}
 
     async def spawn(self) -> None:
+        # the first receiver creates the ingest plane: a library that
+        # cannot build raises here, at boot, not on the first vote
+        zero_copy_ingest()
         try:
             self._server = await asyncio.start_server(
                 self._handle_connection, self.host, self.port
@@ -82,7 +123,7 @@ class Receiver:
         try:
             while True:
                 frame = await read_frame(reader)
-                await self.handler.dispatch(writer, frame)
+                await dispatch_ingest(self.handler, writer, frame)
         except (
             asyncio.IncompleteReadError,
             ConnectionError,

@@ -13,13 +13,16 @@ A copy of ``hotstuff_tpu.node.main`` (reference ``node/src/main.rs:15-148``):
 
 ``--verifier`` is ``cuda`` (the default; it raises without a CUDA
 device) or ``cpu``; ``--device cpu`` runs the ``cuda`` verifier's
-kernels as their plain PyTorch versions.  ``-v`` repeats raise verbosity; the millisecond
-log format is the harness's contract (``benchmark/logs.py``).
+kernels as their plain PyTorch versions.  ``--transport`` is ``asyncio``
+(the default) or ``native``, the C++ epoll reactor
+(``network/native.py``), for ``run``, ``run-many`` and ``deploy``.
+``-v`` repeats raise verbosity; the millisecond log format is the
+harness's contract (``benchmark/logs.py``).
 
 Flags of planes the port does not have yet — ``--metrics-port``,
 ``--journal-dir``, ``--fault-plane``, ``--adversary``, ``--health``,
-``--mesh-devices``, ``--transport native`` and ``--scheme bls`` — are
-accepted by the parser and refused before boot with exit code 2.
+``--mesh-devices`` and ``--scheme bls`` — are accepted by the parser and
+refused before boot with exit code 2.
 
 ``run`` and ``run-many`` stop cleanly on SIGTERM or SIGINT: every node
 shuts down, and the process logs the wave service's last stats line and,
@@ -165,8 +168,6 @@ def _unported(args) -> str | None:
         value = getattr(args, dest, None)
         if value is not None and value is not False:
             return flag
-    if getattr(args, "transport", "asyncio") != "asyncio":
-        return f"--transport {args.transport}"
     if getattr(args, "scheme", "ed25519") != "ed25519":
         return f"--scheme {args.scheme}"
     return None
@@ -268,14 +269,22 @@ async def _serve_until_stopped(nodes, boot) -> None:
 
 async def _fd_probe() -> None:
     """Capacity diagnostics for big co-located committees: one line every
-    5 s with the process's live fd count."""
+    5 s with the process's live fd count and how many of them are
+    sockets.  The native reactor's connections are fds of this process
+    too, so both counts include them."""
     plog = logging.getLogger(__name__)
     while True:
         try:
-            n_fds = len(os.listdir("/proc/self/fd"))
+            fds = os.listdir("/proc/self/fd")
         except OSError:
             return
-        plog.info("fd-probe: %d open fds", n_fds)
+        sockets = 0
+        for fd in fds:
+            try:
+                sockets += os.readlink(f"/proc/self/fd/{fd}").startswith("socket:")
+            except OSError:
+                pass  # closed since the listing
+        plog.info("fd-probe: %d open fds (%d sockets)", len(fds), sockets)
         await asyncio.sleep(5)
 
 
@@ -383,6 +392,39 @@ def _raise_fd_limit(target: int) -> None:
         pass
 
 
+def _fd_budget(n: int, transport: str) -> None:
+    """Fit ``n`` co-located nodes into the fd limit.  Each keeps one
+    persistent connection per (sender, peer) pair and BOTH socket
+    endpoints live in this process, so a committee-wide broadcast opens
+    up to ~2*n^2 sockets: raise the limit toward that (best effort,
+    never lowering it).  Where the limit still cannot cover it, the
+    asyncio senders bound their pools (``HOTSTUFF_MAX_PEER_CONNS``); the
+    native reactor's connections are the same count of fds but have no
+    pool to bound, so that is logged as a warning instead."""
+    _raise_fd_limit(2 * n * n + 20_000)
+    cap = _peer_conn_cap(n)
+    if cap is None:
+        return
+    plog = logging.getLogger(__name__)
+    if transport == "native":
+        import resource
+
+        plog.warning(
+            "fd limit %d below 2*%d^2 + 10000 and the native reactor's "
+            "connections are not pooled: a committee-wide broadcast may "
+            "run out of fds",
+            resource.getrlimit(resource.RLIMIT_NOFILE)[0],
+            n,
+        )
+        return
+    os.environ.setdefault("HOTSTUFF_MAX_PEER_CONNS", cap)
+    plog.info(
+        "fd budget below 2*%d^2: bounding per-sender connection pools at %s",
+        n,
+        os.environ["HOTSTUFF_MAX_PEER_CONNS"],
+    )
+
+
 def _peer_conn_cap(n: int) -> str | None:
     """``HOTSTUFF_MAX_PEER_CONNS`` for ``n`` co-located nodes when the fd
     limit cannot cover the quadratic worst case (2 fds a connection, one
@@ -411,22 +453,7 @@ async def _run_many(args) -> None:
     # claims into one device dispatch stream, so the device pays off at
     # committee sizes far below the per-node threshold (node.py warmup).
     os.environ["HOTSTUFF_COLOCATED_NODES"] = str(n)
-    # File-descriptor headroom: n co-located nodes keep one persistent
-    # connection per (sender, peer) pair and BOTH socket endpoints live
-    # in this process, so a committee-wide timeout broadcast opens up to
-    # ~2*n^2 sockets at once.  Best effort: never lowers the limit.
-    _raise_fd_limit(2 * n * n + 20_000)
-    # Where the fd limit cannot cover the committee, bound the
-    # per-sender connection pools instead.
-    cap = _peer_conn_cap(n)
-    if cap is not None:
-        os.environ.setdefault("HOTSTUFF_MAX_PEER_CONNS", cap)
-        logging.getLogger(__name__).info(
-            "fd budget below 2*%d^2: bounding per-sender connection "
-            "pools at %s",
-            n,
-            os.environ["HOTSTUFF_MAX_PEER_CONNS"],
-        )
+    _fd_budget(n, args.transport)
     nodes: list[Node] = []
 
     async def boot() -> None:
@@ -448,7 +475,8 @@ async def _run_many(args) -> None:
 
 
 async def _deploy_testbed(
-    nodes: int, base_port: int, verifier: str, device=None
+    nodes: int, base_port: int, verifier: str, device=None,
+    transport: str = "asyncio",
 ) -> None:
     """In-process local testbed (reference main.rs:102-148): n fresh
     keypairs, committee.json + node_i.json on disk, every node spawned as
@@ -478,6 +506,7 @@ async def _deploy_testbed(
                     parameters_file=".parameters.json",
                     verifier_backend=verifier,
                     bind_host="127.0.0.1",
+                    transport=transport,
                     device=device,
                 )
             )
@@ -490,6 +519,13 @@ async def _deploy_testbed(
 
 def _add_node_flags(p: argparse.ArgumentParser) -> None:
     """The flags ``run``, ``run-many`` and ``deploy`` share."""
+    p.add_argument(
+        "--transport",
+        choices=["asyncio", "native"],
+        default="asyncio",
+        help="framed-TCP transport: asyncio (default) or the native C++ "
+        "epoll reactor (network/native.py)",
+    )
     p.add_argument(
         "--verifier",
         choices=["cuda", "cpu"],
@@ -570,18 +606,11 @@ def main(argv=None) -> int:
         help="signature scheme (bls: not ported yet, refused)",
     )
 
-    transport_help = "framed-TCP transport: asyncio (native: not ported yet, refused)"
     p_run = sub.add_parser("run", help="run a node")
     p_run.add_argument("--keys", required=True)
     p_run.add_argument("--committee", required=True)
     p_run.add_argument("--store", required=True)
     p_run.add_argument("--parameters", default=None)
-    p_run.add_argument(
-        "--transport",
-        choices=["asyncio", "native"],
-        default="asyncio",
-        help=transport_help,
-    )
     _add_node_flags(p_run)
 
     p_many = sub.add_parser(
@@ -592,12 +621,6 @@ def main(argv=None) -> int:
     p_many.add_argument("--committee", required=True)
     p_many.add_argument("--store-prefix", required=True)
     p_many.add_argument("--parameters", default=None)
-    p_many.add_argument(
-        "--transport",
-        choices=["asyncio", "native"],
-        default="asyncio",
-        help=transport_help,
-    )
     _add_node_flags(p_many)
 
     p_rec = sub.add_parser(
@@ -680,7 +703,8 @@ def main(argv=None) -> int:
         _apply_env_bridges(args)
         asyncio.run(
             _deploy_testbed(
-                args.nodes, args.base_port, args.verifier, args.device
+                args.nodes, args.base_port, args.verifier, args.device,
+                args.transport,
             )
         )
         return 0

@@ -18,7 +18,8 @@ mixed-scheme schedule (its dual verifier needs BLS).  The node's
 telemetry, flight-recorder journal, work-stats and health branches are
 not ported either: their planes come with the port's telemetry.  Added
 to the copy: ``LazyDeviceVerifier.routes``, the inline batches each
-route took.
+route took, and ``_DeviceDispatch.verify_packed``, so a wave adopted
+from an ingest arena reaches the kernel from the arena's columns.
 """
 
 from __future__ import annotations
@@ -80,6 +81,14 @@ class _DeviceDispatch:
         self, digests, pks, sigs, aggregate_ok: bool = False
     ) -> list:
         return [bool(v) for v in self._device.verify_device(digests, pks, sigs)]
+
+    def verify_packed(self, dig_buf, pk_buf, sig_buf, rows: int):
+        """An adopted ingest arena's columns straight to the device
+        verifier (``crypto/async_service.py`` ``eval_claims_arena``).
+        The JAX package's view has no such method, so its adopted waves
+        flatten their claims after all; here they stage from the
+        arena."""
+        return self._device.verify_packed(dig_buf, pk_buf, sig_buf, rows)
 
 
 class LazyDeviceVerifier:
@@ -241,7 +250,8 @@ class Node:
         """Boot a node.  ``verifier_backend`` is ``"cuda"`` (the
         default: it raises without a CUDA device) or ``"cpu"``;
         ``device`` goes to ``make_verifier`` (``device="cpu"`` runs the
-        kernels' plain versions)."""
+        kernels' plain versions); ``transport`` is ``"asyncio"`` or
+        ``"native"`` (the C++ reactor, ``network/native.py``)."""
         self = cls()
         committee = read_committee(committee_file)
         # Live reconfiguration (docs/RECONFIG.md) needs a spliceable

@@ -59,7 +59,6 @@ def test_keys_writes_a_private_key_file_both_packages_read(tmp_path):
     ["run", "--adversary", "{}"],
     ["run", "--health"],
     ["run", "--mesh-devices", "2"],
-    ["run", "--transport", "native"],
     ["run-many", "--profile", "--health"],
     ["deploy", "--scheme", "bls"],
     ["keys", "--scheme", "bls"],
