@@ -38,7 +38,8 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    off-loop row): every row of its report, every signature of the storm
    checked against the oracle, a forged vote, timeout, embedded QC and
    TC entry rejected, and the CPU route's measured cost a signature
-   beside the routing model's ``CPU_US_PER_SIG``; launch counts set to 0
+   beside the routing model's ``CPU_US_PER_SIG``, and the native batch
+   equation's beside ``cpu_batch_estimate_s``; launch counts set to 0
    just before and read just after;
 8. (b) coalesced waves at the same committee shape: 8 asyncio tasks
    stand in for 8 in-process cores and submit each round's claims (the
@@ -91,9 +92,32 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    traceback.  Boot seconds, committed rounds, consensus and end-to-end
    payloads a second, sample latency, timeouts, routes and the phase's
    wall time are printed;
-12. a ``{"kernels": [...]}`` line, then the last line
+12. (f) 16 waves of 1024 signed votes over the native transport into one
+   ``NativeReceiver``, adopted from the ingest arenas and verified by the
+   verify kernel, and (g) the node CLI of (e) on ``--transport native``;
+13. (h) the port's verifier bench (``hotstuff_tpu_torch/bench/verifier.py``)
+   at the 256-validator shape: a 1024-signature shared-digest stream, QC
+   sizes 16/64/256 and the 171-entry TC, every verdict checked; the
+   native CPU batch rate (shared and distinct digests), the OpenSSL
+   loop's, the verify kernel's CUDA-event ms and device sigs/s, the
+   host-clock sigs/s of ``verify_device`` and ``vs_baseline``; then the
+   seven adversarial cases of step 3's wave and a signature whose R
+   carries a point of small order, through both routes: the verify
+   kernel must give the cofactorless oracle's verdict
+   (``ed25519_ref.verify``), the native batch equation the cofactored
+   one ([8][s]B = [8]R + [8][k]A, checked here in ``ed25519_ref``
+   arithmetic);
+14. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the six main-path runs (3, 7, 8, 9, 10 and 11).
+   over the main-path runs (3 and (a)-(h)), each counted from 0.
+
+Phases (c), (e) and (g) print the wave service's routes (device, cpu and
+probe waves, ``ewma_ms``, the mean wave and the verify kernel's launches
+after boot).  The router weighs a wave against the native batch
+equation's cost (``cpu_batch_estimate_s``), as the JAX package's does,
+so it may send every non-probe wave to the CPU: where it sent none to
+the device, the check is that the verify kernel launched after boot at
+least once for every device and probe wave.
 
 Any mismatch raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device it exits with 2 and prints no result.
@@ -104,6 +128,7 @@ from __future__ import annotations
 import collections
 import faulthandler
 import gc
+import hashlib
 import json
 import os
 import re
@@ -279,7 +304,7 @@ def storm_phase(card: str, nodes: int = COMMITTEE, torch_device=None) -> int:
     from hotstuff_tpu_torch.bench import storm
     from hotstuff_tpu_torch.consensus import InvalidSignature, QC, TC, Timeout, Vote
     from hotstuff_tpu_torch.crypto import CpuVerifier, Signature
-    from hotstuff_tpu_torch.crypto.async_service import CPU_US_PER_SIG, flatten_claims
+    from hotstuff_tpu_torch.crypto.async_service import CPU_US_PER_SIG, cpu_batch_estimate_s, flatten_claims
     from hotstuff_tpu_torch.crypto.signature import HAVE_CRYPTOGRAPHY
     from hotstuff_tpu_torch.gpu import dsm
     from hotstuff_tpu_torch.node import make_verifier
@@ -340,9 +365,16 @@ def storm_phase(card: str, nodes: int = COMMITTEE, torch_device=None) -> int:
     ok = cpu.verify_many(digests, pks, sigs)
     us = (time.perf_counter() - t0) / len(digests) * 1e6
     check(all(ok), "storm: the CPU route accepts the worst-case TC")
-    route = "OpenSSL via cryptography" if HAVE_CRYPTOGRAPHY else "pure-Python oracle"
+    route = "OpenSSL via cryptography" if HAVE_CRYPTOGRAPHY else "the native library's single verify"
     print(f"CPU route ({route}; CpuVerifier.verify_many, {len(digests)} distinct digests): {us:.1f} us a signature "
           f"measured, routing model CPU_US_PER_SIG = {CPU_US_PER_SIG:.0f} us [{card}]")
+    t0 = time.perf_counter()
+    ok = cpu.verify_many(digests, pks, sigs, aggregate_ok=True)
+    us = (time.perf_counter() - t0) / len(digests) * 1e6
+    check(all(ok), "storm: the native batch route accepts the worst-case TC")
+    print(f"CPU route (native batch equation; CpuVerifier.verify_many(aggregate_ok=True), {len(digests)} distinct "
+          f"digests): {us:.1f} us a signature measured, routing model cpu_batch_estimate_s "
+          f"{cpu_batch_estimate_s(len(digests)) / len(digests) * 1e6:.1f} us [{card}]")
     return launches
 
 
@@ -572,10 +604,30 @@ def committee_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
     check(min(r["blocks"]) >= 5, "committee: every node commits at least 5 non-genesis blocks")
     check(r["chains_agree"], "committee: all chains agree on their common prefix")
     svc = r["service"]
-    check(svc is not None and svc["device"] > 0, "committee: the wave service routed waves to the device")
+    check(svc is not None, "committee: the device host's wave service ran")
+    ewma = float(RE_EWMA.search(svc["stats_line"])[1])
+    print(f"committee routes: {routes(svc, ewma, r['k1_launches'])} [{card}]")
     if resolve_device(torch_device).type == "cuda":  # a CPU rehearsal runs the plain versions
         check(r["k1_launches"] > 0, "committee: the verify kernel launched after boot")
+        if svc["device"] == 0:
+            # the router weighed every non-probe wave against the native
+            # batch equation and sent it to the CPU: K1 must still have
+            # run every probe
+            check(r["k1_launches"] >= svc["device"] + svc["probe"],
+                  "committee: a verify-kernel launch after boot for every device and probe wave")
     return launches
+
+
+RE_EWMA = re.compile(r"ewma_ms=([\d.]+)")
+
+
+def routes(stats: dict, ewma_ms: float, k1_after_boot) -> str:
+    """The wave service's routes, its device EWMA, the mean wave and the
+    verify kernel's launches after boot, as one phrase."""
+    mean = (stats["device_sigs"] + stats["cpu_sigs"]) / max(stats["dispatches"], 1)
+    return (f"device {stats['device']} cpu {stats['cpu']} probe {stats['probe']} of "
+            f"{stats['dispatches']} waves, ewma_ms {ewma_ms}, mean wave {mean:.1f} sigs, "
+            f"verify kernel launches after boot {k1_after_boot}")
 
 
 def zc_fb(r) -> str:
@@ -914,6 +966,7 @@ RE_VERIFY_STATS = re.compile(
     r"(?: zc=(\d+) fb=(\d+))?"
 )
 RE_LAUNCHES = re.compile(r"Kernel launches: (.*)")
+RE_BOOT_LAUNCHES = re.compile(r"Kernel launches at boot: (.*)")
 RE_CLIENT_RATE = re.compile(_TS + r".*Transactions rate: (\d+) tx/s")
 RE_SAMPLE = re.compile(_TS + r".*Sending sample payload (\S+)")
 
@@ -968,6 +1021,7 @@ def parse_node_logs(node_log: str, client_log: str) -> dict:
         "latency_p50_s": None,
         "stats": None,
         "launches": None,
+        "boot_launches": None,
     }
     if commits:
         end = max(commits.values())
@@ -992,10 +1046,105 @@ def parse_node_logs(node_log: str, client_log: str) -> dict:
             "deadline_misses": int(last[7]), "ewma_ms": float(last[13]),
             "zc": int(last[14] or 0), "fb": int(last[15] or 0),
         }
-    m = RE_LAUNCHES.findall(node_log)
-    if m:
-        out["launches"] = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", m[-1])}
+    for key, regex in (("launches", RE_LAUNCHES), ("boot_launches", RE_BOOT_LAUNCHES)):
+        m = regex.findall(node_log)
+        if m:
+            out[key] = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", m[-1])}
     return out
+
+
+def cofactored_verify(sig: bytes, pub: bytes, msg: bytes) -> bool:
+    """The native batch equation's acceptance of one signature, in
+    ``ed25519_ref`` arithmetic: [8][s]B = [8]R + [8][k]A, with the
+    library's decoding rules (canonical y, no -0, canonical s)."""
+    from hotstuff_tpu_torch.crypto import ed25519_ref as ref
+
+    if len(sig) != 64 or len(pub) != 32:
+        return False
+    A, R = ref.point_decompress(pub), ref.point_decompress(sig[:32])
+    s = int.from_bytes(sig[32:], "little")
+    if A is None or R is None or s >= ref.L:
+        return False
+    k = ref.verify_challenge(sig, pub, msg)
+    lhs = ref.point_mul(8, ref.base_mul(s))
+    rhs = ref.point_mul(8, ref.point_add(R, ref.point_mul(k, A)))
+    return ref.point_equal(lhs, rhs)
+
+
+def small_order_case(seed: bytes, msg: bytes):
+    """(msg, pk, sig) of a signature whose R carries a point of small
+    order T: R' = [r]B + T and s = r + k'a with k' = H(R'||A||M).  The
+    cofactored check accepts it ([8]T is the identity); the cofactorless
+    one rejects it ([s]B - [k']A = R' - T)."""
+    from hotstuff_tpu_torch.crypto import ed25519_ref as ref
+
+    y = 2
+    while (q := ref.point_decompress(y.to_bytes(32, "little"))) is None or ref.point_equal(
+            small := ref.point_mul(ref.L, q), ref.IDENTITY):
+        y += 1
+    a, prefix = ref.secret_expand(seed)
+    pk = ref.public_from_seed(seed)
+    r = int.from_bytes(hashlib.sha512(prefix + msg).digest(), "little") % ref.L
+    r_enc = ref.point_compress(ref.point_add(ref.base_mul(r), small))
+    k = ref.verify_challenge(r_enc + bytes(32), pk, msg)
+    return msg, pk, r_enc + ((r + k * a) % ref.L).to_bytes(32, "little")
+
+
+def verifier_phase(card: str, claims, torch_device=None, batch: int = WAVE, rounds: int = 16,
+                   reps: int = 20, qc_sizes=(16, 64, 256), tc: int = QUORUM) -> int:
+    """(h) The port's verifier bench, then the adversarial cases through
+    the verify kernel and the native batch equation; returns the verify
+    kernel's launches in the phase."""
+    from hotstuff_tpu_torch.bench import verifier as bench
+    from hotstuff_tpu_torch.crypto import ed25519_ref as ref
+    from hotstuff_tpu_torch.crypto import native_ed25519
+    from hotstuff_tpu_torch.gpu import dsm
+    from hotstuff_tpu_torch.gpu.ed25519 import BatchVerifier
+
+    dsm.reset_launches()
+    t0 = time.perf_counter()
+    r = bench.run(device=torch_device or "cuda", batch=batch, rounds=rounds, reps=reps,
+                  qc_sizes=qc_sizes, tc=tc)
+    wall = time.perf_counter() - t0
+    print("verifier bench result: " + json.dumps(r))
+    base, dev, host = r["baseline"], r["device_throughput"], r["verify_device"]
+    print(f"verifier bench: {batch}-signature shared-digest batch; native CPU batch {base.get('batch_sigs_per_s')} "
+          f"sigs/s (distinct digests {base.get('batch_distinct_sigs_per_s')}), {base['loop_backend']} loop "
+          f"{base['loop_sigs_per_s']} sigs/s; verify kernel {dev['device_ms']} ms CUDA events, "
+          f"{dev['device_sigs_per_s']} device sigs/s ({dev['vs_baseline']}x the baseline); launch stream "
+          f"{r['value']} sigs/s, vs_baseline {r['vs_baseline']}; verify_device {host['ms']} ms host clock, "
+          f"{host['sigs_per_s']} sigs/s ({host['vs_baseline']}x); TC of {r['tc_verify_ms']['quorum']}: p50 "
+          f"{r['tc_verify_ms']['rig_p50_ms']} ms, kernel {r['tc_verify_ms']['device_ms']} ms; "
+          f"{wall:.1f} s in all; card {r['device']['name']}, {r['device']['power_limit']} [{card}]")
+    check(r["baseline"]["backend"].startswith("native-batch"), "bench: the baseline is the native batch")
+    check(r["device"]["platform"] == ("gpu" if torch_device in (None, "cuda") else "cpu"),
+          "bench: the result names where it ran")
+
+    # the seven adversarial cases of step 3's wave (cases 1-7 of every
+    # 16) and a small-order R, each through both routes
+    msgs, wpks, sigs, expect_wave = claims["wave"]
+    cases = [(msgs[i], wpks[i], sigs[i]) for i in range(1, 8)]
+    cases.append(small_order_case(b"\x77" * 32, hashlib.sha512(b"chip smoke small-order R").digest()[:32]))
+    names = ["bad R", "flipped s", "wrong message", "wrong key", "s + L", "undecodable key",
+             "non-canonical R", "small-order R"]
+    valid = (msgs[0], wpks[0], sigs[0])
+    check(expect_wave[0], "the filler signature is valid")
+    cofactorless = [ref.verify(s, p, m) for m, p, s in cases]
+    cofactored = [cofactored_verify(s, p, m) for m, p, s in cases]
+    check(cofactorless == expect_wave[1:8] + [False], "the oracle's verdicts on the cases")
+    v = BatchVerifier(min_device_batch=0, device=torch_device)
+    k1 = v.verify_device(*(list(col) for col in zip(*cases))).tolist()
+    native = [native_ed25519.batch_verify(m + valid[0], 32, p + valid[1], s + valid[2], 2, shared=False)
+              for m, p, s in cases]
+    for name, got_k1, want_k1, got_cpu, want_cpu in zip(names, k1, cofactorless, native, cofactored):
+        print(f"adversarial case {name}: verify kernel {got_k1} (cofactorless oracle {want_k1}), "
+              f"native batch equation {got_cpu} (cofactored oracle {want_cpu})")
+    check(k1 == cofactorless, "the verify kernel gives the cofactorless verdict on every case")
+    check(native == cofactored, "the native batch equation gives the cofactored verdict on every case")
+    check(cofactored[-1] and not cofactorless[-1], "the small-order R splits the two semantics")
+    launches = dsm.launches["verify_compressed"]
+    print(f"verifier phase: verify kernel launches {launches} [{card}]")
+    return launches
 
 
 def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
@@ -1081,6 +1230,7 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     boot_s = r["boot_at"] - t_launch if r["boot_at"] is not None else None
     stats = r["stats"] or {}
     launches = (r["launches"] or {}).get("verify_compressed", 0)
+    after_boot = launches - (r["boot_launches"] or {}).get("verify_compressed", 0)
     print(f"{phase}: {nodes} nodes (run-many, --verifier {verifier}), {rate} tx/s of 512 B for {duration} s "
           f"from the client process: boot {boot_s if boot_s is None else round(boot_s, 2)} s, "
           f"{r['committed_rounds']} committed rounds ({r['commit_lines']} commit lines), "
@@ -1100,13 +1250,22 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     check(r["rounds_agree"], f"{phase}: every committed round names one digest")
     check(r["versions"] > 0 and r["roots_agree"], f"{phase}: every version has one state root")
     if verifier == "cuda":
-        check(stats.get("device", 0) >= 1 and stats.get("device_sigs", 0) > 0,
-              f"{phase}: the last stats line shows device waves and device signatures")
+        check(r["stats"] is not None and r["boot_launches"] is not None,
+              f"{phase}: the node process logged its stats line and its launches at boot")
+        print(f"{phase} routes: {routes(stats, stats['ewma_ms'], after_boot)} [{card}]")
+        if stats["device"] == 0:
+            # the router weighed every non-probe wave against the native
+            # batch equation and sent it to the CPU: K1 must still have
+            # run after boot, once for every probe
+            check(after_boot > 0, f"{phase}: the verify kernel launched after boot")
+        else:
+            check(stats["device_sigs"] > 0,
+                  f"{phase}: the last stats line shows device waves and device signatures")
         # one device wave of up to 1024 signatures is one verify_device
         # call, which launches K1 once; the boot's warmup launches too
         check(launches >= stats["device"] + stats["probe"],
-              f"{phase}: a verify-kernel launch for every device wave")
-    r.update(boot_s=boot_s, stop_s=stop_s, wall_s=wall, launches=launches)
+              f"{phase}: a verify-kernel launch for every device and probe wave")
+    r.update(boot_s=boot_s, stop_s=stop_s, wall_s=wall, launches=launches, launches_after_boot=after_boot)
     return launches, r
 
 
@@ -1311,6 +1470,10 @@ def main() -> int:
     t0 = time.perf_counter()
     native_launches, native_r = node_phase(card, transport="native")
     print(f"phase (g) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bench_launches = verifier_phase(card, claims)
+    print(f"phase (h) took {time.perf_counter() - t0:.1f} s")
+    check(bench_launches > 0, "the verifier bench never launched the verify kernel")
     keys = ("boot_s", "committed_rounds", "consensus_payloads_per_s", "latency_mean_s", "latency_p50_s",
             "timeouts", "launches", "stop_s")
     for label, r in (("(e) asyncio", node_r), ("(g) native", native_r)):
@@ -1326,7 +1489,7 @@ def main() -> int:
             "replaces": "hotstuff_tpu/tpu/pallas_dsm.py:587",
             "launches": (main_launches["verify_compressed"] + storm_launches + wave_launches
                          + committee_launches + restart_launches + node_launches
-                         + ingest_launches + native_launches),
+                         + ingest_launches + native_launches + bench_launches),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

@@ -7,8 +7,9 @@ here, and awaits ONE verdict per claim, while the device dispatch runs
 on a worker thread so the event loop keeps processing votes, proposals
 and payload ingest.  The worker thread parks on the device for free
 because the kernel launch (``ctypes``) and the verdict readback
-(``Tensor.cpu``) release the GIL; the CPU route holds the GIL, which is
-why it runs inline instead of on a thread.
+(``Tensor.cpu``) release the GIL.  The CPU route runs inline, as in the
+JAX package: its batch equation releases the GIL too, but its per-item
+attribution on a failing batch holds it.
 
 Claims (the burst-level accumulate-then-dispatch unit):
 
@@ -25,7 +26,10 @@ dispatch for the whole wave.
 
 Adaptive routing: the service tracks an EWMA of device dispatch wall
 time and routes each batch to the device only when that estimate beats
-the CPU cost model (``CPU_US_PER_SIG`` a signature).  When the device
+the CPU cost model: the native batch equation's
+(``cpu_batch_estimate_s``) for waves of ``NATIVE_BATCH_MIN`` signatures
+or more while the batch path is on, else ``CPU_US_PER_SIG`` a
+signature.  When the device
 degrades the service degrades to the CPU path instead of stalling
 consensus, and keeps probing the device so it notices a recovery.
 
@@ -55,9 +59,9 @@ Zero-copy ingest: receivers note vote frames to a native wave packer
 (``ZeroCopyIngest`` over ``native/wave_pack.cpp``), and a dispatch wave
 whose claims are exactly the packed prefix adopts the arena the packer
 filled (``AdoptedWave``), staged by ``verify_packed`` from ``frombuffer``
-views.  Not ported: the native batch-equation CPU route
-(``libhs_ed25519.so``), the BLS aggregate-preferring route, and the
-telemetry registry's instruments.
+views on the device route, or verified by one native batch equation from
+the arena's column addresses on the CPU route.  Not ported: the BLS
+aggregate-preferring route and the telemetry registry's instruments.
 """
 
 from __future__ import annotations
@@ -70,6 +74,9 @@ import threading
 import time
 
 from ..telemetry import spans as _spans
+from . import native_ed25519
+from .digest import DIGEST_SIZE
+from .native_ed25519 import NATIVE_BATCH_MIN
 
 log = logging.getLogger(__name__)
 
@@ -79,6 +86,18 @@ log = logging.getLogger(__name__)
 # enough.  A host without `cryptography` runs the pure-Python oracle,
 # which is slower: chip_smoke.py prints the measured figure beside this.
 CPU_US_PER_SIG = 130.0
+
+# Native-batch cost model: per-sig cost ~ asymptote + fixed/n (the
+# multiscalar's bucket cost amortizes with n).  The JAX package's fit to
+# its host's measurements (~108 us/sig at 11, ~54 at 32, ~46 at 128, ~36
+# at 256); kept as it is so both packages route alike.
+CPU_BATCH_US_PER_SIG = 45.0
+CPU_BATCH_FIXED_US = 700.0
+
+
+def cpu_batch_estimate_s(n_sigs: int) -> float:
+    """Estimated batched-CPU wall seconds for an n_sigs wave."""
+    return n_sigs * (CPU_BATCH_US_PER_SIG + CPU_BATCH_FIXED_US / n_sigs) * 1e-6
 
 # EWMA smoothing for device dispatch wall time.
 _EWMA_ALPHA = 0.3
@@ -216,9 +235,10 @@ def flatten_claims(claims: list) -> tuple[list, list, list, list]:
 
 def eval_claims_sync(backend, claims: list) -> list[bool]:
     """Synchronous claim evaluation on ``backend`` (the inline path and
-    the worker-thread body): everything flattens into a single
-    ``verify_many`` batch, and each claim's verdict is ``all()`` over its
-    own span."""
+    the worker-thread body): everything flattens into a single batch —
+    one native batch equation on a ``supports_flat_batch`` backend,
+    ``verify_many`` otherwise or when that equation fails — and each
+    claim's verdict is ``all()`` over its own span."""
     if any(c[0] == "agg" for c in claims):
         # non-aggregating backend (ed25519) handed a compact
         # certificate: resolve each "agg" claim directly (False when the
@@ -250,6 +270,29 @@ def eval_claims_sync(backend, claims: list) -> list[bool]:
         # certificate with no signatures proves nothing — vacuous truth
         # (all() over an empty span) would verify a votes=[] forgery
         return [False] * len(claims)
+    # Wave-level fast path (CPU backend): ONE dalek-parity batch
+    # equation over the whole flattened wave — in the common all-valid
+    # case this replaces len(digests) OpenSSL verifies with a single
+    # multiscalar.  Sound because every claim's verdict here is
+    # all(span): a passing batch implies every span passes.  On a
+    # failing batch fall through to per-item attribution (the adversary
+    # pays for that path).
+    if (
+        len(digests) >= NATIVE_BATCH_MIN
+        and getattr(backend, "supports_flat_batch", False)
+        and all(len(d) == DIGEST_SIZE for d in digests)
+    ):
+        with _spans.span("host.verify"):
+            fast_ok = native_ed25519.available() and native_ed25519.batch_verify(
+                b"".join(digests),
+                DIGEST_SIZE,
+                b"".join(pks),
+                b"".join(sigs),
+                len(digests),
+                shared=False,
+            )
+        if fast_ok:
+            return [e > s for s, e in spans]
     ok = backend.verify_many(digests, pks, sigs)
     return [all(ok[s:e]) if e > s else False for s, e in spans]
 
@@ -530,15 +573,27 @@ def eval_claims_arena(backend, wave: AdoptedWave, claims: list) -> list[bool]:
     at the pre-padded bucket shape), which has consumed every arena byte
     by the time it returns: ``BatchVerifier.prepare_packed`` copies the
     rows into its own staging slot before any asynchronous copy to the
-    card.  A backend without a packed path evaluates the claim list with
-    ``eval_claims_sync`` (the native batch-equation CPU route of the JAX
-    package is not ported).  Always releases the arena."""
+    card.  CPU backends run ONE native batch equation straight from the
+    column addresses.  Any miss (a failing batch equation, which needs
+    per-item attribution, or a backend with neither path) evaluates the
+    claim list with ``eval_claims_sync``.  Always releases the arena."""
     try:
         n = wave.n
         fn = getattr(backend, "verify_packed", None)
         if fn is not None:
             out = fn(wave.dig, wave.pk, wave.sig, wave.rows)
             return [bool(v) for v in out[:n]]
+        if (
+            n >= NATIVE_BATCH_MIN
+            and getattr(backend, "supports_flat_batch", False)
+            and native_ed25519.available()
+        ):
+            with _spans.span("host.verify"):
+                fast_ok = native_ed25519.batch_verify_columns(
+                    wave.dig_addr, wave.pk_addr, wave.sig_addr, n
+                )
+            if fast_ok:
+                return [True] * n
         return eval_claims_sync(backend, claims)
     finally:
         wave.release()
@@ -830,8 +885,11 @@ class AsyncVerifyService:
         )
 
     def _cpu_estimate_s(self, n_sigs: int) -> float:
-        # the per-signature CPU loop (the native batch equation, the
-        # JAX package's cheaper CPU route for large waves, is not ported)
+        # the CPU alternative is the batched equation for waves of
+        # NATIVE_BATCH_MIN or more (eval_claims_sync's flat fast path)
+        # while the batch path is on; else the per-signature loop
+        if n_sigs >= NATIVE_BATCH_MIN and native_ed25519.available():
+            return cpu_batch_estimate_s(n_sigs)
         return n_sigs * CPU_US_PER_SIG * 1e-6
 
     # ---- fixed-shape wave packing -----------------------------------------
@@ -1267,10 +1325,10 @@ class AsyncVerifyService:
             await asyncio.sleep(0)
 
     async def _serve_cpu_arena(self, batch, claims: list, wave) -> None:
-        """CPU serving for an adopted zero-copy wave: the CPU backend
-        has no packed path, so ``eval_claims_arena`` evaluates the
-        unique claims with ``eval_claims_sync`` and releases the arena;
-        verdicts then fan out per submission exactly like _serve_cpu."""
+        """CPU serving for an adopted zero-copy wave: ONE native batch
+        equation straight from the arena columns covers every unique
+        claim (no b"".join flatten, no per-claim re-verify), then
+        verdicts fan out per submission exactly like _serve_cpu."""
         cpu = getattr(self.backend, "cpu_backend", self.backend)
         results = eval_claims_arena(cpu, wave, claims)
         memo = dict(zip(claims, results))
@@ -1397,6 +1455,9 @@ __all__ = [
     "wave_buckets_from_env",
     "resolve_wave_buckets",
     "coalesce_window_s_from_env",
+    "cpu_batch_estimate_s",
+    "CPU_BATCH_FIXED_US",
+    "CPU_BATCH_US_PER_SIG",
     "CPU_US_PER_SIG",
     "DEFAULT_PIPELINE_DEPTH",
     "DEFAULT_WAVE_BUCKETS",

@@ -1,28 +1,162 @@
-"""ctypes bindings of the native wave packer (``native/wave_pack.cpp``).
+"""ctypes bindings of the native batched Ed25519 verifier and wave packer.
 
-A copy of the wave-pack half of ``hotstuff_tpu.crypto.native_ed25519``:
-votes parsed at the reactor's read path land in bucket-shaped staging
-arenas that the async verify service adopts as ``frombuffer`` views
-instead of flattening Python claim tuples, and batched producer frames
-parse into a digest column and body windows.  The ``wp_*`` ABI ships in
-the port's transport library (``network/_native_build.py``), the same
-``dlopen`` handle as the reactor's ``ht_*`` surface.
+A copy of ``hotstuff_tpu.crypto.native_ed25519``, in two halves.
 
-The batch-equation half of the JAX module (``libhs_ed25519.so``, the
-native CPU verify route) is not ported.
+The batch equation (``native/ed25519_batch.cpp``, the port's
+``libhs_ed25519`` build): the dalek-parity CPU batch path.  The
+reference's ``Signature::verify_batch`` (crypto/src/lib.rs:213-226)
+delegates to ed25519-dalek's random-linear-combination batch
+verification; the library implements the same equation in C++ (Straus
+or Pippenger multiscalar over the 51-bit-limb field).  It is the fast
+path for QC-shaped verification (``CpuVerifier.verify_shared_msg``), the
+wave service's CPU route, and the CPU baseline
+``python -m hotstuff_tpu_torch.bench.verifier`` holds the verify kernel
+against.  The ctypes call releases the GIL for the whole batch.
+
+Failure semantics: the batch equation is all-or-nothing; callers that
+need per-item attribution fall back to the per-signature loop on a
+False.  Acceptance is cofactored (dalek-batch parity); singles stay on
+OpenSSL's cofactorless path and the device kernel is cofactorless too,
+the same mix the reference ships.  ``HOTSTUFF_ED25519_NATIVE=0`` turns
+the batch path off (every CPU verify takes the per-signature loop); with
+it on (the default) a library that cannot build raises, with the
+compiler's output, where the JAX package logs and falls back.
+
+The wave packer (``native/wave_pack.cpp``): votes parsed at the
+reactor's read path land in bucket-shaped staging arenas that the async
+verify service adopts as ``frombuffer`` views instead of flattening
+Python claim tuples, and batched producer frames parse into a digest
+column and body windows.  The ``wp_*`` ABI ships in the port's
+transport library, the same ``dlopen`` handle as the reactor's ``ht_*``
+surface.  Both libraries are built by ``hotstuff_tpu_torch/_native_build.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+
+from .. import _native_build
+
+# Where the batch equation beats the per-signature OpenSSL loop, measured
+# for the JAX package (n=2: 0.13 vs 0.24 ms; n=256: 8.5 vs 31.4).  n=1
+# stays on OpenSSL: a lone signature gets the cofactorless semantics the
+# reference uses for singles.  The verifier backend and the async router
+# both read it.
+NATIVE_BATCH_MIN = 2
+
+
+def _ed_lib() -> ctypes.CDLL:
+    return _native_build.load("ed25519")
+
+
+def available() -> bool:
+    """False when ``HOTSTUFF_ED25519_NATIVE=0`` turns the batch path off;
+    else True once the library is built and loaded.  A build or load
+    failure raises with the compiler's output instead of answering
+    False, so nothing falls back quietly."""
+    if os.environ.get("HOTSTUFF_ED25519_NATIVE") == "0":
+        return False
+    _ed_lib()
+    return True
+
+
+def batch_verify(
+    msgs: bytes, msg_len: int, pks: bytes, sigs: bytes, n: int, shared: bool
+) -> bool:
+    """True iff ALL n signatures satisfy the batch equation.
+
+    ``msgs`` is n*msg_len contiguous bytes (or msg_len bytes when
+    ``shared``); ``pks`` n*32; ``sigs`` n*64.  Malformed encodings
+    (non-canonical points or scalars) verify False."""
+    if n == 0:
+        return True
+    # lengths are checked before the C call: a short component (a
+    # 48-byte BLS-sized signature in an ed25519 batch) is an invalid
+    # signature, never an out-of-bounds read
+    if (
+        len(msgs) != (msg_len if shared else n * msg_len)
+        or len(pks) != n * 32
+        or len(sigs) != n * 64
+    ):
+        return False
+    return (
+        _ed_lib().hs_ed25519_batch_verify(
+            msgs, msg_len, pks, sigs, n, 1 if shared else 0
+        )
+        == 1
+    )
+
+
+def precompute(pubkeys: list[bytes]) -> int:
+    """Build the native committee-key tables (epoch setup): each 32-byte
+    key gets its decompressed negated point and Straus window table
+    cached in the library, so every later small batch only pays point
+    work for the per-signature R points.  Returns the number of keys
+    cached (wrong-size or off-curve keys are skipped — they fail at
+    verify time); 0 when the batch path is off."""
+    if not available():
+        return 0
+    pks = b"".join(pk for pk in pubkeys if len(pk) == 32)
+    n = len(pks) // 32
+    if n == 0:
+        return 0
+    return int(_ed_lib().hs_ed25519_precompute(pks, n))
+
+
+def verify_one(msg: bytes, pk: bytes, sig: bytes) -> bool:
+    """Single-signature verify through ``hs_ed25519_verify_one``, with
+    cofactored acceptance (the batch equation's).  Callers that need
+    the cofactorless single-signature path keep OpenSSL; this is the
+    fallback when ``cryptography`` is absent and the alternative is the
+    pure-Python ladder."""
+    if len(pk) != 32 or len(sig) != 64 or not available():
+        return False
+    return int(_ed_lib().hs_ed25519_verify_one(msg, len(msg), pk, sig)) == 1
+
+
+def batch_verify_shared(msg: bytes, votes) -> bool:
+    """All (pk_bytes, sig_bytes) pairs over one message (QC shape)."""
+    n = len(votes)
+    if n == 0:
+        return True
+    pks = b"".join(pk for pk, _ in votes)
+    sigs = b"".join(sig for _, sig in votes)
+    return batch_verify(msg, len(msg), pks, sigs, n, shared=True)
+
+
+def batch_verify_columns(
+    dig_addr: int, pks_addr: int, sigs_addr: int, n: int
+) -> bool:
+    """Batch verify straight from native arena column addresses (the
+    ``wave_pack.cpp`` staging memory): no ``b"".join`` flatten, no bytes
+    materialized.  The addresses come from ``WavePacker.arena_info`` and
+    stay valid until the arena is recycled; the caller owns that
+    lifetime."""
+    if n == 0:
+        return True
+    return (
+        _ed_lib().hs_ed25519_batch_verify(
+            ctypes.cast(dig_addr, ctypes.c_char_p),
+            32,
+            ctypes.cast(pks_addr, ctypes.c_char_p),
+            ctypes.cast(sigs_addr, ctypes.c_char_p),
+            n,
+            0,
+        )
+        == 1
+    )
+
+
+# ---------------------------------------------------------------------------
+# Wave-pack arena bindings (native/wave_pack.cpp, in the transport library)
+# ---------------------------------------------------------------------------
 
 MAX_PRODUCER_BATCH = 512
 
 
 def _lib() -> ctypes.CDLL:
-    from ..network import _native_build
-
-    return _native_build.load()
+    return _native_build.load("transport")
 
 
 def wave_pack_available() -> bool:
@@ -130,6 +264,13 @@ def column_view(addr: int, nbytes: int):
 
 __all__ = [
     "MAX_PRODUCER_BATCH",
+    "NATIVE_BATCH_MIN",
+    "available",
+    "batch_verify",
+    "batch_verify_columns",
+    "batch_verify_shared",
+    "precompute",
+    "verify_one",
     "WavePacker",
     "column_view",
     "parse_producer",

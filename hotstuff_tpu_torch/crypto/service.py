@@ -1,8 +1,9 @@
 """The verifier backend protocol, the CPU backend and the signing service.
 
-Copied from ``hotstuff_tpu.crypto.service`` without the native batch
-library branch (``native_ed25519`` is not part of the port yet): the CPU
-backend verifies each signature through ``signature.py`` (OpenSSL where
+Copied from ``hotstuff_tpu.crypto.service``.  The CPU backend verifies
+batches of two or more signatures with the native batch equation
+(``native_ed25519``, cofactored) and single signatures, and the items of
+a failing batch, through ``signature.py`` (OpenSSL where
 ``cryptography`` is installed, the pure-Python oracle otherwise).  The
 CUDA backend, ``gpu.ed25519.BatchVerifier``, implements the same
 protocol.
@@ -13,6 +14,7 @@ from __future__ import annotations
 from typing import Protocol
 
 from ..telemetry import spans as _spans
+from . import native_ed25519
 from .digest import Digest
 from .keys import PublicKey, SecretKey
 from .signature import CryptoError, Signature
@@ -25,6 +27,8 @@ class VerifierBackend(Protocol):
     attributes via ``getattr``; absence means the default shown:
 
     - ``name = "?"`` — backend label for stats/telemetry tags;
+    - ``supports_flat_batch = False`` — ``eval_claims_sync`` may
+      collapse a whole claim wave into one native batch equation;
     - ``async_kind`` (unset) — advertises the off-loop coalescing claim
       path (``crypto/async_service.py``); one shared service per (event
       loop, kind);
@@ -66,9 +70,15 @@ class VerifierBackend(Protocol):
 
 
 class CpuVerifier:
-    """Default backend: per-signature verification on the host."""
+    """Default backend: OpenSSL per-signature verification, with the
+    native dalek-parity batch equation (``native_ed25519``) as the fast
+    path for batches of ``NATIVE_BATCH_MIN`` (2) or more — the QC-verify
+    shape, reference crypto/src/lib.rs:213-226."""
 
     name = "cpu"
+    # eval_claims_sync may collapse a whole claim wave into one native
+    # batch equation (all-or-nothing, per-item attribution on failure)
+    supports_flat_batch = True
 
     def verify_one(self, digest: Digest, pk: PublicKey, sig: Signature) -> bool:
         try:
@@ -78,12 +88,27 @@ class CpuVerifier:
             return False
 
     def precompute(self, pubkeys: list[bytes]) -> None:
-        """No key tables to warm without the native library."""
+        """Warm the native committee-key tables (node boot, epoch setup)
+        so QC-shaped batches only pay point decompression for the
+        per-signature R points.  No-op with the batch path off."""
+        native_ed25519.precompute(pubkeys)
 
     def verify_shared_msg(
         self, digest: Digest, votes: list[tuple[PublicKey, Signature]]
     ) -> bool:
         with _spans.span("host.verify"):
+            if len(votes) >= native_ed25519.NATIVE_BATCH_MIN:
+                if native_ed25519.available():
+                    # cofactored batch acceptance — dalek-batch parity;
+                    # the certificate verdict is all-or-nothing, as the
+                    # reference's QC::verify
+                    return native_ed25519.batch_verify_shared(
+                        digest.to_bytes(),
+                        [
+                            (pk.to_bytes(), sig.to_bytes())
+                            for pk, sig in votes
+                        ],
+                    )
             try:
                 Signature.verify_batch(digest, votes)
                 return True
@@ -100,6 +125,25 @@ class CpuVerifier:
         from .signature import batch_verify_arrays
 
         with _spans.span("host.verify"):
+            n = len(digests)
+            if aggregate_ok and n >= native_ed25519.NATIVE_BATCH_MIN:
+                # certificate-shaped call (TC verify): the all-pass
+                # verdict may be established collectively.  One batch
+                # equation replaces n verifies; on a failure the loop
+                # below attributes each item.
+                if (
+                    native_ed25519.available()
+                    and all(len(d) == Digest.SIZE for d in digests)
+                    and native_ed25519.batch_verify(
+                        b"".join(digests),
+                        Digest.SIZE,
+                        b"".join(pks),
+                        b"".join(sigs),
+                        n,
+                        shared=False,
+                    )
+                ):
+                    return [True] * n
             return batch_verify_arrays(digests, pks, sigs)
 
 

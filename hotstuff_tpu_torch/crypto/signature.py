@@ -6,7 +6,8 @@ sign the 32 digest bytes, verify one signature, and ``verify_batch`` many
 kernel (called from ``consensus/src/messages.rs:195``).
 
 The default backend is CPU (OpenSSL via ``cryptography`` where it is
-installed, else the pure-Python ``ed25519_ref``); the CUDA batch backend
+installed, else the native library's single verify, or the pure-Python
+``ed25519_ref`` with ``HOTSTUFF_ED25519_NATIVE=0``); the CUDA batch backend
 (``hotstuff_tpu_torch.gpu.ed25519``) implements the same verify surface.
 """
 
@@ -66,6 +67,15 @@ else:
             self._pk = pk_bytes
 
         def verify(self, sig: bytes, msg: bytes) -> None:
+            # fast path: the native batch library's single-verify entry
+            # point (cofactored acceptance); the pure-Python ladder only
+            # with the batch path off (HOTSTUFF_ED25519_NATIVE=0)
+            from . import native_ed25519
+
+            if native_ed25519.available():
+                if not native_ed25519.verify_one(msg, self._pk, sig):
+                    raise InvalidSignature("signature mismatch")
+                return
             from .ed25519_ref import verify as _ref_verify
 
             if not _ref_verify(sig, self._pk, msg):

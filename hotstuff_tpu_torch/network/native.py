@@ -20,7 +20,8 @@ asyncio classes:
   per-frame ACK futures, retransmission after a reconnect.
 
 The library is the port's own build of ``native/transport.cpp`` and
-``native/wave_pack.cpp`` (``_native_build.py``), made on first use; a
+``native/wave_pack.cpp`` (``hotstuff_tpu_torch/_native_build.py``),
+made on first use; a
 build or load failure raises.  The reactor thread is stopped at
 interpreter exit.
 """
@@ -34,7 +35,7 @@ import logging
 import random
 from collections import deque
 
-from . import _native_build
+from .. import _native_build
 from .receiver import dispatch_ingest
 
 log = logging.getLogger(__name__)
@@ -56,7 +57,7 @@ class Reactor:
     _instance: "Reactor | None" = None
 
     def __init__(self):
-        self.lib = _native_build.load()
+        self.lib = _native_build.load("transport")
         self.handle = self.lib.ht_start()
         if not self.handle:
             raise RuntimeError("ht_start failed")

@@ -27,7 +27,8 @@ refused before boot with exit code 2.
 ``run`` and ``run-many`` stop cleanly on SIGTERM or SIGINT: every node
 shuts down, and the process logs the wave service's last stats line and,
 when the CUDA kernels were loaded, their launch counts
-(``Kernel launches: verify_compressed=N dual_scalar_mult=M``).
+(``Kernel launches: verify_compressed=N dual_scalar_mult=M``), which it
+also logs once every node has booted (``Kernel launches at boot: ...``).
 """
 
 from __future__ import annotations
@@ -229,10 +230,16 @@ async def _report_verifier(service) -> None:
             await asyncio.sleep(0.005)
         service.log_stats()
         service.close()
+    _log_launches("Kernel launches")
+
+
+def _log_launches(what: str) -> None:
+    """Log the CUDA kernels' launch counts so far, when they were loaded."""
     dsm = sys.modules.get("hotstuff_tpu_torch.gpu.dsm")
     if dsm is not None:
         log.info(
-            "Kernel launches: %s",
+            "%s: %s",
+            what,
             " ".join(f"{k}={v}" for k, v in sorted(dsm.launches.items())),
         )
 
@@ -251,6 +258,7 @@ async def _serve_until_stopped(nodes, boot) -> None:
         await boot()
         _freeze_boot_objects()
         service = _wave_service(nodes)
+        _log_launches("Kernel launches at boot")
         if len(nodes) >= 64:
             probe = asyncio.ensure_future(_fd_probe())
         # serve() instead of analyze_block(): a node voted out by a

@@ -1,19 +1,36 @@
 """Store: a single-writer store serializing all storage access.
 
-A copy of ``hotstuff_tpu.store`` that always opens the Python
-``WalEngine`` (the native engine is not ported; both speak the same
-on-disk format).  ``notify_read`` is the blocking-read primitive the
-synchronizer's "wait for a missing parent block" is built on: if the key
-is missing, the caller's future is parked in an obligations map and
-resolved by a later write of that key.
+A copy of ``hotstuff_tpu.store``.  ``Store`` opens the C++ engine
+(``store/native.py``) by default, as the JAX package does; both engines
+speak the same on-disk format.  ``notify_read`` is the blocking-read
+primitive the synchronizer's "wait for a missing parent block" is built
+on: if the key is missing, the caller's future is parked in an
+obligations map and resolved by a later write of that key.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 from collections import deque
 
 from .engine import Engine, WalEngine
+
+
+def open_engine(
+    path: str, prefer_native: bool = True, fsync_mode: int = 0
+) -> Engine:
+    """Open the engine at ``path``: the C++ engine unless
+    ``prefer_native`` is False or ``HOTSTUFF_STORE_NATIVE=0``, else the
+    pure-Python WAL.  Both speak the same on-disk format.  fsync_mode:
+    0 = flush per put, 1 = fsync per put, 2 = fsync on close.  A native
+    library that cannot build raises with the compiler's output (the
+    JAX package falls back to the Python engine)."""
+    if prefer_native and os.environ.get("HOTSTUFF_STORE_NATIVE") != "0":
+        from .native import NativeEngine
+
+        return NativeEngine(path, fsync_mode)
+    return WalEngine(path, fsync_mode)
 
 
 class Store:
@@ -29,7 +46,7 @@ class Store:
     """
 
     def __init__(self, path: str, engine: Engine | None = None):
-        self.engine = engine if engine is not None else WalEngine(path)
+        self.engine = engine if engine is not None else open_engine(path)
         self._obligations: dict[bytes, deque[asyncio.Future]] = {}
         self._closed = False
 
@@ -89,4 +106,4 @@ class Store:
         self.engine.close()
 
 
-__all__ = ["Store", "Engine", "WalEngine"]
+__all__ = ["Store", "Engine", "WalEngine", "open_engine"]

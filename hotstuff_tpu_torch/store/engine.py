@@ -1,10 +1,17 @@
 """Persistent key-value engine backing the Store.
 
-A copy of ``hotstuff_tpu.store.engine``: ``WalEngine`` (pure Python), an
-in-memory index + append-only write-ahead log, replayed on open.  Crash
-recovery = reopen the same path.  The native C++ engine is not ported;
-the on-disk format is the JAX package's byte for byte, so a store
-written by either package opens in the other.
+A copy of ``hotstuff_tpu.store.engine``.  The port ships two engines
+behind one interface:
+
+- ``WalEngine`` (this module, pure Python): an in-memory index + an
+  append-only write-ahead log, replayed on open.  Crash recovery =
+  reopen the same path.
+- ``NativeEngine`` (``store/native.py``, ``native/store_engine.cpp`` via
+  ctypes): the C++ engine with the same WAL format, the default of
+  ``open_engine``.
+
+The on-disk format is the JAX package's byte for byte, so a store
+written by either engine of either package opens in the others.
 
 WAL record format (little-endian): u32 klen | u32 vlen | key | value.
 A record with vlen == 0xFFFFFFFF is a tombstone (delete).

@@ -469,12 +469,16 @@ def test_a_plane_that_cannot_start_raises_and_names_the_switch(fresh_plane, monk
     """With the plane enabled (the default) a library that fails to
     build raises at the receiver's spawn; ``HOTSTUFF_ZERO_COPY=0`` turns
     the plane off and frames go straight to the handler."""
-    from hotstuff_tpu_torch.network import _native_build
+    from hotstuff_tpu_torch import _native_build
 
-    def broken():
+    build = _native_build.build
+
+    def broken(name):
+        if name != "transport":
+            return build(name)
         raise RuntimeError("g++ failed (1): no compiler here")
 
-    monkeypatch.setattr(_native_build, "_LIB", None)
+    monkeypatch.setattr(_native_build, "_LIBS", {})
     monkeypatch.setattr(_native_build, "build", broken)
 
     class Sink:

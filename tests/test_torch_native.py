@@ -33,7 +33,8 @@ from benchmark.logs import RE_VERIFY_STATS, LogParser
 from hotstuff_tpu.network.receiver import Receiver as JaxReceiver
 from hotstuff_tpu.network.simple_sender import SimpleSender as JaxSimpleSender
 from hotstuff_tpu_torch.bench.committee import reserve_ports, run_committee
-from hotstuff_tpu_torch.network import Receiver, SimpleSender, _native_build, native
+from hotstuff_tpu_torch import _native_build
+from hotstuff_tpu_torch.network import Receiver, SimpleSender, native
 from hotstuff_tpu_torch.network.framing import read_frame, send_frame
 
 from .test_torch_cli import CLI, ENV, _free_run
@@ -65,13 +66,13 @@ def _free_port() -> int:
 
 
 def test_the_build_is_the_ports_own_and_named_by_its_sources(tmp_path, monkeypatch):
-    loaded = Path(_native_build.load()._name)
+    loaded = Path(_native_build.load("transport")._name)
     assert loaded.parent == ROOT / "build" / "torch_native"
-    assert loaded.name == f"libhs_transport_{_native_build.source_hash()}.so"
+    assert loaded.name == f"libhs_transport_{_native_build.source_hash('transport')}.so"
     sources = {p: p.read_bytes() for p in (ROOT / "native").iterdir() if p.is_file()}
 
     monkeypatch.setattr(_native_build, "BUILD_DIR", tmp_path / "torch_native")
-    built = _native_build.build()
+    built = _native_build.build("transport")
     assert built == tmp_path / "torch_native" / loaded.name
     lib = ctypes.CDLL(str(built))
     assert hasattr(lib, "ht_start") and hasattr(lib, "wp_pack_vote")
@@ -82,16 +83,16 @@ def test_the_build_is_the_ports_own_and_named_by_its_sources(tmp_path, monkeypat
 
     stamp = built.stat().st_mtime_ns
     monkeypatch.setattr(_native_build.subprocess, "run", no_compiler)
-    assert _native_build.build() == built and built.stat().st_mtime_ns == stamp
+    assert _native_build.build("transport") == built and built.stat().st_mtime_ns == stamp
 
     copy = tmp_path / "native"
     copy.mkdir()
-    for name in _native_build.SOURCES:
+    for name in _native_build.LIBRARIES["transport"].sources:
         (copy / name).write_bytes((ROOT / "native" / name).read_bytes())
     monkeypatch.setattr(_native_build, "NATIVE_DIR", copy)
-    assert _native_build.library_path() == built
+    assert _native_build.library_path("transport") == built
     (copy / "wave_pack.cpp").write_bytes((copy / "wave_pack.cpp").read_bytes() + b"\n// edited\n")
-    assert _native_build.library_path().name != loaded.name
+    assert _native_build.library_path("transport").name != loaded.name
 
     assert {p: p.read_bytes() for p in (ROOT / "native").iterdir() if p.is_file()} == sources
 
@@ -99,11 +100,15 @@ def test_the_build_is_the_ports_own_and_named_by_its_sources(tmp_path, monkeypat
 def test_a_native_transport_that_cannot_build_raises_at_spawn(tmp_path, monkeypatch):
     from hotstuff_tpu_torch.consensus import Consensus
 
-    def broken():
+    build = _native_build.build
+
+    def broken(name):
+        if name != "transport":
+            return build(name)
         raise RuntimeError("g++ failed (1): no compiler here")
 
     monkeypatch.setattr(native.Reactor, "_instance", None)
-    monkeypatch.setattr(_native_build, "_LIB", None)
+    monkeypatch.setattr(_native_build, "_LIBS", {})
     monkeypatch.setattr(_native_build, "build", broken)
 
     async def body():
