@@ -80,7 +80,8 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    ``python -m hotstuff_tpu_torch.node keys``, 63 by ``Secret``), a
    committee on OS-assigned ports and default parameters, then
    ``python -m hotstuff_tpu_torch.node -vv run-many --verifier cuda``
-   and, as a second process, ``python -m hotstuff_tpu_torch.node.client
+   and, once every node logged its boot, as a second process,
+   ``python -m hotstuff_tpu_torch.node.client
    --rate 1000 --size 512 --duration 20 --warmup 2`` (the deployment of
    ``results/bench-0-64-1000-tpu-1proc.txt``).  3 s after the client
    exits the node process gets SIGTERM and must stop within 60 s.  Both
@@ -106,10 +107,28 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    kernel must give the cofactorless oracle's verdict
    (``ed25519_ref.verify``), the native batch equation the cofactored
    one ([8][s]B = [8]R + [8][k]A, checked here in ``ed25519_ref``
-   arithmetic);
-14. a ``{"kernels": [...]}`` line, then the last line
+   arithmetic); and the bench's ``bench_verify_split``: 8 QC-256 claims
+   through the wave service's host route and its device route, the split
+   read from the telemetry registry, every device-route signature on the
+   card;
+14. (i) the node CLI of (e) with the telemetry plane on (``--metrics-port
+   0 --journal-dir <dir> --profile`` and ``HOTSTUFF_WORK_STATS=1``):
+   ``/metrics``, ``/snapshot``, ``/trace`` and ``/delta`` scraped at 8 s
+   and 16 s of the load and once after it — OpenMetrics with every family
+   typed, 64 node labels, no counter falling between scrapes, the route
+   counts at most the final stats line's, device wall seconds wherever
+   device or probe waves ran, 64 snapshot documents each a superset of
+   the ``Work stats:`` one, a ``/delta`` frame decoding against the one
+   before; after the SIGTERM stop every node's journal, its commit
+   records the rounds of its ``Committed`` lines, and every node's
+   ``Telemetry snapshot:`` and ``Work stats:`` lines.  It prints the
+   committee's trace edges, the split of the loop's time (the wave
+   service's host and device wall, the nodes' inline verify wall, the
+   loop lag), the scrapes' sizes and times, and (i)'s rounds beside
+   (e)'s (logs in ``chiprun_out/telemetry_phase/``);
+15. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the main-path runs (3 and (a)-(h)), each counted from 0.
+   over the main-path runs (3 and (a)-(i)), each counted from 0.
 
 Phases (c), (e) and (g) print the wave service's routes (device, cpu and
 probe waves, ``ewma_ms``, the mean wave and the verify kernel's launches
@@ -1119,6 +1138,17 @@ def verifier_phase(card: str, claims, torch_device=None, batch: int = WAVE, roun
     check(r["baseline"]["backend"].startswith("native-batch"), "bench: the baseline is the native batch")
     check(r["device"]["platform"] == ("gpu" if torch_device in (None, "cuda") else "cpu"),
           "bench: the result names where it ran")
+    split = r["verify_split"]
+    print(f"verify split: {split['waves']} QC-{split['qc_size']} claims a route through the wave service, "
+          f"host route {split['host_wall_ms']} ms, device route {split['device_wall_ms']} ms (telemetry "
+          f"registry), device sigs {split['device_sigs']}, CPU fallback sigs {split['cpu_fallback_sigs']}, "
+          f"deadline misses {split['deadline_misses']}, verify kernel launches {split['launches']} [{card}]")
+    check(split["host_wall_ms"] > 0 and split["device_wall_ms"] > 0,
+          "verify split: both routes' wall seconds in the registry")
+    if r["device"]["platform"] == "gpu":
+        check(split["device_sigs"] >= split["waves"] * split["qc_size"],
+              "verify split: every device-route claim verified on the card")
+        check(split["launches"] >= split["waves"], "verify split: the verify kernel launched for every wave")
 
     # the seven adversarial cases of step 3's wave (cases 1-7 of every
     # 16) and a small-order R, each through both routes
@@ -1148,13 +1178,18 @@ def verifier_phase(card: str, claims, torch_device=None, batch: int = WAVE, roun
 
 
 def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
-               verifier: str = "cuda", transport: str = "asyncio"):
+               verifier: str = "cuda", transport: str = "asyncio", label: str | None = None,
+               extra_args=(), extra_env=None, during=None):
     """(e), and (g) with ``transport="native"``: the node CLI, a
     ``run-many`` committee process and the producer client process, both
     started from the command line; returns the verify kernel's launches
     in the node process (boot included) and what the logs say.
     ``verifier="cpu"`` rehearses the phase without a card: no wave
-    service, so the stats and launch checks are skipped."""
+    service, so the stats and launch checks are skipped.  ``label``
+    names the phase and its log directory under ``chiprun_out/``;
+    ``extra_args`` and ``extra_env`` go to the ``run-many`` process;
+    ``during(node_log_path, client_log_path, client)`` runs once the
+    client process started, before the phase waits for it to exit."""
     import signal
     import tempfile
 
@@ -1163,12 +1198,13 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     from hotstuff_tpu_torch.node.config import Secret, write_committee, write_parameters
 
     t0 = time.perf_counter()
-    phase = "node phase" if transport == "asyncio" else f"node phase ({transport})"
-    logs = os.path.join(ROOT, "chiprun_out", "node_phase" if transport == "asyncio" else f"node_phase_{transport}")
+    phase = label or ("node phase" if transport == "asyncio" else f"node phase ({transport})")
+    logs = os.path.join(ROOT, "chiprun_out", phase.replace(" (", "_").replace(" ", "_").strip(")"))
     os.makedirs(logs, exist_ok=True)
     node_log_path = os.path.join(logs, "nodes.log")
     client_log_path = os.path.join(logs, "client.log")
     env = {**os.environ, "PYTHONPATH": ROOT}
+    node_env = {**env, **(extra_env or {})}
     cli = [sys.executable, "-m", "hotstuff_tpu_torch.node"]
     procs = []
     with tempfile.TemporaryDirectory(prefix="node-phase-") as tmp:
@@ -1195,14 +1231,25 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
                     cli + ["-vv", "run-many", "--transport", transport, "--verifier", verifier,
                            "--keys", ",".join(key_files),
                            "--committee", committee_file, "--store-prefix", os.path.join(tmp, "db_"),
-                           "--parameters", parameters_file],
-                    stdout=node_log, stderr=subprocess.STDOUT, env=env))
+                           "--parameters", parameters_file, *extra_args],
+                    stdout=node_log, stderr=subprocess.STDOUT, env=node_env))
                 node = procs[0]
+                # the client starts once every node listens: the committee's
+                # ports were free only since the reservation closed, and an
+                # outgoing connection made meanwhile may take one of them
+                boot_deadline = time.monotonic() + 3.0 * nodes + 120
+                while node.poll() is None and time.monotonic() < boot_deadline:
+                    with open(node_log_path) as f:
+                        if len(RE_BOOTED.findall(f.read())) >= nodes:
+                            break
+                    time.sleep(0.5)
                 procs.append(subprocess.Popen(
                     [sys.executable, "-m", "hotstuff_tpu_torch.node.client", "--committee", committee_file,
                      "--rate", str(rate), "--size", "512", "--duration", str(duration), "--warmup", "2"],
                     stdout=client_log, stderr=subprocess.STDOUT, env=env))
                 client = procs[1]
+                if during is not None:
+                    during(node_log_path, client_log_path, client)
                 # the client waits up to 3 s a node for the ports, then sends
                 client.wait(timeout=3.0 * nodes + duration + 120)
                 check(client.returncode == 0, f"{phase}: the client exited with {client.returncode}")
@@ -1266,6 +1313,290 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
         check(launches >= stats["device"] + stats["probe"],
               f"{phase}: a verify-kernel launch for every device and probe wave")
     r.update(boot_s=boot_s, stop_s=stop_s, wall_s=wall, launches=launches, launches_after_boot=after_boot)
+    return launches, r
+
+
+# the telemetry plane's log and endpoint contract: RE_TELEMETRY is the
+# harness's (benchmark/logs.py), the rest name the port's own lines
+RE_TELEMETRY = re.compile(r"Telemetry snapshot: (\{.*\})")
+RE_NODE_TELEMETRY = re.compile(r"\] telemetry\.(\S+) Telemetry snapshot: (\{.*\})")
+RE_WORK_STATS = re.compile(r"\] workstats\.(\S+) Work stats: (\{.*\})")
+RE_ENDPOINT = re.compile(r"Telemetry /metrics endpoint listening on port (\d+)")
+RE_CORE_COMMIT = re.compile(r"\] hotstuff_tpu_torch\.consensus\.core\.(\S+) Committed block (\d+) ->")
+RE_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+TRACE_EDGES = ("propose_to_vote", "vote_to_qc", "qc_to_commit", "propose_to_commit")
+
+
+def scrape(port: int, path: str) -> dict:
+    """One GET of the node process's endpoint: body, content type, bytes
+    and host-clock ms."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        body = resp.read()
+        ctype = resp.headers.get("Content-Type")
+    return {"body": body.decode(), "type": ctype, "bytes": len(body),
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def parse_metrics(text: str):
+    """OpenMetrics text -> ({family: type}, {(sample, labels): value})."""
+    types, samples = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, family, kind = line.split(" ", 3)
+            types[family] = kind
+        elif line and not line.startswith("#"):
+            head, _, value = line.rpartition(" ")
+            name, _, labels = head.partition("{")
+            samples[(name, tuple(RE_LABEL.findall(labels)))] = float(value)
+    return types, samples
+
+
+def family_of(sample: str, types: dict) -> str | None:
+    """The ``# TYPE`` family a sample belongs to, or None."""
+    for suffix in ("", "_total", "_bucket", "_sum", "_count"):
+        if suffix and not sample.endswith(suffix):
+            continue
+        family = sample[: len(sample) - len(suffix)] if suffix else sample
+        if family in types:
+            return family
+    return None
+
+
+def by_label(samples: dict, name: str, key: str) -> dict:
+    """Sum of the ``name`` samples by the value of label ``key``."""
+    out: dict = collections.defaultdict(float)
+    for (sample, labels), value in samples.items():
+        if sample == name:
+            out[dict(labels).get(key)] += value
+    return out
+
+
+def merged_percentiles(samples: dict, edge: str) -> tuple:
+    """p50 and p99 (ms, bucket upper bounds) of one trace edge over every
+    node's ``commit_edge_seconds`` histogram."""
+    buckets: dict = collections.defaultdict(float)
+    for (sample, labels), value in samples.items():
+        labels = dict(labels)
+        if sample == "hotstuff_commit_edge_seconds_bucket" and labels.get("edge") == edge:
+            buckets[labels["le"]] += value
+    finite = sorted((float(le), n) for le, n in buckets.items() if le != "+Inf")
+    total = buckets.get("+Inf", 0.0)
+    out = []
+    for q in (0.5, 0.99):
+        bound = next((le for le, n in finite if n >= q * total), float("inf"))
+        out.append(round(bound * 1e3, 3) if total else None)
+    return tuple(out)
+
+
+def read_journals(jdir: str) -> dict:
+    """node id -> its records, every ring segment merged by sequence
+    number (the node id is the segment's meta line's)."""
+    import glob
+
+    out: dict = collections.defaultdict(list)
+    for path in sorted(glob.glob(os.path.join(jdir, "*.jsonl"))):
+        node, records = None, []
+        with open(path) as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue  # a torn line
+                if rec.get("e") == "meta":
+                    node = rec["n"]
+                else:
+                    records.append(rec)
+        out[node].extend(records)
+    return {n: sorted(rs, key=lambda r: r["s"]) for n, rs in out.items()}
+
+
+def keys_match(state: dict, snapshot_flat: dict) -> bool:
+    """A ``/delta`` state decoded after a ``/snapshot`` scrape holds the
+    snapshot's keys, plus the ``metrics`` blocks and the percentiles of
+    histograms that were empty at the snapshot (keys only appear)."""
+    mine = {k for k in state if ".metrics." not in k}
+    if not set(snapshot_flat) <= mine:
+        return False
+    return all(snapshot_flat.get(k.rsplit(".", 1)[0] + ".count") == 0
+               for k in mine - set(snapshot_flat))
+
+
+def telemetry_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
+                    verifier: str = "cuda", scrape_at=(0.4, 0.8)):
+    """(i) The node CLI of (e) with the telemetry plane on:
+    ``--metrics-port 0 --journal-dir <dir> --profile`` and
+    ``HOTSTUFF_WORK_STATS=1``.  The endpoint is scraped at ``scrape_at``
+    of the load (8 s and 16 s of 20) and once after it; the journals
+    are read after the SIGTERM stop.  Returns the verify kernel's
+    launches in the node process and what the logs say."""
+    from hotstuff_tpu_torch.telemetry.health import DeltaDecoder, flatten
+    from hotstuff_tpu_torch.utils.workstats import WORKSTATS_KEYS
+
+    phase = "telemetry phase"
+    jdir = os.path.join(ROOT, "chiprun_out", "telemetry_phase", "journals")
+    shutil.rmtree(jdir, ignore_errors=True)
+    scrapes = []
+
+    def during(node_log_path, client_log_path, client):
+        deadline = time.monotonic() + 3.0 * nodes + 120
+        port = start = None
+        while time.monotonic() < deadline and (port is None or start is None):
+            with open(node_log_path) as f:
+                m = RE_ENDPOINT.search(f.read())
+            port = int(m[1]) if m else None
+            with open(client_log_path) as f:
+                start = time.monotonic() if "Transactions rate:" in f.read() else None
+            check(client.poll() is None or start is not None, f"{phase}: the client exited before sending")
+            time.sleep(0.1)
+        check(port is not None and start is not None, f"{phase}: the endpoint's port and the load's start")
+        for frac in scrape_at:
+            time.sleep(max(0.0, start + frac * duration - time.monotonic()))
+            got = {"at_s": time.monotonic() - start}
+            got["snapshot"] = scrape(port, "/snapshot")
+            got["metrics"] = scrape(port, "/metrics")
+            got["trace"] = scrape(port, "/trace")
+            got["delta_full"] = scrape(port, "/delta?since=0")
+            seq = json.loads(got["delta_full"]["body"])["seq"]
+            got["delta_next"] = scrape(port, f"/delta?since={seq}")
+            scrapes.append(got)
+        client.wait(timeout=3.0 * nodes + duration + 120)
+        scrapes.append({"at_s": time.monotonic() - start, "snapshot": scrape(port, "/snapshot"),
+                        "metrics": scrape(port, "/metrics"), "trace": scrape(port, "/trace")})
+
+    launches, r = node_phase(card, nodes, rate, duration, verifier, label=phase,
+                             extra_args=("--metrics-port", "0", "--journal-dir", jdir, "--profile"),
+                             extra_env={"HOTSTUFF_WORK_STATS": "1"}, during=during)
+    logs = os.path.join(ROOT, "chiprun_out", "telemetry_phase")
+    with open(os.path.join(logs, "nodes.log")) as f:
+        node_text = f.read()
+    with open(os.path.join(logs, "scrapes.json"), "w") as f:
+        json.dump([{k: (v if k == "at_s" else {x: v[x] for x in ("bytes", "ms", "type")})
+                    for k, v in s.items()} for s in scrapes], f)
+    with open(os.path.join(logs, "last_metrics.txt"), "w") as f:
+        f.write(scrapes[-1]["metrics"]["body"])
+
+    # /metrics: OpenMetrics, every family typed, 64 nodes, counters only rise
+    parsed = []
+    for s in scrapes:
+        m = s["metrics"]
+        check(m["type"].startswith("application/openmetrics-text"), f"{phase}: /metrics content type")
+        check(m["body"].endswith("# EOF\n"), f"{phase}: /metrics ends in # EOF")
+        types, samples = parse_metrics(m["body"])
+        untyped = {name for name, _ in samples if family_of(name, types) is None}
+        check(not untyped, f"{phase}: every /metrics family has a # TYPE (untyped: {sorted(untyped)[:5]})")
+        node_labels = {dict(labels).get("node") for _, labels in samples} - {None}
+        check(len(node_labels) == nodes, f"{phase}: /metrics carries {nodes} node labels ({len(node_labels)})")
+        parsed.append((types, samples))
+    for (types, first), (_, second) in zip(parsed, parsed[1:]):
+        fell = [k for k, v in first.items()
+                if types.get(family_of(k[0], types)) == "counter" and k in second and second[k] < v]
+        check(not fell, f"{phase}: no counter falls between two scrapes ({fell[:3]})")
+    types, last = parsed[-1]
+    stats = r["stats"] or {}
+    routes_scraped = by_label(last, "hotstuff_verify_route_total", "route")
+    device_wall = by_label(last, "hotstuff_verify_device_wall_seconds_total", "svc")
+    host_wall = by_label(last, "hotstuff_verify_host_wall_seconds_total", "svc")
+    if verifier == "cuda":
+        for route in ("device", "cpu", "probe"):
+            check(routes_scraped.get(route, 0) <= stats[route],
+                  f"{phase}: the last scrape's {route} waves ({routes_scraped.get(route, 0)}) are at most "
+                  f"the final stats line's ({stats[route]})")
+        by_svc = collections.defaultdict(float)
+        for (sample, labels), value in last.items():
+            labels = dict(labels)
+            if sample == "hotstuff_verify_route_total" and labels["route"] in ("device", "probe"):
+                by_svc[labels["svc"]] += value
+        for svc, waves in by_svc.items():
+            check(waves == 0 or device_wall.get(svc, 0) > 0,
+                  f"{phase}: device wall seconds wherever device or probe waves ran ({svc})")
+        check(sum(by_svc.values()) > 0, f"{phase}: the scrape shows device or probe waves")
+
+    # /snapshot: 64 node documents, each a superset of the Work stats one
+    snapshots = [json.loads(s["snapshot"]["body"]) for s in scrapes]
+    for snap in snapshots:
+        check(len(snap) == nodes, f"{phase}: /snapshot holds {nodes} node documents ({len(snap)})")
+        check(all(set(WORKSTATS_KEYS) <= set(doc) for doc in snap.values()),
+              f"{phase}: every snapshot document is a superset of the Work stats one")
+    # /delta: the second frame decodes against the first
+    for s, snap in zip(scrapes, snapshots):
+        if "delta_full" not in s:
+            continue
+        decoder = DeltaDecoder()
+        f0, f1 = json.loads(s["delta_full"]["body"]), json.loads(s["delta_next"]["body"])
+        check("full" in f0 and decoder.apply(f0) is not None, f"{phase}: /delta?since=0 is a full frame")
+        state = decoder.apply(f1)
+        check(state is not None and f1.get("base") == f0["seq"] and decoder.seq == f1["seq"],
+              f"{phase}: the second /delta frame decodes against the first")
+        check(keys_match(state, flatten(snap)), f"{phase}: the decoded /delta state is the /snapshot document")
+
+    # journals: every node's, its commit records the rounds of its Committed lines
+    journals = read_journals(jdir)
+    check(len(journals) == nodes, f"{phase}: {nodes} nodes' journals after the stop ({len(journals)})")
+    logged = collections.defaultdict(list)
+    for node, rnd in RE_CORE_COMMIT.findall(node_text):
+        logged[node].append(int(rnd))
+    mismatched = [n for n, recs in journals.items()
+                  if [x["r"] for x in recs if x["e"] == "commit"] != logged.get(n)]
+    check(not mismatched, f"{phase}: each node's commit records are its Committed lines' rounds "
+                          f"({len(mismatched)} differ)")
+    snap_nodes = set()
+    for line in node_text.splitlines():
+        who, doc = RE_NODE_TELEMETRY.search(line), RE_TELEMETRY.search(line)
+        if who and doc and "node" in json.loads(doc[1]):
+            snap_nodes.add(who[1])
+    check(len(snap_nodes) == nodes, f"{phase}: every node logs a Telemetry snapshot line the harness's "
+                                    f"pattern reads ({len(snap_nodes)})")
+    work_lines = {n for n, _ in RE_WORK_STATS.findall(node_text)}
+    check(len(work_lines) == nodes, f"{phase}: every node logs a Work stats line ({len(work_lines)})")
+    check("Kernel launches:" in node_text or verifier != "cuda",
+          f"{phase}: the clean stop logs the kernels' launch counts")
+
+    # the split of the loop's time and the committee's edges
+    final = snapshots[-1]
+    trace_ring = json.loads(scrapes[-1]["trace"]["body"])
+    edges = {}
+    for edge in TRACE_EDGES:
+        ring = sorted(rec[f"{edge}_ms"] for recs in trace_ring.values() for rec in recs
+                      if f"{edge}_ms" in rec)
+        exact = (ring[(len(ring) - 1) // 2], ring[min(len(ring) - 1, int(0.99 * len(ring)))]) if ring else None
+        edges[edge] = {"buckets_p50_p99_ms": merged_percentiles(last, edge),
+                       "ring_p50_p99_ms": exact, "ring_samples": len(ring)}
+    verify_wall_ms = sum(doc["verify_wall_ms"] for doc in final.values())
+    lag_mean = sum(doc["loop_lag_mean_ms"] for doc in final.values()) / max(len(final), 1)
+    lag_max = max((doc["loop_lag_max_ms"] for doc in final.values()), default=0.0)
+    split = {
+        "window_s": duration,
+        "host_wall_s": sum(host_wall.values()),
+        "device_wall_s": sum(device_wall.values()),
+        "workstats_verify_wall_s": verify_wall_ms / 1e3,
+        "loop_lag_mean_ms": lag_mean,
+        "loop_lag_max_ms": lag_max,
+        "scrape_at_s": [s["at_s"] for s in scrapes],
+        # each route's bytes and host-clock ms, every scrape; the
+        # endpoint renders on the nodes' one event loop
+        "scrapes": [{k: [v["bytes"], v["ms"]] for k, v in s.items() if k != "at_s"} for s in scrapes],
+        "scrape_ms_in_load": sum(v["ms"] for s in scrapes[:-1] for k, v in s.items() if k != "at_s"),
+        "journal_records": sum(map(len, journals.values())),
+        "edges": edges,
+    }
+    for edge, e in edges.items():
+        print(f"{phase} edge {edge}: p50/p99 {e['ring_p50_p99_ms']} ms over the last {e['ring_samples']} "
+              f"trace records, {e['buckets_p50_p99_ms']} ms by the merged histograms' bucket bounds [{card}]")
+    print(f"{phase} loop split over the {duration} s window: wave service host (CPU) wall "
+          f"{split['host_wall_s']:.3f} s, device wall {split['device_wall_s']:.3f} s (slot threads); "
+          f"nodes' inline verify (WorkStats) {split['workstats_verify_wall_s']:.3f} s; loop lag mean "
+          f"{lag_mean:.2f} ms, max {lag_max:.1f} ms [{card}]")
+    for at, s in zip(split["scrape_at_s"], split["scrapes"]):
+        print(f"{phase} scrape at {at:.1f} s of the load: " + ", ".join(
+            f"/{route} {b} bytes in {ms:.1f} ms" for route, (b, ms) in s.items()) + f" [{card}]")
+    print(f"{phase}: the scrapes inside the load held the endpoint (and so the nodes' loop) "
+          f"{split['scrape_ms_in_load']:.0f} ms of the {duration} s window; "
+          f"{split['journal_records']} journal records [{card}]")
+    print(f"{phase} result: " + json.dumps({"split": split, "routes": routes_scraped}))
+    r["split"] = split
     return launches, r
 
 
@@ -1474,9 +1805,15 @@ def main() -> int:
     bench_launches = verifier_phase(card, claims)
     print(f"phase (h) took {time.perf_counter() - t0:.1f} s")
     check(bench_launches > 0, "the verifier bench never launched the verify kernel")
+    t0 = time.perf_counter()
+    telemetry_launches, telemetry_r = telemetry_phase(card)
+    print(f"phase (i) took {time.perf_counter() - t0:.1f} s")
     keys = ("boot_s", "committed_rounds", "consensus_payloads_per_s", "latency_mean_s", "latency_p50_s",
             "timeouts", "launches", "stop_s")
-    for label, r in (("(e) asyncio", node_r), ("(g) native", native_r)):
+    print(f"telemetry overhead, same call: (e) {node_r['committed_rounds']} rounds, "
+          f"{node_r['consensus_payloads_per_s']:.1f} payloads/s; (i) {telemetry_r['committed_rounds']} rounds, "
+          f"{telemetry_r['consensus_payloads_per_s']:.1f} payloads/s [{card}]")
+    for label, r in (("(e) asyncio", node_r), ("(g) native", native_r), ("(i) telemetry", telemetry_r)):
         print(f"node CLI {label}: " + ", ".join(f"{k} {r[k]}" for k in keys) + f", stats {r['stats']} [{card}]")
 
     B = WAVE
@@ -1489,7 +1826,8 @@ def main() -> int:
             "replaces": "hotstuff_tpu/tpu/pallas_dsm.py:587",
             "launches": (main_launches["verify_compressed"] + storm_launches + wave_launches
                          + committee_launches + restart_launches + node_launches
-                         + ingest_launches + native_launches + bench_launches),
+                         + ingest_launches + native_launches + bench_launches
+                         + telemetry_launches),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

@@ -16,8 +16,11 @@ nothing from it: what it needs is copied and trimmed.  Layers, top down:
 - ``crypto/async_service.py``: the wave service that coalesces claims
   from many cores into padded device waves, and the zero-copy ingest
   plane that verifies votes from the staging arenas the receivers
-  packed (``crypto/native_ed25519.py``); the rest of ``crypto/``,
-  ``utils/`` and ``telemetry/`` are the host crypto and helpers;
+  packed (``crypto/native_ed25519.py``); the rest of ``crypto/`` and
+  ``utils/`` are the host crypto and helpers;
+- ``telemetry/``: the registry and ``/metrics`` endpoint, the per-round
+  trace, the span recorder and the flight-recorder journal, off by
+  default;
 - ``gpu/``: plain PyTorch versions of the field and curve layers, and
   hand-written CUDA kernels for the fused double-scalar-multiplication
   verifier, built with ``nvcc`` on first use.

@@ -1,10 +1,12 @@
 """Verifier benchmark: the verify kernel against the native CPU batch.
 
 The verifier blocks of ``bench.py`` (``make_qc_batch``, ``make_tc_batch``,
-``bench_tpu``, ``bench_tc``, ``bench_cpu`` and its ``vs_baseline``) held
-against the port, at the 256-validator shape: a 1024-signature stream
-over one shared digest (four 256-vote QCs a dispatch), QC sizes 16, 64
-and 256, and the 171-entry TC of distinct digests.
+``bench_tpu``, ``bench_tc``, ``bench_cpu`` and its ``vs_baseline``, and
+``bench_verify_split``) held against the port, at the 256-validator
+shape: a 1024-signature stream over one shared digest (four 256-vote QCs
+a dispatch), QC sizes 16, 64 and 256, the 171-entry TC of distinct
+digests, and a QC-256 claim through the wave service's host and device
+routes.
 
     python -m hotstuff_tpu_torch.bench.verifier
     python -m hotstuff_tpu_torch.bench.verifier --device cpu --batch 16 \\
@@ -27,6 +29,10 @@ versions, whose times say nothing of a card.  Prints ONE JSON line with
   batch (staging, launch and readback), and that rate over the baseline;
 - ``qc_verify_ms`` and ``tc_verify_ms``: blocking p50/p99 of launch +
   fetch, and the kernel's CUDA-event ms;
+- ``verify_split``: ``bench_verify_split`` — the host and device wall
+  ms of 8 QC-256 claims a route, read from the telemetry registry's
+  ``verify_host_wall_seconds`` / ``verify_device_wall_seconds``, with
+  the device route's signatures and the verify kernel's launches;
 - ``device``: the card's name and power limit (``nvidia-smi``).
 """
 
@@ -46,6 +52,7 @@ QC_SIZES = (16, 64, 256)
 TC_QUORUM = 2 * 256 // 3 + 1  # 171
 CPU_ROUNDS = 3
 EVENT_REPS = 10
+SPLIT_WAVES = 8  # QC-256 claims a route in bench_verify_split
 
 
 def _check(cond, what: str) -> None:
@@ -259,6 +266,74 @@ def bench_cpu(msgs, pks, sigs, distinct=None) -> tuple[float, dict]:
     return max(batch_rate, loop_rate), provenance
 
 
+def bench_verify_split(msgs, pks, sigs, device="cuda", qc: int = 256,
+                       waves: int = SPLIT_WAVES) -> dict:
+    """Host-dispatch vs device wall split for QC verification, measured
+    through the telemetry counters the wave service exports
+    (``hotstuff_verify_host_wall_seconds`` / ``_device_wall_seconds`` on
+    /metrics): a QC-shaped claim driven ``waves`` times through the
+    inline host route (``AsyncVerifyService(CpuVerifier())``) and the
+    device dispatch route (``make_verifier("cuda")``'s host), so the
+    split comes from the SAME instruments a node publishes — not a
+    bench-only stopwatch.  Turns telemetry on for the process, as the
+    reference block does."""
+    import asyncio
+
+    from .. import telemetry
+    from ..crypto.async_service import AsyncVerifyService
+    from ..crypto.service import CpuVerifier
+    from ..gpu import dsm
+    from ..node.node import make_verifier
+
+    telemetry.enable()
+    qc = min(qc, len(pks))
+    claim = ("shared", msgs[0], tuple(zip(pks[:qc], sigs[:qc])))
+
+    async def drive() -> dict:
+        host = AsyncVerifyService(CpuVerifier())  # inline host route
+        dev_backend = make_verifier("cuda", device=device)
+        dev_backend.precompute(pks)
+        dev_backend.warmup(batch=qc)
+        launched = dsm.launches["verify_compressed"]
+        service = AsyncVerifyService(dev_backend, device=True)
+        try:
+            for _ in range(waves):
+                _check(await host.verify_claims([claim]) == [True],
+                       "the host route rejects a valid QC")
+                _check(await service.verify_claims([claim]) == [True],
+                       "the device route rejects a valid QC")
+            # a wave that missed its deadline lands on its slot thread
+            # after the CPU answered: wait for it, its wall time counts
+            while service._inflight:
+                await asyncio.sleep(0.005)
+        finally:
+            service.close()
+        tags = {host._stats_tag, service._stats_tag}
+
+        def total(name: str) -> float:
+            return sum(
+                i.value for i in telemetry.registry()
+                if i.name == f"hotstuff_{name}" and i.labels.get("svc") in tags
+            )
+
+        return {
+            "qc_size": qc,
+            "waves": waves,
+            "host_wall_ms": round(total("verify_host_wall_seconds") * 1e3, 3),
+            "device_wall_ms": round(
+                total("verify_device_wall_seconds") * 1e3, 3
+            ),
+            "device_sigs": service.device_sigs,
+            "cpu_fallback_sigs": service.cpu_sigs,
+            "deadline_misses": service.deadline_misses,
+            "claims_submitted": int(total("verify_claims_submitted")),
+            "claims_unique": int(total("verify_claims_unique")),
+            "launches": dsm.launches["verify_compressed"] - launched,
+        }
+
+    return asyncio.run(drive())
+
+
 def card() -> dict:
     """The card's name and power limit as ``nvidia-smi`` reports them."""
     out = subprocess.run(
@@ -285,6 +360,7 @@ def run(device: str = "cuda", batch: int = BATCH, rounds: int = ROUNDS,
     )
     cpu_tput, provenance = bench_cpu(msgs, pks, sigs, make_tc_batch(batch))
     tc_latency = bench_tc(verifier, tc, reps)
+    split = bench_verify_split(msgs, pks, sigs, device=dev, qc=min(256, batch))
     rate = device_tput["device_sigs_per_s"]
     device_tput["vs_baseline"] = round(rate / cpu_tput, 3) if rate else None
     host["vs_baseline"] = round(host["sigs_per_s"] / cpu_tput, 3)
@@ -298,6 +374,7 @@ def run(device: str = "cuda", batch: int = BATCH, rounds: int = ROUNDS,
         "verify_device": host,
         "qc_verify_ms": qc_latency,
         "tc_verify_ms": tc_latency,
+        "verify_split": split,
         "device": where,
     }
 

@@ -18,10 +18,11 @@ A copy of ``hotstuff_tpu.consensus.consensus`` with the asyncio and
 native transports, join mode included (``HOTSTUFF_RECONFIG_LISTEN``: a
 key outside the committee listens there and bootstraps through state
 sync), and the receiver's native producer-v2 fast path
-(``dispatch_producer_v2``).  Not ported, so cut: WAN emulation, the
-fault and adversary planes, flow accounting, telemetry (with the
-execution layer's gauges and the handler's journal line) and the sim
-transport.
+(``dispatch_producer_v2``), and the telemetry seams: the handler's
+per-tag counters, drop counter and journaled receive edges, the
+execution layer's, payload store's and admission's gauges, and every
+actor's telemetry handle.  Not ported, so cut: WAN emulation, the fault
+and adversary planes, flow accounting and the sim transport.
 """
 
 from __future__ import annotations
@@ -53,11 +54,15 @@ from .wire import (
     TAG_PRODUCER,
     TAG_PRODUCER_V2,
     TAG_PROPOSE,
+    TAG_RECONFIG,
     TAG_STATE_CHUNK,
     TAG_STATE_MANIFEST,
     TAG_STATE_READ,
     TAG_STATE_REQUEST,
     TAG_SYNC_REQUEST,
+    TAG_TC,
+    TAG_TIMEOUT,
+    TAG_VOTE,
     decode_message,
     encode_ingest_ack,
     encode_state_value,
@@ -141,6 +146,13 @@ class PayloadBodies:
 
 
 class ConsensusReceiverHandler:
+    #: wire tag -> label on the received-message counters (index == tag)
+    TAG_NAMES = (
+        "propose", "vote", "timeout", "tc", "sync_request", "producer",
+        "producer_v2", "state_request", "state_manifest", "state_chunk",
+        "state_read", "reconfig",
+    )
+
     def __init__(
         self,
         tx_consensus: asyncio.Queue,
@@ -148,6 +160,7 @@ class ConsensusReceiverHandler:
         tx_producer: asyncio.Queue,
         scheme: str | None = None,
         bodies: PayloadBodies | None = None,
+        telemetry=None,
         admission=None,
         tx_state_requests: asyncio.Queue | None = None,
         tx_state_sync: asyncio.Queue | None = None,
@@ -185,6 +198,28 @@ class ConsensusReceiverHandler:
             raise ValueError(f"unknown committee scheme '{scheme}'")
         self.scheme = scheme
         self.bodies = bodies
+        # Per-tag received counters, built once at boot (telemetry on) so
+        # the dispatch hot path is one tuple index + int add, no lookups.
+        self._msg_counters = None
+        self._dropped = None
+        # flight recorder: receive edges are journaled HERE (post-decode)
+        # rather than at the socket, so each record carries the decoded
+        # (round, digest, author) — exactly what the cross-node offset
+        # estimation in benchmark/traces.py matches against send records
+        self._journal = telemetry.journal if telemetry is not None else None
+        if telemetry is not None:
+            self._msg_counters = tuple(
+                telemetry.registry.counter(
+                    "net_messages_received",
+                    "Consensus messages received, by wire tag",
+                    {**telemetry.labels, "tag": tag_name},
+                )
+                for tag_name in self.TAG_NAMES
+            )
+            self._dropped = telemetry.counter(
+                "net_messages_dropped",
+                "Received frames dropped (malformed or poisoned payload)",
+            )
 
     async def dispatch(self, writer: Writer, message: bytes) -> None:
         com = self._committee
@@ -197,7 +232,59 @@ class ConsensusReceiverHandler:
             tag, payload = decode_message(message, scheme=self.scheme)
         except SerializationError as e:
             log.warning("Dropping malformed message: %s", e)
+            if self._dropped is not None:
+                self._dropped.inc()
             return
+        if self._msg_counters is not None and tag < len(self._msg_counters):
+            self._msg_counters[tag].inc()
+        j = self._journal
+        if j is not None:
+            if tag == TAG_PROPOSE:
+                j.record(
+                    "recv.propose",
+                    payload.round,
+                    payload.digest(),
+                    str(payload.author)[:8],
+                )
+            elif tag == TAG_VOTE:
+                j.record(
+                    "recv.vote",
+                    payload.round,
+                    payload.hash,
+                    str(payload.author)[:8],
+                )
+            elif tag == TAG_TIMEOUT:
+                j.record(
+                    "recv.timeout",
+                    payload.round,
+                    None,
+                    str(payload.author)[:8],
+                )
+            elif tag == TAG_TC:
+                j.record("recv.tc", payload.round)
+            elif tag == TAG_SYNC_REQUEST:
+                j.record("recv.sync_req", 0, payload[0], str(payload[1])[:8])
+            elif tag == TAG_PRODUCER:
+                # producer-channel edge: lets traces attribute payload
+                # starvation vs consensus stall
+                j.record("recv.producer", 0, payload[0], "client")
+            elif tag == TAG_PRODUCER_V2:
+                # sampled: the batch's first digest stands for the frame
+                j.record("recv.producer", 0, payload[0][0], "client")
+            elif tag == TAG_STATE_REQUEST:
+                j.record(
+                    "recv.state_req",
+                    payload.from_round,
+                    None,
+                    str(payload.origin)[:8],
+                )
+            elif tag == TAG_RECONFIG:
+                j.record(
+                    "recv.reconfig",
+                    0,
+                    None,
+                    str(payload.sponsor)[:8],
+                )
         if tag == TAG_SYNC_REQUEST:
             await self.tx_helper.put(payload)
         elif tag == TAG_PROPOSE:
@@ -254,6 +341,8 @@ class ConsensusReceiverHandler:
                         "Dropping batched producer payload whose body "
                         "does not match its digest"
                     )
+                    if self._dropped is not None:
+                        self._dropped.inc()
                     continue
                 valid.append((digest, body))
             if self.admission is not None:
@@ -306,7 +395,15 @@ class ConsensusReceiverHandler:
         stay memoryview windows and only ACCEPTED items materialize
         bytes for the body store.  Any frame the native parser rejects
         takes the normal decode path instead of this one."""
+        if self._msg_counters is not None and TAG_PRODUCER_V2 < len(
+            self._msg_counters
+        ):
+            self._msg_counters[TAG_PRODUCER_V2].inc()
         mv = memoryview(frame)
+        j = self._journal
+        if j is not None and spans:
+            # sampled: the batch's first digest stands for the frame
+            j.record("recv.producer", 0, Digest(bytes(digests[:32])), "client")
         valid = []
         for i, (off, ln) in enumerate(spans):
             digest = Digest(bytes(digests[i * 32 : (i + 1) * 32]))
@@ -316,6 +413,8 @@ class ConsensusReceiverHandler:
                     "Dropping batched producer payload whose body "
                     "does not match its digest"
                 )
+                if self._dropped is not None:
+                    self._dropped.inc()
                 continue
             valid.append((digest, body))
         if self.admission is not None:
@@ -395,6 +494,7 @@ class Consensus:
         verifier: VerifierBackend | None = None,
         bind_host: str = "0.0.0.0",
         transport: str = "asyncio",
+        telemetry=None,
     ) -> "Consensus":
         """Spawn one node's stack.  ``transport`` is ``"asyncio"`` or
         ``"native"`` (the C++ reactor of ``network/native.py``: a
@@ -425,11 +525,60 @@ class Consensus:
             maxsize=CHANNEL_CAPACITY
         )
         tx_state_sync: asyncio.Queue = asyncio.Queue(maxsize=CHANNEL_CAPACITY)
+        if telemetry is not None:
+            telemetry.gauge(
+                "state_version",
+                "Applied state version (committed blocks folded into "
+                "the state root)",
+                fn=lambda s=state_machine: s.version,
+            )
+            telemetry.gauge(
+                "state_last_round",
+                "Round of the last block applied to the state machine",
+                fn=lambda s=state_machine: s.last_round,
+            )
+            telemetry.gauge(
+                "state_applied_payloads",
+                "Payload digests folded into the replicated ledger",
+                fn=lambda s=state_machine: s.applied_payloads,
+            )
+            telemetry.gauge(
+                "state_typed_ops",
+                "Typed user-KV operations materialized from local bodies",
+                fn=lambda s=state_machine: s.typed_ops,
+            )
+            telemetry.gauge(
+                "state_snapshots_served",
+                "Snapshot manifests served to syncing peers",
+                fn=lambda s=state_machine: s.snapshots_served,
+            )
+            telemetry.add_section("state", state_machine.stats)
+        if telemetry is not None:
+            telemetry.gauge(
+                "payload_pending_bytes",
+                "Uncommitted payload bodies held against the byte budget",
+                fn=lambda b=payload_bodies: b._pending_bytes,
+            )
+            telemetry.gauge(
+                "payload_evictions",
+                "Payload bodies evicted under budget pressure",
+                fn=lambda b=payload_bodies: b.evicted,
+            )
+            telemetry.add_section(
+                "payload_bodies",
+                lambda b=payload_bodies: {
+                    "pending": len(b._pending),
+                    "pending_bytes": b._pending_bytes,
+                    "evicted": b.evicted,
+                },
+            )
         # Ingest admission controller (ingest/admission.py): constructed
         # before the receiver so the handler can consult it from the
         # first frame; bound to the proposer's buffer once the proposer
         # exists below (until then occupancy reads 0 — boot window).
-        admission = AdmissionController()
+        admission = AdmissionController(
+            journal=telemetry.journal if telemetry is not None else None,
+        )
         tx_producer: asyncio.Queue = asyncio.Queue(maxsize=CHANNEL_CAPACITY)
         # The core's three select sources merge into ONE event queue
         # (core.make_event_channels); producers keep channel-shaped
@@ -501,6 +650,7 @@ class Consensus:
                 # mixed-scheme schedules accept the union on the wire
                 scheme=committee.wire_scheme(),
                 bodies=payload_bodies,
+                telemetry=telemetry,
                 admission=admission,
                 tx_state_requests=tx_state_requests,
                 tx_state_sync=tx_state_sync,
@@ -524,7 +674,29 @@ class Consensus:
             tx_loopback,
             parameters.sync_retry_delay,
             network=make_sender(),
+            telemetry=telemetry,
         )
+        # Per-peer network gauges at EVERY committee size (no silent
+        # caps): register_network caps the registered
+        # gauge cardinality at PEER_GAUGE_MAX_COMMITTEE and counts the
+        # rest in net_peers_elided — nothing is silently dropped.  All
+        # four senders dial the same peer set (the broadcast
+        # addresses); works for bare committees and epoch schedules
+        # alike (union view).
+        peers = None
+        if telemetry is not None:
+            peers = committee.broadcast_addresses(name)
+        if telemetry is not None:
+            telemetry.register_store(store)
+            telemetry.register_network(
+                "sync", self.synchronizer.network, peers=peers
+            )
+            telemetry.gauge(
+                "sync_expired",
+                "Parent-sync requests abandoned at the give-up deadline",
+                fn=lambda s=self.synchronizer: s.expired,
+            )
+
         self.core = Core(
             name,
             committee,
@@ -542,6 +714,7 @@ class Consensus:
             tx_commit=tx_commit,
             network=make_sender(),
             payload_bodies=payload_bodies,
+            telemetry=telemetry,
             state_machine=state_machine,
         )
         # State-sync plane (statesync.py): every node serves snapshots;
@@ -557,6 +730,7 @@ class Consensus:
             rx_requests=tx_state_requests,
             high_qc=lambda c=self.core: c.high_qc,
             network=make_sender(),
+            telemetry=telemetry,
             store=store,
         )
         sync_mode = os.environ.get("HOTSTUFF_STATE_SYNC", "auto").lower()
@@ -576,6 +750,7 @@ class Consensus:
                     # offer — its alternative is walking history it may
                     # not be able to fetch at all
                     min_lag=0 if joining else None,
+                    telemetry=telemetry,
                     store=store,
                     synchronizer=self.synchronizer,
                 )
@@ -591,6 +766,7 @@ class Consensus:
             tx_loopback=tx_loopback,
             network=make_reliable(),
             admission=admission,
+            telemetry=telemetry,
         )
         self._tasks.append(self.proposer.spawn())
         self.admission = admission
@@ -600,14 +776,59 @@ class Consensus:
             lambda p=self.proposer: len(p.pending),
             capacity=self.proposer.max_pending,
         )
+        if telemetry is not None:
+            telemetry.gauge(
+                "ingest_credit",
+                "Current admission credit window (payloads)",
+                fn=lambda a=admission: a.last_credit,
+            )
+            telemetry.gauge(
+                "ingest_accepted",
+                "Producer payloads admitted by the ingest plane",
+                fn=lambda a=admission: a.accepted_total,
+            )
+            telemetry.gauge(
+                "ingest_shed",
+                "Producer payloads shed with a typed BUSY reply",
+                fn=lambda a=admission: a.shed_total,
+            )
+            telemetry.gauge(
+                "ingest_busy_frames",
+                "Producer frames answered with a BUSY ingest ACK",
+                fn=lambda a=admission: a.busy_frames,
+            )
+            telemetry.gauge(
+                "ingest_connections",
+                "Live accepted connections on the consensus port",
+                fn=lambda r=self.receiver: getattr(r, "connections", 0),
+            )
+            # one section carries the whole admission story: the
+            # controller's own counters plus the buffer's silent-drop
+            # count (zero whenever backpressure is doing its job)
+            telemetry.add_section(
+                "ingest",
+                lambda a=admission, p=self.proposer: {
+                    **a.stats(),
+                    "drop_newest": p.drop_newest,
+                },
+            )
 
         self.helper = Helper(
             committee,
             store,
             rx_requests=tx_helper,
             network=make_sender(),
+            telemetry=telemetry,
         )
         self._tasks.append(self.helper.spawn())
+        if telemetry is not None:
+            telemetry.register_network("core", self.core.network, peers=peers)
+            telemetry.register_network(
+                "proposer", self.proposer.network, peers=peers
+            )
+            telemetry.register_network(
+                "helper", self.helper.network, peers=peers
+            )
         return self
 
     async def shutdown(self) -> None:

@@ -20,14 +20,15 @@ enter the aggregator unverified and each certificate's signature set is
 batch-verified once at quorum, on the pluggable VerifierBackend (CPU or
 the CUDA kernel behind ``make_verifier("cuda")``).
 
-A copy of ``hotstuff_tpu.consensus.core`` without the telemetry and
-adversary seams (the journal, the trace ring and the collude policy's
-shadow commits): those planes are not ported, so their branches are
-cut.  Every other path — event channels, voting, QC/TC handling,
-commit, the execution layer's apply and ``State root`` line after each
-commit, the boot-time state-sync catch-up, the persisted consensus
-state and reconfiguration with its persisted schedule links — is
-unchanged.
+A copy of ``hotstuff_tpu.consensus.core`` with its telemetry seams (the
+trace ring's marks, the flight-recorder journal's records and the core's
+gauges, each behind one ``is not None`` test) and without the adversary
+seams (the collude policy's shadow commits and the other attacks): that
+plane is not ported, so its branches are cut.  Every other path —
+event channels, voting, QC/TC handling, commit, the execution layer's
+apply and ``State root`` line after each commit, the boot-time
+state-sync catch-up, the persisted consensus state and reconfiguration
+with its persisted schedule links — is unchanged.
 """
 
 from __future__ import annotations
@@ -307,6 +308,7 @@ class Core:
         timeout_backoff: float = 2.0,
         timeout_cap_ms: int = 60_000,
         payload_bodies=None,
+        telemetry=None,
         state_machine=None,
     ):
         self.name = name
@@ -394,6 +396,49 @@ class Core:
         self._task: asyncio.Task | None = None
         # per-node logger so multi-node (in-process) runs are attributable
         self.log = logging.getLogger(f"{__name__}.{str(name)[:8]}")
+        # telemetry (telemetry/__init__.py): every hook below is guarded
+        # by `if self._trace is not None` — with telemetry off the hot
+        # path pays one attribute test and nothing else
+        self.telemetry = telemetry
+        self._trace = telemetry.trace if telemetry is not None else None
+        # flight recorder (telemetry/journal.py): same guard discipline —
+        # journaling off means one attribute test per site and no writes
+        self._journal = telemetry.journal if telemetry is not None else None
+        if telemetry is not None:
+            telemetry.gauge(
+                "core_round", "Current consensus round", fn=lambda: self.round
+            )
+            telemetry.gauge(
+                "core_epoch",
+                "Active committee epoch at the current round",
+                fn=lambda: self.committee.for_round(self.round).epoch,
+            )
+            telemetry.gauge(
+                "core_event_queue_depth",
+                "Merged core event queue occupancy",
+                fn=rx_events.qsize,
+            )
+            telemetry.gauge(
+                "core_loopback_depth",
+                "Priority loopback channel occupancy",
+                fn=rx_loopback.qsize,
+            )
+            telemetry.gauge(
+                "core_timer_resets",
+                "Round timer re-arms (rounds entered + backoff restarts)",
+                fn=lambda: self.timer.resets,
+            )
+            from .messages import QC_CACHE_STATS
+
+            # process-wide (module-level) by design: co-located nodes
+            # share the dedup the counter is meant to surface
+            telemetry.gauge(
+                "qc_verify_cache_hit",
+                "QC verifications skipped via the per-digest verify "
+                "memo (same QC via Propose / sync reply / TC high-QC)",
+                fn=lambda: QC_CACHE_STATS["hits"],
+            )
+            telemetry.add_section("aggregator", self.aggregator.stats)
 
     # ---- persistence (fork additions, core.rs:76-86, 112-153) --------------
 
@@ -511,6 +556,10 @@ class Core:
         for b, cqc in zip(reversed(to_commit), reversed(cert_qcs)):
             await self.tx_commit.put(b)
             committed_payloads.update(b.payloads)
+            if self._trace is not None:
+                self._trace.mark_committed(b.digest().to_bytes(), b.round)
+            if self._journal is not None:
+                self._journal.record("commit", b.round, b.digest())
             # NOTE: this log entry is used to compute performance.
             # One info line per block in the chain walk — a DELIBERATE
             # divergence from the reference, which info-logs only the
@@ -522,6 +571,8 @@ class Core:
                 # execution layer: apply in commit order
                 root = self.state.apply_block(b)
                 if root is not None:
+                    if self._journal is not None:
+                        self._journal.record("state.apply", b.round, b.digest())
                     # NOTE: this log entry is used to compute performance.
                     self.log.info(
                         "State root %d -> %s (round %d)",
@@ -591,6 +642,9 @@ class Core:
             "round %d (margin %d)",
             block.round, op.new_committee.epoch, activation, op.margin,
         )
+        if self._journal is not None:
+            self._journal.record("reconfig.commit", block.round, block.digest())
+            self._journal.flush()
         # pre-warm native verifier key tables for the incoming epoch so
         # the first boundary certificate pays no key-parsing latency
         pre = getattr(self.verifier, "precompute", None)
@@ -655,6 +709,9 @@ class Core:
                 break
         # NOTE: this log entry is used by the epoch-agreement invariant.
         self.log.info("Epoch %d activated at round %d", epoch, reported_round)
+        if self._journal is not None:
+            self._journal.record("reconfig.activate", self.round)
+            self._journal.flush()
         if (
             self._retire_after is None
             and self.committee.for_round(self.round).stake(self.name) <= 0
@@ -687,6 +744,13 @@ class Core:
         if via_tc:
             self._consecutive_tcs += 1
             snap = self._consecutive_tcs == 1
+            if self._trace is not None:
+                self._trace.mark_tc_advance()
+            if self._journal is not None:
+                # view change: force-flush so the record survives even if
+                # the node wedges in the new view
+                self._journal.record("tc", round_)
+                self._journal.flush()
         else:
             self._consecutive_tcs = 0
             snap = True
@@ -698,6 +762,8 @@ class Core:
         self._saw_proposal = False
         self._maybe_activate_epoch()
         self.state_changed = True
+        if self._journal is not None:
+            self._journal.record("round.enter", self.round)
         self.log.debug("Moved to round %d", self.round)
         self.aggregator.cleanup(self.round)
         # Tell the proposer the chain moved on, so a make deferred while
@@ -726,6 +792,16 @@ class Core:
         )
 
     def _process_qc(self, qc: QC) -> None:
+        if self._trace is not None and not qc.is_genesis():
+            self._trace.mark_qc_formed(qc.hash.to_bytes())
+        # journal only NEW high QCs: every proposal/timeout re-carries
+        # older QCs and re-recording them would swamp the timeline
+        if (
+            self._journal is not None
+            and not qc.is_genesis()
+            and qc.round > self.high_qc.round
+        ):
+            self._journal.record("qc", qc.round, qc.hash)
         self._advance_round(qc.round)
         self._update_high_qc(qc)
 
@@ -741,6 +817,11 @@ class Core:
         qc = self.aggregator.add_vote(vote, self.round, sig_verified=sig_verified)
         if qc is not None:
             self.log.debug("Assembled %r", qc)
+            # qc.form marks the FORMATION moment at the assembling node
+            # (quorum-th vote folded in), distinct from the ``qc`` edge
+            # which marks high-QC adoption
+            if self._journal is not None and not qc.is_genesis():
+                self._journal.record("qc.form", qc.round, qc.hash)
             self._process_qc(qc)
             if self.name == self.leader_elector.get_leader(self.round):
                 await self._generate_proposal(None)
@@ -831,6 +912,13 @@ class Core:
             return
         self.log.warning("Timeout reached for round %d", self.round)
         self.local_timeouts += 1
+        if self._trace is not None:
+            self._trace.mark_timeout()
+        if self._journal is not None:
+            # timeout: a force-flush point (the whole point of a flight
+            # recorder is surviving the interesting failures)
+            self._journal.record("timeout", self.round)
+            self._journal.flush()
         self._increase_last_voted_round(self.round)
         # durable before the Timeout broadcast, same safety argument as
         # in _make_vote
@@ -878,6 +966,8 @@ class Core:
             # the committee is live — timeouts from here on are real
             # liveness signals, not idle pacing (_saw_proposal)
             self._saw_proposal = True
+        if self._trace is not None:
+            self._trace.mark_proposed(block.digest().to_bytes(), block.round)
 
         # b0 <- |qc0; b1| <- |qc1; block|: suspend if ancestors are missing
         # (the synchronizer will re-inject the block via loopback).  The
@@ -930,7 +1020,16 @@ class Core:
         vote = await self._make_vote(block)
         if vote is not None:
             self.log.debug("Created %r", vote)
+            if self._trace is not None:
+                self._trace.mark_first_vote(block.digest().to_bytes())
             next_leader = self.leader_elector.get_leader(self.round + 1)
+            if self._journal is not None:
+                self._journal.record(
+                    "vote.send",
+                    block.round,
+                    block.digest(),
+                    str(next_leader)[:8],
+                )
             if next_leader == self.name:
                 # own vote: we just signed it — no verification needed
                 await self._handle_vote(vote, sig_verified=True)
@@ -980,6 +1079,8 @@ class Core:
             len(op.new_committee.authorities),
             op.margin,
         )
+        if self._journal is not None:
+            self._journal.record("reconfig.submit", self.round)
         await self.tx_proposer.put(ProposerMessage.reconfig(op))
 
     # ---- the select loop -----------------------------------------------------
@@ -1360,6 +1461,9 @@ class Core:
                         "Retired at round %d (grace window complete)",
                         self.round,
                     )
+                    if self._journal is not None:
+                        self._journal.record("reconfig.retire", self.round)
+                        self._journal.flush()
                 if self.state_changed:
                     await self.persist_state()
                     self.state_changed = False

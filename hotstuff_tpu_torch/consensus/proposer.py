@@ -28,8 +28,10 @@ reference's scheme produces):
   path; consensus paces itself to the payload arrival rate instead of
   spinning empty rounds into view changes.
 
-A copy of ``hotstuff_tpu.consensus.proposer`` without the telemetry and
-adversary seams (neither plane is ported).
+A copy of ``hotstuff_tpu.consensus.proposer`` with its telemetry seams
+(payload wait, deferred makes, the buffer gauges and the ``propose`` /
+``payload.first`` journal records) and without the adversary seams
+(that plane is not ported).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from collections import OrderedDict
 
 from ..crypto import Digest, PublicKey, SignatureService
 from ..network import ReliableSender
+from ..utils.clock import default_clock
 from .config import Committee
 from .core import ProposerMessage
 from .messages import MAX_BLOCK_PAYLOADS, QC, TC, Block, Round
@@ -85,6 +88,7 @@ class Proposer:
         tx_loopback: asyncio.Queue,
         network: ReliableSender | None = None,
         admission=None,
+        telemetry=None,
     ):
         self.name = name
         # Ingest admission controller (ingest/admission.py): fed the
@@ -135,6 +139,36 @@ class Proposer:
         self.network = network if network is not None else ReliableSender()
         self._task: asyncio.Task | None = None
         self.log = logging.getLogger(f"{__name__}.{str(name)[:8]}")
+        # Telemetry (optional): payload buffer dwell time + buffer
+        # occupancy.  With telemetry on, `pending` values hold the
+        # arrival timestamp (read at make time); off, they stay None —
+        # no per-payload float allocation.
+        self.telemetry = telemetry
+        self._payload_wait = None
+        self._deferred_makes = None
+        self._journal = telemetry.journal if telemetry is not None else None
+        if telemetry is not None:
+            self._payload_wait = telemetry.trace.payload_wait
+            self._deferred_makes = telemetry.counter(
+                "proposer_deferred_makes",
+                "Makes deferred for lack of buffered payloads",
+            )
+            telemetry.gauge(
+                "proposer_pending_payloads",
+                "Payload digests buffered for proposal",
+                fn=lambda: len(self.pending),
+            )
+            telemetry.gauge(
+                "proposer_inflight_proposals",
+                "Own proposals whose commit/orphan fate is undecided",
+                fn=lambda: len(self.inflight),
+            )
+            telemetry.gauge(
+                "proposer_drop_newest",
+                "Payloads silently dropped at the full buffer "
+                "(admission control should keep this at zero)",
+                fn=lambda: self.drop_newest,
+            )
 
     def _buffer_payload(self, digest: Digest) -> None:
         if digest in self.seen:
@@ -145,7 +179,10 @@ class Proposer:
         self.seen[digest] = None
         while len(self.seen) > SEEN_CAP:
             self.seen.popitem(last=False)
-        self.pending[digest] = None
+        if self._payload_wait is not None:
+            self.pending[digest] = default_clock().monotonic()
+        else:
+            self.pending[digest] = None
 
     async def _make_block(
         self, round_: Round, qc: QC, tc: TC | None, allow_empty: bool = False
@@ -163,6 +200,8 @@ class Proposer:
             # wedging the round until the view-change timer (see module
             # docstring).  A newer Make supersedes this one.
             self.deferred = ProposerMessage.make(round_, qc, tc)
+            if self._deferred_makes is not None:
+                self._deferred_makes.inc()
             self.log.info("Round: %d, no payloads yet - proposal deferred", round_)
             return
         # allow_empty: the core signalled that uncommitted payload blocks
@@ -170,9 +209,17 @@ class Proposer:
         # commit now rather than on the producer's next burst.
         self.last_made_round = round_
         take = min(len(self.pending), MAX_BLOCK_PAYLOADS)
-        payloads = tuple(
-            self.pending.popitem(last=False)[0] for _ in range(take)
-        )
+        if self._payload_wait is not None and take:
+            now = default_clock().monotonic()
+            popped = [self.pending.popitem(last=False) for _ in range(take)]
+            for _, arrived in popped:
+                if arrived:  # re-buffered orphans may carry None
+                    self._payload_wait.observe(now - arrived)
+            payloads = tuple(d for d, _ in popped)
+        else:
+            payloads = tuple(
+                self.pending.popitem(last=False)[0] for _ in range(take)
+            )
         if payloads:
             self.inflight[round_] = payloads
             while len(self.inflight) > MAX_INFLIGHT:
@@ -201,6 +248,19 @@ class Proposer:
             ",".join(str(p) for p in block.payloads),
             block.digest(),
         )
+        if self._journal is not None:
+            # the propose record is the timeline anchor traces.py hangs
+            # every recv.propose edge off — journaled just before the
+            # broadcast leaves this node
+            self._journal.record("propose", block.round, block.digest())
+            if block.payloads:
+                # producer-channel edge: pairs with the receiver's
+                # recv.producer record so traces can measure payload
+                # wait (client frame -> proposed) and tell payload
+                # starvation from a consensus stall
+                self._journal.record(
+                    "payload.first", block.round, block.payloads[0]
+                )
         # Broadcast to the union of epochs (committee.broadcast_addresses
         # is the union on a CommitteeSchedule — members of the adjacent
         # epoch need boundary blocks too); ACK stake counts only under

@@ -31,9 +31,9 @@ arrive from a newer version.  Duplicates are idempotent puts; anything
 missed at rounds beyond the manifest cursor is re-materialized by the
 normal apply path.
 
-A copy of ``hotstuff_tpu.consensus.statesync`` without the journal and
-the adversary plane's seams (the sync-withhold attack and prey
-sensing), which the port does not have.  Requests, manifests, chunks,
+A copy of ``hotstuff_tpu.consensus.statesync`` with its flight-recorder
+journal records and without the adversary plane's seams (the
+sync-withhold attack and prey sensing), which the port does not have.  Requests, manifests, chunks,
 the acceptance rule, the re-ask and the adoption are unchanged.  Added
 to the copy: ``StateSyncClient.outcome``, what the bootstrap saw and
 did, for callers that report it.
@@ -97,6 +97,7 @@ class StateSyncServer:
         rx_requests: asyncio.Queue,
         high_qc,
         network: SimpleSender | None = None,
+        telemetry=None,
         store=None,
     ):
         self.name = name
@@ -109,6 +110,7 @@ class StateSyncServer:
         # links served in the manifest so a joiner can verify epoch
         # changes it never witnessed (docs/RECONFIG.md)
         self.store = store
+        self._journal = telemetry.journal if telemetry is not None else None
         self._task: asyncio.Task | None = None
         # per-node logger suffix: multi-node harnesses (sim, local
         # bench) route records to the right node-*.log by logger name
@@ -160,6 +162,10 @@ class StateSyncServer:
                     links=await self._schedule_links(),
                 )
                 self.state.snapshots_served += 1
+                if self._journal is not None:
+                    self._journal.record(
+                        "sync.serve", m.last_round, None, str(req.origin)[:8]
+                    )
             await self.network.send(address, reply)
 
     def spawn(self) -> asyncio.Task:
@@ -191,6 +197,7 @@ class StateSyncClient:
         min_lag: int | None = None,
         manifest_wait_s: float | None = None,
         chunk_wait_s: float = SYNC_CHUNK_WAIT_S,
+        telemetry=None,
         store=None,
         synchronizer=None,
     ):
@@ -218,6 +225,7 @@ class StateSyncClient:
         self.min_lag = min_lag
         self.manifest_wait_s = manifest_wait_s
         self.chunk_wait_s = chunk_wait_s
+        self._journal = telemetry.journal if telemetry is not None else None
         self._qc_cache: set = set()
         # what the last bootstrap saw and did (None before one ran)
         self.outcome: dict | None = None
@@ -269,6 +277,7 @@ class StateSyncClient:
                 self.committee,
                 self.verifier,
                 qc_cache=self._qc_cache,
+                journal=self._journal,
                 log=self.log,
             )
         except InvalidReconfig as e:
@@ -338,6 +347,13 @@ class StateSyncClient:
             if tag != TAG_STATE_MANIFEST:
                 continue  # stray chunk from a previous attempt
             seen += 1
+            if self._journal is not None:
+                self._journal.record(
+                    "sync.manifest",
+                    payload.last_round,
+                    None,
+                    str(payload.origin)[:8],
+                )
             # schedule links first: _acceptable resolves the origin and
             # verifies the anchoring QC against the (possibly extended)
             # schedule, so a joiner must splice before judging the offer
@@ -405,6 +421,8 @@ class StateSyncClient:
                 continue
             pending.discard(payload.index)
             entries.extend(payload.entries)
+            if self._journal is not None:
+                self._journal.record("sync.chunk", payload.index)
         if pending:
             self.log.warning(
                 "State sync abandoned: %d/%d chunks missing from %s",
@@ -430,6 +448,8 @@ class StateSyncClient:
                 self.synchronizer.join_floor, best.last_round
             )
         elapsed = default_clock().monotonic() - started
+        if self._journal is not None:
+            self._journal.record("sync.adopt", best.last_round)
         outcome.update(
             adopted=True,
             version=best.version,

@@ -60,8 +60,11 @@ Zero-copy ingest: receivers note vote frames to a native wave packer
 whose claims are exactly the packed prefix adopts the arena the packer
 filled (``AdoptedWave``), staged by ``verify_packed`` from ``frombuffer``
 views on the device route, or verified by one native batch equation from
-the arena's column addresses on the CPU route.  Not ported: the BLS
-aggregate-preferring route and the telemetry registry's instruments.
+the arena's column addresses on the CPU route.  With telemetry on
+(``hotstuff_tpu_torch.telemetry``) the service registers the reference's
+instruments: claims submitted and unique, the wave-size histogram, the
+device and host wall seconds, the waves a route and the ingest
+counters.  Not ported: the BLS aggregate-preferring route.
 """
 
 from __future__ import annotations
@@ -765,6 +768,83 @@ class AsyncVerifyService:
         self.zero_copy_sigs = 0
         self.fallback_waves = 0
         self._next_stats_log = 0.0
+        # Telemetry instruments, labelled by the service tag and the
+        # backend kind.  All None when telemetry is off — every hot-path
+        # touch below is guarded on ``_tel_wave`` (or its own
+        # instrument) so the disabled cost is one attribute test a wave.
+        self._tel_wave = None
+        self._tel_claims_submitted = None
+        self._tel_claims_unique = None
+        self._tel_device_wall = None
+        self._tel_host_wall = None
+        self._tel_route = None
+        self._tel_zero_copy = None
+        self._tel_fallback = None
+        from .. import telemetry
+
+        if telemetry.enabled():
+            reg = telemetry.registry()
+            # the backend label is the kind without its torch device
+            # (``cuda`` for ``cuda@cuda:0``); the svc tag keeps the rest
+            labels = {"svc": self._stats_tag, "backend": kind.partition("@")[0]}
+            self._tel_claims_submitted = reg.counter(
+                "verify_claims_submitted",
+                "Verification claims submitted (pre-dedup, all cores)",
+                labels,
+            )
+            self._tel_claims_unique = reg.counter(
+                "verify_claims_unique",
+                "Unique claims actually evaluated after cross-core dedup",
+                labels,
+            )
+            self._tel_wave = reg.histogram(
+                "verify_wave_sigs",
+                "Signatures per coalesced dispatch wave",
+                labels,
+                bounds=telemetry.SIZE_BOUNDS,
+            )
+            self._tel_device_wall = reg.float_counter(
+                "verify_device_wall_seconds",
+                "Wall seconds spent inside device verify dispatches",
+                labels,
+            )
+            self._tel_host_wall = reg.float_counter(
+                "verify_host_wall_seconds",
+                "Wall seconds spent in host (CPU) claim evaluation",
+                labels,
+            )
+            # "mesh" stays 0 until the mesh verifier is ported: the
+            # family carries the reference's five routes
+            self._tel_route = {
+                r: reg.counter(
+                    "verify_route",
+                    "Dispatch waves by routing decision",
+                    {**labels, "route": r},
+                )
+                for r in ("device", "mesh", "cpu", "probe", "wait")
+            }
+            self._tel_zero_copy = reg.counter(
+                "ingest_zero_copy_waves",
+                "Waves adopted straight from a native ingest arena",
+                labels,
+            )
+            self._tel_fallback = reg.counter(
+                "ingest_fallback_waves",
+                "Vote-overlapping waves that fell back to Python flatten",
+                labels,
+            )
+            reg.gauge(
+                "verify_pending_batches",
+                "Submissions queued for the next dispatch wave",
+                labels,
+                fn=lambda: len(self._pending),
+            )
+            reg.gauge(
+                "verify_inflight_waves",
+                "Device dispatch waves currently in flight",
+                labels,
+                fn=lambda: len(self._inflight),
+            )
 
     @property
     def wave_buckets(self) -> tuple[int, ...]:
@@ -858,7 +938,18 @@ class AsyncVerifyService:
         if not claims:
             return []
         if not self.device:
-            return eval_claims_sync(self.backend, claims)
+            if self._tel_wave is None:
+                return eval_claims_sync(self.backend, claims)
+            # inline services have no dedup stage: submitted == unique
+            t0 = time.perf_counter()
+            out = eval_claims_sync(self.backend, claims)
+            self._tel_host_wall.add(time.perf_counter() - t0)
+            self._tel_claims_submitted.inc(len(claims))
+            self._tel_claims_unique.inc(len(claims))
+            self._tel_wave.observe(
+                sum(claim_sig_count(c) for c in claims)
+            )
+            return out
 
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
@@ -1106,6 +1197,8 @@ class AsyncVerifyService:
             rec.add("dispatch.wall", t_enter, end_ns - t_enter)
             if end_holder is not None:
                 end_holder.append(end_ns)
+        if self._tel_device_wall is not None:
+            self._tel_device_wall.add(wall)
         ewma = self._device_ewma_s
         # guarded-by: gil -- written on the slot thread, read by the
         # loop-side router (_route_device/_deadline_s); a float rebind
@@ -1182,6 +1275,10 @@ class AsyncVerifyService:
                 self.agg_claims += len(agg_in_wave)
                 self.agg_sigs += sum(len(c[3]) for c in agg_in_wave)
             self.dispatches += 1
+            if self._tel_wave is not None:
+                self._tel_claims_submitted.inc(sum(len(cs) for cs, _ in batch))
+                self._tel_claims_unique.inc(len(claims))
+                self._tel_wave.observe(n_sigs)
 
             # zero-copy adoption: if a receiver packed this wave's votes
             # into a staging arena and the claim stream matches the
@@ -1197,8 +1294,12 @@ class AsyncVerifyService:
                 if adopted is not None:
                     self.zero_copy_waves += 1
                     self.zero_copy_sigs += n_sigs
+                    if self._tel_zero_copy is not None:
+                        self._tel_zero_copy.inc()
                 elif ing.fallback_waves != fb_before:
                     self.fallback_waves += 1
+                    if self._tel_fallback is not None:
+                        self._tel_fallback.inc()
             try:
                 with _spans.span("route.decide"):
                     route = self._route_device(n_sigs)
@@ -1211,6 +1312,8 @@ class AsyncVerifyService:
                     if not waited:
                         waited = True
                         self.pipeline_waits += 1
+                        if self._tel_route is not None:
+                            self._tel_route["wait"].inc()
                     t_w = (
                         time.perf_counter_ns() if rec is not None else None
                     )
@@ -1222,6 +1325,8 @@ class AsyncVerifyService:
                             time.perf_counter_ns() - t_w,
                         )
                     route = self._route_device(n_sigs)
+                if self._tel_route is not None:
+                    self._tel_route[route].inc()
                 dispatch_claims = claims
                 if (
                     route in ("device", "probe")
@@ -1317,7 +1422,10 @@ class AsyncVerifyService:
         for cs, fut in batch:
             todo = [c for c in cs if c not in memo]
             if todo:
+                t0 = time.perf_counter()
                 results = eval_claims_sync(cpu, todo)
+                if self._tel_host_wall is not None:
+                    self._tel_host_wall.add(time.perf_counter() - t0)
                 for c, r in zip(todo, results):
                     memo[c] = r
             if not fut.done():
@@ -1330,7 +1438,10 @@ class AsyncVerifyService:
         claim (no b"".join flatten, no per-claim re-verify), then
         verdicts fan out per submission exactly like _serve_cpu."""
         cpu = getattr(self.backend, "cpu_backend", self.backend)
+        t0 = time.perf_counter()
         results = eval_claims_arena(cpu, wave, claims)
+        if self._tel_host_wall is not None:
+            self._tel_host_wall.add(time.perf_counter() - t0)
         memo = dict(zip(claims, results))
         for cs, fut in batch:
             if not fut.done():

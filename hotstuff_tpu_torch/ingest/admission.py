@@ -26,8 +26,8 @@ EWMA, and the decision itself depends only on the three inputs above —
 the shed/accept split for a given state is exactly reproducible (the
 unit tests drive it with a fake clock).
 
-A copy of ``hotstuff_tpu.ingest.admission`` without the flight-recorder
-journal (telemetry is not ported).
+A copy of ``hotstuff_tpu.ingest.admission``, its flight-recorder
+journal records included.
 
 Env knobs (read once at construction, env-first like every other knob):
   HOTSTUFF_INGEST_WATERMARK   fraction of capacity where shedding
@@ -50,6 +50,8 @@ RETRY_MIN_MS = 10
 RETRY_MAX_MS = 5_000
 #: commit-rate EWMA time constant (s)
 RATE_TAU_S = 2.0
+#: journal sampling: one ingest.credit record per this many decisions
+CREDIT_SAMPLE_EVERY = 64
 
 
 class Decision(NamedTuple):
@@ -72,6 +74,7 @@ class AdmissionController:
         watermark: float | None = None,
         horizon_ms: float | None = None,
         time_fn: Callable[[], float] = time.monotonic,
+        journal=None,
     ):
         if watermark is None:
             watermark = _env_float("HOTSTUFF_INGEST_WATERMARK", 0.75)
@@ -81,6 +84,7 @@ class AdmissionController:
         self.watermark = min(1.0, max(0.01, watermark))
         self.horizon_s = max(0.001, horizon_ms / 1e3)
         self._time = time_fn
+        self.journal = journal
         self._occupancy: Callable[[], int] | None = None
         # commit-drain EWMA (payloads/s) + its last feed time
         self.commit_rate = 0.0
@@ -150,6 +154,12 @@ class AdmissionController:
         self.last_credit = credit
         if shed:
             self.busy_frames += 1
+        j = self.journal
+        if j is not None:
+            if shed:
+                j.record("ingest.shed", dur_ns=shed)
+            if self.decisions % CREDIT_SAMPLE_EVERY == 1:
+                j.record("ingest.credit", dur_ns=credit)
         return Decision(accepted, shed, credit, retry_after_ms)
 
     def stats(self) -> dict:

@@ -19,10 +19,17 @@ kernels as their plain PyTorch versions.  ``--transport`` is ``asyncio``
 ``-v`` repeats raise verbosity; the millisecond log format is the
 harness's contract (``benchmark/logs.py``).
 
-Flags of planes the port does not have yet — ``--metrics-port``,
-``--journal-dir``, ``--fault-plane``, ``--adversary``, ``--health``,
-``--mesh-devices`` and ``--scheme bls`` — are accepted by the parser and
-refused before boot with exit code 2.
+``--metrics-port N`` (or ``HOTSTUFF_METRICS_PORT``) turns telemetry on
+and serves ``/metrics``, ``/snapshot``, ``/trace`` and ``/delta`` on port
+N (0 = an ephemeral port, logged as ``Telemetry /metrics endpoint
+listening on port P``); ``--journal-dir D`` turns the flight recorder on
+and writes every node's JSONL ring segments under D.  With telemetry on,
+every node logs a ``Telemetry snapshot: {json}`` line every 5 s;
+``HOTSTUFF_WORK_STATS=1`` adds the ``Work stats: {json}`` line.
+
+Flags of planes the port does not have yet — ``--fault-plane``,
+``--adversary``, ``--health``, ``--mesh-devices`` and ``--scheme bls`` —
+are accepted by the parser and refused before boot with exit code 2.
 
 ``run`` and ``run-many`` stop cleanly on SIGTERM or SIGINT: every node
 shuts down, and the process logs the wave service's last stats line and,
@@ -153,8 +160,6 @@ def _freeze_boot_objects():
 
 #: flags whose plane is not ported yet: (argparse dest, the flag)
 _UNPORTED_FLAGS = (
-    ("metrics_port", "--metrics-port"),
-    ("journal_dir", "--journal-dir"),
     ("fault_plane", "--fault-plane"),
     ("adversary", "--adversary"),
     ("health", "--health"),
@@ -174,6 +179,33 @@ def _unported(args) -> str | None:
     return None
 
 
+def _metrics_port(args) -> int | None:
+    """The /metrics port: ``--metrics-port`` first, then the
+    HOTSTUFF_METRICS_PORT env knob; None = endpoint off (default)."""
+    port = getattr(args, "metrics_port", None)
+    if port is not None:
+        return port
+    env = os.environ.get("HOTSTUFF_METRICS_PORT", "").strip()
+    if not env:
+        return None
+    try:
+        return int(env)
+    except ValueError:
+        log.warning("ignoring non-integer HOTSTUFF_METRICS_PORT=%r", env)
+        return None
+
+
+def _apply_journal_dir(args) -> None:
+    """Force-enable the flight recorder when ``--journal-dir`` was given
+    (the env knobs HOTSTUFF_JOURNAL / HOTSTUFF_JOURNAL_DIR work without
+    the flag; off by default)."""
+    jdir = getattr(args, "journal_dir", None)
+    if jdir:
+        from .. import telemetry
+
+        telemetry.set_journal_dir(jdir)
+
+
 def _apply_env_bridges(args) -> None:
     """Bridge the flags of ported machinery into their env-first homes,
     so the wave service, the proposer and every booted node (in this
@@ -188,7 +220,9 @@ def _apply_env_bridges(args) -> None:
       -> HOTSTUFF_INGEST_WATERMARK (shed threshold as a fraction of it);
     - ``--fresh-state`` -> HOTSTUFF_FRESH_STATE (discard every persisted
       store; normally unnecessary, as the committee-hash provenance check
-      already rejects another committee's state)."""
+      already rejects another committee's state);
+    - ``--journal-dir D`` -> the flight recorder on, into D."""
+    _apply_journal_dir(args)
     if getattr(args, "profile", False):
         from ..telemetry import spans
 
@@ -244,17 +278,28 @@ def _log_launches(what: str) -> None:
         )
 
 
-async def _serve_until_stopped(nodes, boot) -> None:
+async def _serve_until_stopped(nodes, boot, metrics_port=None) -> None:
     """Boot nodes with ``boot`` (an async callable appending to
     ``nodes``), then serve them until they retire or the process gets
-    SIGTERM/SIGINT; either way every node shuts down."""
+    SIGTERM/SIGINT; either way every node shuts down.  ``metrics_port``
+    (None = off) starts the telemetry endpoint before the first node
+    boots — a configured endpoint turns collection on, and nodes pick
+    telemetry up only at boot — and stops it after the last one.
+
+    The flight recorder's crash hooks (``telemetry/journal.py``) wrap
+    the loop's SIGTERM/SIGINT handlers at the first journal: a signal
+    flushes every journal, then wakes the loop as before."""
+    from .. import telemetry
+
     loop = asyncio.get_running_loop()
     task = asyncio.current_task()
     for sig in (signal.SIGTERM, signal.SIGINT):
         loop.add_signal_handler(sig, task.cancel)
     probe = None
     service = None
+    server = None
     try:
+        server = await telemetry.maybe_start_server(metrics_port)
         await boot()
         _freeze_boot_objects()
         service = _wave_service(nodes)
@@ -271,6 +316,8 @@ async def _serve_until_stopped(nodes, boot) -> None:
             probe.cancel()
         await asyncio.gather(*(node.shutdown() for node in nodes))
         await _report_verifier(service)
+        if server is not None:
+            await server.stop()
         for sig in (signal.SIGTERM, signal.SIGINT):
             loop.remove_signal_handler(sig)
 
@@ -313,7 +360,7 @@ async def _run_node(args) -> None:
             )
         )
 
-    await _serve_until_stopped(nodes, boot)
+    await _serve_until_stopped(nodes, boot, _metrics_port(args))
 
 
 async def _submit_reconfig(args) -> int:
@@ -479,12 +526,12 @@ async def _run_many(args) -> None:
                 )
             )
 
-    await _serve_until_stopped(nodes, boot)
+    await _serve_until_stopped(nodes, boot, _metrics_port(args))
 
 
 async def _deploy_testbed(
     nodes: int, base_port: int, verifier: str, device=None,
-    transport: str = "asyncio",
+    transport: str = "asyncio", metrics_port: int | None = None,
 ) -> None:
     """In-process local testbed (reference main.rs:102-148): n fresh
     keypairs, committee.json + node_i.json on disk, every node spawned as
@@ -522,7 +569,7 @@ async def _deploy_testbed(
             "Deployed %d-node local testbed on base port %d", nodes, base_port
         )
 
-    await _serve_until_stopped(booted, boot)
+    await _serve_until_stopped(booted, boot, metrics_port)
 
 
 def _add_node_flags(p: argparse.ArgumentParser) -> None:
@@ -585,10 +632,24 @@ def _add_node_flags(p: argparse.ArgumentParser) -> None:
         "by default matching state is recovered and mismatched-committee "
         "state is rejected by the provenance check)",
     )
+    p.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        help="serve Prometheus /metrics on this port and enable telemetry "
+        "(0 = ephemeral port, logged at startup; default: off, or the "
+        "HOTSTUFF_METRICS_PORT env knob)",
+    )
+    p.add_argument(
+        "--journal-dir",
+        default=None,
+        help="enable the consensus flight recorder and write its JSONL "
+        "ring segments under this directory (default: off, or the "
+        "HOTSTUFF_JOURNAL / HOTSTUFF_JOURNAL_DIR env knobs; merge "
+        "journals with `python -m benchmark traces`)",
+    )
     # planes the port does not have yet: parsed, then refused
     not_ported = "not ported yet: refused"
-    p.add_argument("--metrics-port", type=int, default=None, help=not_ported)
-    p.add_argument("--journal-dir", default=None, help=not_ported)
     p.add_argument("--fault-plane", default=None, help=not_ported)
     p.add_argument("--adversary", default=None, help=not_ported)
     p.add_argument("--health", action="store_true", help=not_ported)
@@ -712,7 +773,7 @@ def main(argv=None) -> int:
         asyncio.run(
             _deploy_testbed(
                 args.nodes, args.base_port, args.verifier, args.device,
-                args.transport,
+                args.transport, _metrics_port(args),
             )
         )
         return 0

@@ -14,9 +14,12 @@ the device kind ``"cuda"``, which materializes the port's
 ``gpu.ed25519.BatchVerifier(min_device_batch=64)``; ``"cpu"`` is the
 host verifier.  The mesh kinds (``"tpu-sharded"``, ``"mesh"``) and BLS
 device verifiers are not ported yet and raise, and so does a
-mixed-scheme schedule (its dual verifier needs BLS).  The node's
-telemetry, flight-recorder journal, work-stats and health branches are
-not ported either: their planes come with the port's telemetry.  Added
+mixed-scheme schedule (its dual verifier needs BLS).  ``Node.new`` has
+the reference's telemetry, flight-recorder journal and work-stats
+branches (a ``NodeTelemetry`` handle when telemetry is on, a ``Journal``
+when journaling is, a ``CountingVerifier`` and the ``Work stats:`` probe
+with ``HOTSTUFF_WORK_STATS``, the ``Telemetry snapshot:`` logger); its
+health branch comes with the health monitor.  Added
 to the copy: ``LazyDeviceVerifier.routes``, the inline batches each
 route took, and ``_DeviceDispatch.verify_packed``, so a wave adopted
 from an ingest arena reaches the kernel from the arena's columns.
@@ -234,6 +237,9 @@ class Node:
         self.commit: asyncio.Queue | None = None
         self.consensus: Consensus | None = None
         self.store: Store | None = None
+        self._journal = None
+        self._stats_task: asyncio.Task | None = None
+        self._snapshot_task: asyncio.Task | None = None
 
     @classmethod
     async def new(
@@ -376,6 +382,45 @@ class Node:
             )
             verifier.warmup(batch=wave)
 
+        from .. import telemetry
+
+        tel = telemetry.for_node(str(secret.name)[:8])
+        # Flight recorder (telemetry/journal.py): must attach BEFORE
+        # Consensus.spawn — the consensus actors capture
+        # ``telemetry.journal`` at construction time.
+        jdir = telemetry.journal_dir(store_path)
+        if tel is not None and jdir:
+            from ..telemetry.journal import Journal
+
+            self._journal = Journal(tel.node, jdir)
+            tel.attach_journal(self._journal)
+            if telemetry.spans.enabled():
+                # verify-pipeline spans render as one per-process track
+                # in the merged trace (first journaled node wins)
+                telemetry.spans.attach_journal(self._journal)
+            log.info("Flight recorder journaling to %s", jdir)
+        stats_task = None
+        probe_running = False
+        if tel is not None or os.environ.get("HOTSTUFF_WORK_STATS"):
+            # per-node work accounting for the committee-scaling
+            # decomposition (utils/workstats.py): counted verifier +
+            # loop-lag probe, one parseable log line every few seconds.
+            # Telemetry reuses the same counted-verifier wrapper; the
+            # snapshot document is a superset of the Work stats one.
+            from ..utils.workstats import CountingVerifier, WorkStats, run_probe
+
+            stats = WorkStats()
+            verifier = CountingVerifier(verifier, stats)
+            if os.environ.get("HOTSTUFF_WORK_STATS"):
+                probe_running = True
+                stats_task = asyncio.ensure_future(
+                    run_probe(
+                        stats, logging.getLogger(f"workstats.{secret.name}")
+                    )
+                )
+            if tel is not None:
+                tel.attach_workstats(stats)
+
         self.commit = asyncio.Queue(maxsize=self.CHANNEL_CAPACITY)
         self.consensus = await Consensus.spawn(
             secret.name,
@@ -387,7 +432,22 @@ class Node:
             verifier=verifier,
             bind_host=bind_host,
             transport=transport,
+            telemetry=tel,
         )
+        self._stats_task = stats_task
+        if tel is not None:
+            from ..telemetry.exporter import run_snapshot_logger
+
+            # the snapshot logger samples loop lag only when no workstats
+            # probe is doing it already (double-counting would halve the
+            # reported mean)
+            self._snapshot_task = asyncio.ensure_future(
+                run_snapshot_logger(
+                    tel,
+                    logging.getLogger(f"telemetry.{secret.name}"),
+                    sample_lag=not probe_running,
+                )
+            )
         log.info("Node %s successfully booted", secret.name)
         return self
 
@@ -424,9 +484,16 @@ class Node:
         log.info("Node retired cleanly")
 
     async def shutdown(self) -> None:
+        for task in (self._stats_task, self._snapshot_task):
+            if task is not None:
+                task.cancel()
+        self._stats_task = self._snapshot_task = None
         if self.consensus is not None:
             await self.consensus.shutdown()
             self.consensus = None
+        if self._journal is not None:
+            self._journal.close()
+            self._journal = None
         if self.store is not None:
             self.store.close()
             self.store = None

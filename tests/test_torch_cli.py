@@ -53,8 +53,6 @@ def test_keys_writes_a_private_key_file_both_packages_read(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["run", "--metrics-port", "0"],
-    ["run", "--journal-dir", "journal"],
     ["run", "--fault-plane", "{}"],
     ["run", "--adversary", "{}"],
     ["run", "--health"],
