@@ -126,9 +126,28 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    service's host and device wall, the nodes' inline verify wall, the
    loop lag), the scrapes' sizes and times, and (i)'s rounds beside
    (e)'s (logs in ``chiprun_out/telemetry_phase/``);
-15. a ``{"kernels": [...]}`` line, then the last line
+15. (j) the health plane on the node CLI (``health_phase``): (j1) the
+   committee of (e) started with ``--health --metrics-port 0
+   --journal-dir <dir>`` and the client, ``/snapshot`` and ``/delta``
+   scraped at 8 s and 16 s of the load: 64 ``Health monitor running``
+   lines, a ``health`` section in every snapshot document, a dominant
+   stage and a critical-path regime on every node past its fourth
+   commit, no ``leader_stall``, the port's ``straggler`` and
+   ``root_divergence`` detectors quiet over the decoded ``/delta``
+   states, every ``Health incident:`` line JSON with its opens and
+   closes in order and equal to the node's ``health.*`` journal
+   records, 64 campaign rings persisted at the SIGTERM stop with >= 10
+   samples, and the verify kernel launched after boot; (j2) the same
+   committee file with 42 of the 64 key files (quorum 43) and no client
+   for 25 s after the last boot: every node opens ``leader_stall`` with
+   a value >= 15 s, journals it and ends its campaign ring with the
+   incident open.  It prints every incident opened in (j1), the count
+   of nodes in each regime, the time from each (j2) monitor's start to
+   its first incident, and (j1)'s rounds beside (i)'s (logs in
+   ``chiprun_out/health_phase/``);
+16. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the main-path runs (3 and (a)-(i)), each counted from 0.
+   over the main-path runs (3 and (a)-(j)), each counted from 0.
 
 Phases (c), (e) and (g) print the wave service's routes (device, cpu and
 probe waves, ``ewma_ms``, the mean wave and the verify kernel's launches
@@ -1177,9 +1196,43 @@ def verifier_phase(card: str, claims, torch_device=None, batch: int = WAVE, roun
     return launches
 
 
+def committee_files(tmp: str, nodes: int, phase: str, timeout_delay: int | None = None) -> tuple:
+    """(key files, committee file, parameters file) of an ``nodes``-member
+    committee under ``tmp``, as an operator makes them: the first key
+    file by ``python -m hotstuff_tpu_torch.node keys``, the rest by
+    ``Secret``, the members on OS-assigned ports (free again when this
+    returns) and the default parameters, or a ``timeout_delay`` (ms)."""
+    from hotstuff_tpu_torch.bench.committee import reserve_ports
+    from hotstuff_tpu_torch.consensus import Committee, Parameters
+    from hotstuff_tpu_torch.node.config import Secret, write_committee, write_parameters
+
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    key_files = [os.path.join(tmp, f"key_{i}.json") for i in range(nodes)]
+    subprocess.run([sys.executable, "-m", "hotstuff_tpu_torch.node", "keys", "--filename", key_files[0]],
+                   env=env, check=True, timeout=120)
+    for path in key_files[1:]:
+        Secret.new().write(path)
+    names = [Secret.read(path).name for path in key_files]
+    socks = reserve_ports(nodes)
+    committee = Committee.new([(pk, 1, ("127.0.0.1", s.getsockname()[1]))
+                               for pk, s in zip(names, socks)])
+    committee_file = os.path.join(tmp, "committee.json")
+    parameters_file = os.path.join(tmp, "parameters.json")
+    write_committee(committee, committee_file)
+    if timeout_delay is None:
+        write_parameters(Parameters(), parameters_file)
+        check(Parameters().timeout_delay == 5_000, f"{phase}: default 5,000 ms timeout delay")
+    else:
+        write_parameters(Parameters(timeout_delay=timeout_delay, sync_retry_delay=timeout_delay),
+                         parameters_file)
+    for s in socks:  # free the reserved ports for the nodes' receivers
+        s.close()
+    return key_files, committee_file, parameters_file
+
+
 def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
                verifier: str = "cuda", transport: str = "asyncio", label: str | None = None,
-               extra_args=(), extra_env=None, during=None):
+               extra_args=(), extra_env=None, during=None, files=None):
     """(e), and (g) with ``transport="native"``: the node CLI, a
     ``run-many`` committee process and the producer client process, both
     started from the command line; returns the verify kernel's launches
@@ -1189,13 +1242,10 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     names the phase and its log directory under ``chiprun_out/``;
     ``extra_args`` and ``extra_env`` go to the ``run-many`` process;
     ``during(node_log_path, client_log_path, client)`` runs once the
-    client process started, before the phase waits for it to exit."""
+    client process started, before the phase waits for it to exit;
+    ``files`` are the caller's ``committee_files`` (new ones by default)."""
     import signal
     import tempfile
-
-    from hotstuff_tpu_torch.bench.committee import reserve_ports
-    from hotstuff_tpu_torch.consensus import Committee, Parameters
-    from hotstuff_tpu_torch.node.config import Secret, write_committee, write_parameters
 
     t0 = time.perf_counter()
     phase = label or ("node phase" if transport == "asyncio" else f"node phase ({transport})")
@@ -1208,21 +1258,7 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     cli = [sys.executable, "-m", "hotstuff_tpu_torch.node"]
     procs = []
     with tempfile.TemporaryDirectory(prefix="node-phase-") as tmp:
-        key_files = [os.path.join(tmp, f"key_{i}.json") for i in range(nodes)]
-        subprocess.run(cli + ["keys", "--filename", key_files[0]], env=env, check=True, timeout=120)
-        for path in key_files[1:]:
-            Secret.new().write(path)
-        names = [Secret.read(path).name for path in key_files]
-        socks = reserve_ports(nodes)
-        committee = Committee.new([(pk, 1, ("127.0.0.1", s.getsockname()[1]))
-                                   for pk, s in zip(names, socks)])
-        committee_file = os.path.join(tmp, "committee.json")
-        parameters_file = os.path.join(tmp, "parameters.json")
-        write_committee(committee, committee_file)
-        write_parameters(Parameters(), parameters_file)
-        check(Parameters().timeout_delay == 5_000, f"{phase}: default 5,000 ms timeout delay")
-        for s in socks:  # free the reserved ports for the nodes' receivers
-            s.close()
+        key_files, committee_file, parameters_file = files or committee_files(tmp, nodes, phase)
         stopped_in_time = False
         try:
             with open(node_log_path, "w") as node_log, open(client_log_path, "w") as client_log:
@@ -1424,6 +1460,23 @@ def keys_match(state: dict, snapshot_flat: dict) -> bool:
                for k in mine - set(snapshot_flat))
 
 
+def endpoint_and_load_start(phase: str, nodes: int, node_log_path, client_log_path, client) -> tuple:
+    """The node process's endpoint port and the host-clock moment the
+    client began sending, read from the two logs as they grow."""
+    deadline = time.monotonic() + 3.0 * nodes + 120
+    port = start = None
+    while time.monotonic() < deadline and (port is None or start is None):
+        with open(node_log_path) as f:
+            m = RE_ENDPOINT.search(f.read())
+        port = int(m[1]) if m else None
+        with open(client_log_path) as f:
+            start = time.monotonic() if "Transactions rate:" in f.read() else None
+        check(client.poll() is None or start is not None, f"{phase}: the client exited before sending")
+        time.sleep(0.1)
+    check(port is not None and start is not None, f"{phase}: the endpoint's port and the load's start")
+    return port, start
+
+
 def telemetry_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
                     verifier: str = "cuda", scrape_at=(0.4, 0.8)):
     """(i) The node CLI of (e) with the telemetry plane on:
@@ -1441,17 +1494,7 @@ def telemetry_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
     scrapes = []
 
     def during(node_log_path, client_log_path, client):
-        deadline = time.monotonic() + 3.0 * nodes + 120
-        port = start = None
-        while time.monotonic() < deadline and (port is None or start is None):
-            with open(node_log_path) as f:
-                m = RE_ENDPOINT.search(f.read())
-            port = int(m[1]) if m else None
-            with open(client_log_path) as f:
-                start = time.monotonic() if "Transactions rate:" in f.read() else None
-            check(client.poll() is None or start is not None, f"{phase}: the client exited before sending")
-            time.sleep(0.1)
-        check(port is not None and start is not None, f"{phase}: the endpoint's port and the load's start")
+        port, start = endpoint_and_load_start(phase, nodes, node_log_path, client_log_path, client)
         for frac in scrape_at:
             time.sleep(max(0.0, start + frac * duration - time.monotonic()))
             got = {"at_s": time.monotonic() - start}
@@ -1598,6 +1641,272 @@ def telemetry_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
     print(f"{phase} result: " + json.dumps({"split": split, "routes": routes_scraped}))
     r["split"] = split
     return launches, r
+
+
+# the health plane's log contract: RE_HEALTH and RE_HEALTH_ON are the
+# harness's (benchmark/logs.py), the stop line the node CLI's own
+RE_HEALTH = re.compile(_TS + r".*Health incident: (\{.*\})")
+RE_HEALTH_ON = re.compile(r"Health monitor running")
+RE_HEALTH_ON_AT = re.compile(_TS + r".*Health monitor running for node (\S+)")
+RE_STOPPING = re.compile(_TS + r".*Stopping \d+ node\(s\) on a signal")
+
+
+def health_events(node_text: str, phase: str) -> list:
+    """Every ``Health incident:`` line as (time, document); each must
+    parse, and per node and kind the phases must run open, close, open..."""
+    events = []
+    for ts, blob in RE_HEALTH.findall(node_text):
+        try:
+            events.append((_ts(ts), json.loads(blob)))
+        except ValueError:
+            check(False, f"{phase}: a Health incident line that is not JSON: {blob[:120]}")
+    state: dict = {}
+    for _, doc in events:
+        key = (doc.get("node"), doc.get("kind"))
+        want = "close" if state.get(key) == "open" else "open"
+        check(doc.get("phase") == want, f"{phase}: {key} logs {doc.get('phase')} where {want} was due")
+        state[key] = doc["phase"]
+    return events
+
+
+def check_journaled_incidents(phase: str, jdir: str, events: list, nodes: int) -> None:
+    """Each node's ``health.<kind>`` journal records are its logged
+    incidents, in order."""
+    journals = read_journals(jdir)
+    check(len(journals) == nodes, f"{phase}: {nodes} nodes' journals after the stop ({len(journals)})")
+    logged = collections.defaultdict(list)
+    for _, doc in events:
+        logged[doc["node"]].append((f"health.{doc['kind']}", doc["phase"]))
+    for node, records in journals.items():
+        journaled = [(r["e"], r.get("p")) for r in records if r["e"].startswith("health.")]
+        check(journaled == logged.get(node, []),
+              f"{phase}: node {node}'s health.* journal records are its Health incident lines")
+
+
+def campaign_rings(phase: str, jdir: str, node_text: str, nodes: int, min_samples: int) -> dict:
+    """node id -> its campaign ring, checked: one ``-campaign.json`` a
+    node beside the journals, persisted at or after the SIGTERM stop,
+    with at least ``min_samples`` rows."""
+    import glob
+
+    stops = RE_STOPPING.findall(node_text)
+    check(len(stops) == 1, f"{phase}: the node process logged its stop on the signal")
+    stop_at = _ts(stops[0])
+    rings = {}
+    for path in glob.glob(os.path.join(jdir, "*-campaign.json")):
+        with open(path) as f:
+            doc = json.load(f)
+        check(os.path.getmtime(path) >= stop_at - 0.01,
+              f"{phase}: {os.path.basename(path)} was persisted at the stop")
+        rings[doc["node"]] = doc
+    check(len(rings) == nodes, f"{phase}: {nodes} campaign rings beside the journals ({len(rings)})")
+    short = min(len(doc["samples"]) for doc in rings.values())
+    check(short >= min_samples, f"{phase}: every campaign ring holds >= {min_samples} samples ({short})")
+    return rings
+
+
+def health_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
+                 verifier: str = "cuda", scrape_at=(0.4, 0.8), stall_s: float = 25.0,
+                 timeout_delay: int | None = None):
+    """(j) The health plane on the node CLI, as an operator runs it:
+    ``run-many --verifier cuda --health --metrics-port 0 --journal-dir``.
+
+    (j1) the committee of (e) with the client: ``/snapshot`` and
+    ``/delta`` scraped at ``scrape_at`` of the load; every node's monitor
+    running and its ``health`` section served, a critical-path regime on
+    every node past its fourth commit, no ``leader_stall``, the port's
+    fleet detectors (``straggler`` on rounds, ``root_divergence`` on
+    state roots) quiet over the decoded ``/delta`` states, and after
+    SIGTERM a campaign ring and a journal a node whose ``health.*``
+    records are the logged incidents.
+
+    (j2) the same committee file with one key file fewer than the quorum
+    (42 of 64) and no client, for ``stall_s`` after the last boot: no QC
+    and no TC can form, so every live node must open ``leader_stall``
+    (value >= 3 timeouts), journal it and persist it in its campaign
+    ring at the stop.
+
+    Returns the verify kernel's launches in both node processes and
+    (j1)'s log reading."""
+    import signal
+    import tempfile
+
+    from hotstuff_tpu_torch.node.config import Secret
+    from hotstuff_tpu_torch.telemetry.critpath import LOCAL_EDGE_REGIME
+    from hotstuff_tpu_torch.telemetry.health import DeltaDecoder, root_divergence, straggler
+
+    phase = "health phase"
+    logs = os.path.join(ROOT, "chiprun_out", "health_phase")
+    os.makedirs(logs, exist_ok=True)
+    quorum = nodes - (nodes - 1) // 3
+    live = quorum - 1
+    stall_floor_s = 3 * (timeout_delay or 5_000) / 1e3
+    scrapes = []
+
+    def during(node_log_path, client_log_path, client):
+        port, start = endpoint_and_load_start(phase, nodes, node_log_path, client_log_path, client)
+        decoder = DeltaDecoder()
+        for frac in scrape_at:
+            time.sleep(max(0.0, start + frac * duration - time.monotonic()))
+            got = {"at_s": time.monotonic() - start}
+            got["snapshot"] = json.loads(scrape(port, "/snapshot")["body"])
+            pulled = scrape(port, f"/delta?since={decoder.since}")
+            state = decoder.apply(json.loads(pulled["body"]))
+            if state is None:  # a gap: one full re-pull, as the fleet watch does
+                pulled = scrape(port, f"/delta?since={decoder.since}")
+                state = decoder.apply(json.loads(pulled["body"]))
+            check(state is not None, f"{phase}: the /delta frame at {got['at_s']:.1f} s decodes")
+            got["delta"] = {"state": dict(state), "bytes": pulled["bytes"], "ms": pulled["ms"],
+                            "t": time.monotonic()}
+            scrapes.append(got)
+
+    with tempfile.TemporaryDirectory(prefix="health-phase-") as tmp:
+        files = committee_files(tmp, nodes, phase, timeout_delay)
+        key_files, committee_file, parameters_file = files
+        names = [str(Secret.read(path).name)[:8] for path in key_files]
+
+        # (j1) the healthy committee
+        jdir = os.path.join(tmp, "journals_j1")
+        t0 = time.perf_counter()
+        launches, r = node_phase(card, nodes, rate, duration, verifier, label=phase,
+                                 extra_args=("--health", "--metrics-port", "0", "--journal-dir", jdir),
+                                 during=during, files=files)
+        with open(os.path.join(logs, "nodes.log")) as f:
+            node_text = f.read()
+        check(len(RE_HEALTH_ON.findall(node_text)) == nodes,
+              f"{phase}: {nodes} 'Health monitor running' lines")
+        check(len(scrapes) == len(scrape_at), f"{phase}: the scrapes at {scrape_at} of the load")
+        for got in scrapes:
+            snap = got["snapshot"]
+            check(len(snap) == nodes and all(isinstance(doc.get("health"), dict) for doc in snap.values()),
+                  f"{phase}: a health section in all {nodes} snapshot documents at {got['at_s']:.1f} s")
+        first, last = scrapes[0]["snapshot"], scrapes[-1]["snapshot"]
+        past_fourth = [n for n, doc in first.items() if doc.get("trace", {}).get("commits", 0) >= 4]
+        check(past_fourth, f"{phase}: some node past its fourth commit at {scrapes[0]['at_s']:.1f} s")
+        regimes = set(LOCAL_EDGE_REGIME.values())
+        for n in past_fourth:
+            h = last[n]["health"]
+            check(h.get("dominant_stage") in LOCAL_EDGE_REGIME and h.get("regime") in regimes,
+                  f"{phase}: node {n}, past its fourth commit, publishes a dominant stage and a regime ({h})")
+        by_regime = collections.Counter(doc["health"].get("regime") or "none" for doc in last.values())
+        events = health_events(node_text, phase)
+        opened = [doc for _, doc in events if doc["phase"] == "open"]
+        check(not [d for d in opened if d["kind"] == "leader_stall"], f"{phase}: no leader_stall incident")
+        check_journaled_incidents(phase, jdir, events, nodes)
+        rings = campaign_rings(phase, jdir, node_text, nodes, min_samples=10)
+        ring_dir = os.path.join(logs, "campaigns_j1")
+        shutil.rmtree(ring_dir, ignore_errors=True)
+        shutil.copytree(jdir, ring_dir, ignore=shutil.ignore_patterns("*.jsonl"))
+        fleet = []
+        for got in scrapes:
+            state, now = got["delta"]["state"], got["delta"]["t"]
+            rounds, roots = {}, {}
+            for n in got["snapshot"]:
+                rnd = state.get(f"{n}.metrics.hotstuff_core_round") or state.get(f"{n}.state.last_round", 0)
+                rounds[n] = (now, float(rnd or 0))
+                if state.get(f"{n}.state.root"):
+                    roots[n] = (int(state.get(f"{n}.state.version") or 0), str(state[f"{n}.state.root"]))
+            check(len(rounds) == nodes and len(roots) == nodes,
+                  f"{phase}: rounds and state roots of {nodes} nodes in the decoded /delta state")
+            lagging, diverged = straggler(rounds, {}, now), root_divergence(roots)
+            check(not lagging, f"{phase}: the straggler detector is quiet ({[i.to_json() for i in lagging][:3]})")
+            check(not diverged, f"{phase}: the root_divergence detector is quiet "
+                                f"({[i.to_json() for i in diverged][:3]})")
+            head = max(v for _, v in rounds.values())
+            fleet.append({"at_s": round(got["at_s"], 1), "head_round": head,
+                          "max_lag": head - min(v for _, v in rounds.values()),
+                          "versions": len({v for v, _ in roots.values()}),
+                          "delta_bytes": got["delta"]["bytes"], "delta_ms": round(got["delta"]["ms"], 1)})
+        j1_s = time.perf_counter() - t0
+        for d in opened:
+            print(f"{phase} (j1) incident opened: {d['kind']} on {d['node']}, {d['severity']}, "
+                  f"value {d['value']} [{card}]")
+        print(f"{phase} (j1): {nodes} monitors, {len(opened)} incidents opened, "
+              f"{len(events) - len(opened)} closed; regimes at {scrapes[-1]['at_s']:.1f} s: "
+              f"{dict(sorted(by_regime.items()))} ({len(past_fourth)} nodes past their fourth commit at "
+              f"{scrapes[0]['at_s']:.1f} s); campaign rings {min(len(x['samples']) for x in rings.values())}-"
+              f"{max(len(x['samples']) for x in rings.values())} samples; fleet detectors quiet: {fleet}; "
+              f"{j1_s:.1f} s [{card}]")
+
+        # (j2) below quorum: one key file fewer than the quorum, no client
+        jdir2 = os.path.join(tmp, "journals_j2")
+        log2 = os.path.join(logs, "j2_nodes.log")
+        t0 = time.perf_counter()
+        node = None
+        stopped = False
+        try:
+            with open(log2, "w") as out:
+                node = subprocess.Popen(
+                    [sys.executable, "-m", "hotstuff_tpu_torch.node", "-vv", "run-many", "--verifier",
+                     verifier, "--health", "--metrics-port", "0", "--journal-dir", jdir2,
+                     "--keys", ",".join(key_files[:live]), "--committee", committee_file,
+                     "--store-prefix", os.path.join(tmp, "j2_db_"), "--parameters", parameters_file],
+                    stdout=out, stderr=subprocess.STDOUT, env={**os.environ, "PYTHONPATH": ROOT})
+            booted_at = None
+            deadline = time.monotonic() + 3.0 * live + 120
+            while node.poll() is None and time.monotonic() < deadline:
+                with open(log2) as f:
+                    if len(RE_BOOTED.findall(f.read())) >= live:
+                        booted_at = time.monotonic()
+                        break
+                time.sleep(0.5)
+            check(booted_at is not None, f"{phase} (j2): {live} nodes booted")
+
+            def stalled() -> set:
+                with open(log2) as f:
+                    return {doc["node"] for _, doc in health_events(f.read(), phase)
+                            if doc["kind"] == "leader_stall" and doc["phase"] == "open"}
+
+            time.sleep(max(0.0, booted_at + stall_s - time.monotonic()))
+            extra = time.monotonic() + 10.0
+            while len(stalled()) < live and time.monotonic() < extra and node.poll() is None:
+                time.sleep(0.5)
+            check(node.poll() is None, f"{phase} (j2): the node process is still running")
+            node.send_signal(signal.SIGTERM)
+            try:
+                node.wait(timeout=60)
+                stopped = True
+            except subprocess.TimeoutExpired:
+                pass
+        finally:
+            if node is not None and node.poll() is None:
+                node.kill()
+                node.wait()
+        check(stopped, f"{phase} (j2): the node process stopped within 60 s of SIGTERM")
+        with open(log2) as f:
+            text2 = f.read()
+        check("Traceback" not in text2, f"{phase} (j2): no traceback")
+        check(len(RE_HEALTH_ON.findall(text2)) == live, f"{phase} (j2): {live} 'Health monitor running' lines")
+        events2 = health_events(text2, phase)
+        stalls = {}
+        for t, doc in events2:
+            if doc["kind"] == "leader_stall" and doc["phase"] == "open":
+                stalls.setdefault(doc["node"], (t, doc))
+        missing = sorted(set(names[:live]) - set(stalls))
+        check(not missing, f"{phase} (j2): every live node opens leader_stall ({len(missing)} did not)")
+        low = [doc["value"] for _, doc in stalls.values() if doc["value"] < stall_floor_s]
+        check(not low, f"{phase} (j2): every leader_stall value >= {stall_floor_s} s ({low[:3]})")
+        check_journaled_incidents(f"{phase} (j2)", jdir2, events2, live)
+        rings2 = campaign_rings(f"{phase} (j2)", jdir2, text2, live, min_samples=min(10, int(stall_s) - 2))
+        quiet = [n for n, doc in rings2.items() if doc["samples"][-1].get("incidents", 0) < 1]
+        check(not quiet, f"{phase} (j2): every campaign ring ends with an open incident ({quiet[:3]})")
+        monitor_at = {n: _ts(ts) for ts, n in RE_HEALTH_ON_AT.findall(text2)}
+        order = sorted(monitor_at, key=monitor_at.get)
+        lag = {n: stalls[n][0] - monitor_at[n] for n in order}
+        launches2 = RE_LAUNCHES.findall(text2)
+        check(launches2 or verifier != "cuda", f"{phase} (j2): the clean stop logs the kernels' launch counts")
+        k1_j2 = int(re.search(r"verify_compressed=(\d+)", launches2[-1])[1]) if launches2 else 0
+        j2_s = time.perf_counter() - t0
+        print(f"{phase} (j2): {live} of {nodes} nodes (quorum {quorum}), no client, {stall_s} s after the last "
+              f"boot: leader_stall opened on {len(stalls)} nodes, values "
+              f"{min(d['value'] for _, d in stalls.values()):.3f}-{max(d['value'] for _, d in stalls.values()):.3f} s; "
+              f"monitor start to first incident: first node {lag[order[0]]:.3f} s, last node "
+              f"{lag[order[-1]]:.3f} s (range {min(lag.values()):.3f}-{max(lag.values()):.3f} s); "
+              f"{len(events2)} incident lines; verify kernel launches {k1_j2}; "
+              f"{j2_s:.1f} s [{card}]")
+    r["health"] = {"regimes": dict(by_regime), "opened": opened, "fleet": fleet, "j2_launches": k1_j2}
+    print(f"{phase} result: " + json.dumps(r["health"]))
+    return launches + k1_j2, r
 
 
 def main() -> int:
@@ -1808,12 +2117,19 @@ def main() -> int:
     t0 = time.perf_counter()
     telemetry_launches, telemetry_r = telemetry_phase(card)
     print(f"phase (i) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    health_launches, health_r = health_phase(card)
+    print(f"phase (j) took {time.perf_counter() - t0:.1f} s")
     keys = ("boot_s", "committed_rounds", "consensus_payloads_per_s", "latency_mean_s", "latency_p50_s",
             "timeouts", "launches", "stop_s")
     print(f"telemetry overhead, same call: (e) {node_r['committed_rounds']} rounds, "
           f"{node_r['consensus_payloads_per_s']:.1f} payloads/s; (i) {telemetry_r['committed_rounds']} rounds, "
           f"{telemetry_r['consensus_payloads_per_s']:.1f} payloads/s [{card}]")
-    for label, r in (("(e) asyncio", node_r), ("(g) native", native_r), ("(i) telemetry", telemetry_r)):
+    print(f"health plane beside telemetry, same call: (i) {telemetry_r['committed_rounds']} rounds, "
+          f"{telemetry_r['consensus_payloads_per_s']:.1f} payloads/s; (j1) {health_r['committed_rounds']} "
+          f"rounds, {health_r['consensus_payloads_per_s']:.1f} payloads/s [{card}]")
+    for label, r in (("(e) asyncio", node_r), ("(g) native", native_r), ("(i) telemetry", telemetry_r),
+                     ("(j1) health", health_r)):
         print(f"node CLI {label}: " + ", ".join(f"{k} {r[k]}" for k in keys) + f", stats {r['stats']} [{card}]")
 
     B = WAVE
@@ -1827,7 +2143,7 @@ def main() -> int:
             "launches": (main_launches["verify_compressed"] + storm_launches + wave_launches
                          + committee_launches + restart_launches + node_launches
                          + ingest_launches + native_launches + bench_launches
-                         + telemetry_launches),
+                         + telemetry_launches + health_launches),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

@@ -22,7 +22,11 @@ sync), and the receiver's native producer-v2 fast path
 per-tag counters, drop counter and journaled receive edges, the
 execution layer's, payload store's and admission's gauges, and every
 actor's telemetry handle.  Not ported, so cut: WAN emulation, the fault
-and adversary planes, flow accounting and the sim transport.
+and adversary planes, flow accounting and the sim transport.  Where the
+reference's ``spawn`` would switch one of the cut planes on from the
+environment (``HOTSTUFF_FAULTS``, ``HOTSTUFF_ADVERSARY``, or
+``HOTSTUFF_WAN_SPEC`` on the asyncio transport), this ``spawn`` raises
+instead of running without it (:func:`unported_env_plane`).
 """
 
 from __future__ import annotations
@@ -71,6 +75,24 @@ from .wire import (
 log = logging.getLogger(__name__)
 
 CHANNEL_CAPACITY = 1_000
+
+#: env knobs whose plane the reference's ``Consensus.spawn`` switches on
+#: from the environment and the port has not ported yet; the WAN knob
+#: acts on the asyncio transport only, as in the reference
+_UNPORTED_ENV_PLANES = ("HOTSTUFF_FAULTS", "HOTSTUFF_ADVERSARY")
+
+
+def unported_env_plane(transport: str = "asyncio") -> str | None:
+    """The env knob that would switch on a plane the port does not have
+    yet, under exactly the reference's conditions (a non-empty value;
+    ``HOTSTUFF_WAN_SPEC`` only off the native transport); None when no
+    such knob is set."""
+    for knob in _UNPORTED_ENV_PLANES:
+        if os.environ.get(knob):
+            return knob
+    if os.environ.get("HOTSTUFF_WAN_SPEC") and transport != "native":
+        return "HOTSTUFF_WAN_SPEC"
+    return None
 
 
 PAYLOAD_KEY_PREFIX = b"p"  # store namespace for payload bodies
@@ -499,10 +521,16 @@ class Consensus:
         """Spawn one node's stack.  ``transport`` is ``"asyncio"`` or
         ``"native"`` (the C++ reactor of ``network/native.py``: a
         library that cannot build raises here, never a quiet fall back
-        to asyncio); the simulator's ``"sim"`` is not ported."""
+        to asyncio); the simulator's ``"sim"`` is not ported.  Raises
+        when an env knob of a plane the port does not have is set."""
         if transport not in ("asyncio", "native"):
             raise NotImplementedError(
                 f"the '{transport}' transport is not ported yet"
+            )
+        knob = unported_env_plane(transport)
+        if knob is not None:
+            raise NotImplementedError(
+                f"{knob} is set, but its plane is not ported yet"
             )
         self = cls()
         # NOTE: this log entry is used to compute performance.

@@ -1,4 +1,4 @@
-"""Hash digests.
+"""Hash digests and the Hash protocol.
 
 Parity target: the reference's ``Digest`` / ``Hash`` pair
 (reference ``crypto/src/lib.rs:22-69``): a 32-byte value displayed as
@@ -8,6 +8,8 @@ base64, produced by SHA-512 truncated to its first 32 bytes.
 from __future__ import annotations
 
 import hashlib
+import os
+from typing import Protocol, runtime_checkable
 
 from ..utils.fixed_bytes import FixedBytes
 
@@ -30,3 +32,15 @@ class Digest(FixedBytes):
     @classmethod
     def of(cls, data: bytes) -> "Digest":
         return cls(sha512_trunc(data))
+
+    @classmethod
+    def random(cls) -> "Digest":
+        # Parity: Digest::random (reference crypto/src/lib.rs:32-38).
+        return cls(os.urandom(DIGEST_SIZE))
+
+
+@runtime_checkable
+class Hashable(Protocol):
+    """Implemented by every signable message (reference's ``Hash`` trait)."""
+
+    def digest(self) -> Digest: ...

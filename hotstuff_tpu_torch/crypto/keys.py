@@ -16,6 +16,7 @@ import base64
 import hashlib
 import os
 import struct
+from typing import Iterator
 
 try:
     from cryptography.hazmat.primitives import serialization
@@ -141,3 +142,12 @@ def generate_keypair(seed: bytes, index: int = 0) -> tuple[PublicKey, SecretKey]
         raise ValueError("seed must be 32 bytes")
     material = hashlib.sha512(seed + struct.pack("<Q", index)).digest()[:32]
     return _keypair_from_seed(material)
+
+
+def keypair_stream(seed: bytes) -> Iterator[tuple[PublicKey, SecretKey]]:
+    """Infinite deterministic keypair stream — test-fixture committees
+    (reference ``tests/common.rs:17-20`` seeded-StdRng equivalent)."""
+    i = 0
+    while True:
+        yield generate_keypair(seed, i)
+        i += 1

@@ -27,9 +27,19 @@ and writes every node's JSONL ring segments under D.  With telemetry on,
 every node logs a ``Telemetry snapshot: {json}`` line every 5 s;
 ``HOTSTUFF_WORK_STATS=1`` adds the ``Work stats: {json}`` line.
 
+``--health`` (or ``HOTSTUFF_HEALTH``) runs every node's health monitor
+(``telemetry/health.py``): online detectors, ``Health incident: {json}``
+lines, ``health.<kind>`` journal edges, the ``health`` snapshot section
+and, with ``--journal-dir``, a ``<node>-campaign.json`` ring beside the
+journals.  It acts where telemetry is on (``--metrics-port``,
+``--journal-dir``, ``--profile`` or ``HOTSTUFF_TELEMETRY``).
+
 Flags of planes the port does not have yet — ``--fault-plane``,
-``--adversary``, ``--health``, ``--mesh-devices`` and ``--scheme bls`` —
-are accepted by the parser and refused before boot with exit code 2.
+``--adversary``, ``--mesh-devices`` and ``--scheme bls`` — are accepted
+by the parser and refused before boot with exit code 2.  So are ``run``,
+``run-many`` and ``deploy`` when an env knob would switch such a plane
+on (``HOTSTUFF_FAULTS``, ``HOTSTUFF_ADVERSARY``, or ``HOTSTUFF_WAN_SPEC``
+on the asyncio transport; ``consensus.unported_env_plane``).
 
 ``run`` and ``run-many`` stop cleanly on SIGTERM or SIGINT: every node
 shuts down, and the process logs the wave service's last stats line and,
@@ -50,6 +60,7 @@ import sys
 import time
 
 from ..consensus import Committee, Parameters
+from ..consensus.consensus import unported_env_plane
 from .config import (
     Secret,
     read_committee,
@@ -162,7 +173,6 @@ def _freeze_boot_objects():
 _UNPORTED_FLAGS = (
     ("fault_plane", "--fault-plane"),
     ("adversary", "--adversary"),
-    ("health", "--health"),
     ("mesh_devices", "--mesh-devices"),
 )
 
@@ -177,6 +187,16 @@ def _unported(args) -> str | None:
     if getattr(args, "scheme", "ed25519") != "ed25519":
         return f"--scheme {args.scheme}"
     return None
+
+
+def _apply_health(args) -> None:
+    """Activate the live health plane when ``--health`` was given: sets
+    HOTSTUFF_HEALTH (env-first, inherited by child node processes) so
+    every booted node runs the per-node HealthMonitor
+    (telemetry/health.py) — online detectors, ``health.*`` incident
+    journal edges, and the bounded campaign recorder."""
+    if getattr(args, "health", False):
+        os.environ["HOTSTUFF_HEALTH"] = "1"
 
 
 def _metrics_port(args) -> int | None:
@@ -345,6 +365,7 @@ async def _fd_probe() -> None:
 
 async def _run_node(args) -> None:
     _apply_env_bridges(args)
+    _apply_health(args)
     nodes: list[Node] = []
 
     async def boot() -> None:
@@ -502,6 +523,7 @@ async def _run_many(args) -> None:
     cores than nodes this removes cross-process scheduling from the
     measured path: every actor shares one asyncio loop."""
     _apply_env_bridges(args)
+    _apply_health(args)
     key_files = args.keys.split(",")
     n = len(key_files)
     # Co-location hint: the verifier layer coalesces all these nodes'
@@ -648,11 +670,20 @@ def _add_node_flags(p: argparse.ArgumentParser) -> None:
         "HOTSTUFF_JOURNAL / HOTSTUFF_JOURNAL_DIR env knobs; merge "
         "journals with `python -m benchmark traces`)",
     )
+    p.add_argument(
+        "--health",
+        action="store_true",
+        help="enable the live health plane: per-node online anomaly "
+        "detectors (leader-stall, view-change storm, commit collapse, "
+        "shed storm), health.* incident journal edges, the /delta "
+        "streaming-export route, and the bounded campaign recorder "
+        "(docs/TELEMETRY.md; default: off, or the HOTSTUFF_HEALTH env "
+        "knob)",
+    )
     # planes the port does not have yet: parsed, then refused
     not_ported = "not ported yet: refused"
     p.add_argument("--fault-plane", default=None, help=not_ported)
     p.add_argument("--adversary", default=None, help=not_ported)
-    p.add_argument("--health", action="store_true", help=not_ported)
     p.add_argument(
         "--mesh-devices", type=int, default=None, metavar="N", help=not_ported
     )
@@ -752,6 +783,10 @@ def main(argv=None) -> int:
     flag = _unported(args)
     if flag is not None:
         parser.error(f"{flag} is not ported yet")
+    if args.command in ("run", "run-many", "deploy"):
+        knob = unported_env_plane(args.transport)
+        if knob is not None:
+            parser.error(f"{knob} is set, but its plane is not ported yet")
     setup_logging(args.verbose)
 
     if args.command == "keys":
@@ -770,6 +805,7 @@ def main(argv=None) -> int:
         return asyncio.run(_submit_reconfig(args))
     if args.command == "deploy":
         _apply_env_bridges(args)
+        _apply_health(args)
         asyncio.run(
             _deploy_testbed(
                 args.nodes, args.base_port, args.verifier, args.device,

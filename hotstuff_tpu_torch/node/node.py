@@ -18,8 +18,11 @@ mixed-scheme schedule (its dual verifier needs BLS).  ``Node.new`` has
 the reference's telemetry, flight-recorder journal and work-stats
 branches (a ``NodeTelemetry`` handle when telemetry is on, a ``Journal``
 when journaling is, a ``CountingVerifier`` and the ``Work stats:`` probe
-with ``HOTSTUFF_WORK_STATS``, the ``Telemetry snapshot:`` logger); its
-health branch comes with the health monitor.  Added
+with ``HOTSTUFF_WORK_STATS``, the ``Telemetry snapshot:`` logger) and
+its health branch (with telemetry on and ``HOTSTUFF_HEALTH`` set, a
+``HealthMonitor`` task fed by ``critpath.rolling_attribution`` over the
+node's trace ring, its campaign ring beside the journal, and the
+snapshot's ``health`` section).  Added
 to the copy: ``LazyDeviceVerifier.routes``, the inline batches each
 route took, and ``_DeviceDispatch.verify_packed``, so a wave adopted
 from an ingest arena reaches the kernel from the arena's columns.
@@ -230,6 +233,20 @@ def make_verifier(
     raise ValueError(f"unknown verifier backend '{kind}'")
 
 
+def campaign_file(jdir: str, node: str) -> str:
+    """Where a node's campaign ring persists: beside its journal
+    segments, under the journal's filename-safe form of the node id.
+    The reference joins the raw id, and a base64 id holding ``/`` then
+    names a missing subdirectory, so that node's ring never persists
+    (about one node in eight); the id itself stays in the file's
+    ``node`` field, which is what ``benchmark.traces.load_campaigns``
+    reads."""
+    from ..telemetry.health import CAMPAIGN_SUFFIX
+    from ..telemetry.journal import _sanitize
+
+    return os.path.join(jdir, f"{_sanitize(node)}{CAMPAIGN_SUFFIX}")
+
+
 class Node:
     CHANNEL_CAPACITY = 1_000
 
@@ -240,6 +257,8 @@ class Node:
         self._journal = None
         self._stats_task: asyncio.Task | None = None
         self._snapshot_task: asyncio.Task | None = None
+        self._health_task: asyncio.Task | None = None
+        self._health_monitor = None
 
     @classmethod
     async def new(
@@ -448,6 +467,50 @@ class Node:
                     sample_lag=not probe_running,
                 )
             )
+        if tel is not None and telemetry.health_enabled():
+            from ..telemetry.critpath import rolling_attribution
+            from ..telemetry.health import HealthMonitor
+
+            # campaign ring persists beside the journal (when journaling
+            # is on) as <node>-campaign.json — a name the journal
+            # loader's *.jsonl glob never matches
+            campaign_path = campaign_file(jdir, tel.node) if jdir else None
+            self._health_monitor = HealthMonitor(
+                tel,
+                tel.node,
+                timeout_s=parameters.timeout_delay / 1000.0,
+                campaign_path=campaign_path,
+                logger=logging.getLogger(f"health.{secret.name}"),
+                # rolling critical-path attribution over the node's own
+                # trace ring (health.py is import-free, so the engine
+                # hook is injected here)
+                attribution_fn=lambda t=tel: rolling_attribution(
+                    t.trace.recent(64)
+                ),
+            )
+            self._health_task = asyncio.ensure_future(
+                self._health_monitor.run()
+            )
+            # the live watch scrapes node-local incidents out of the
+            # snapshot: the node's own monitor sees a commit stall a
+            # fleet-side detector could only infer
+            tel.add_section(
+                "health",
+                lambda m=self._health_monitor: {
+                    "open": sorted(i.kind for i in m.open_incidents()),
+                    **(
+                        {
+                            "dominant_stage": m.last_attribution.get(
+                                "dominant", ""
+                            ),
+                            "regime": m.last_attribution.get("regime", ""),
+                        }
+                        if m.last_attribution
+                        else {}
+                    ),
+                },
+            )
+            log.info("Health monitor running for node %s", tel.node)
         log.info("Node %s successfully booted", secret.name)
         return self
 
@@ -488,6 +551,12 @@ class Node:
             if task is not None:
                 task.cancel()
         self._stats_task = self._snapshot_task = None
+        if self._health_task is not None:
+            # the monitor's own ``finally`` makes the last campaign
+            # persist; it runs before the journal below closes
+            self._health_task.cancel()
+            await asyncio.gather(self._health_task, return_exceptions=True)
+            self._health_task = self._health_monitor = None
         if self.consensus is not None:
             await self.consensus.shutdown()
             self.consensus = None

@@ -1,12 +1,11 @@
 """hotstuff_tpu_torch.telemetry — the permanent attribution layer.
 
-A copy of ``hotstuff_tpu.telemetry`` less two planes the port does not
+A copy of ``hotstuff_tpu.telemetry`` less one plane the port does not
 have yet: flow accounting (``attach_flows``; ``NodeTelemetry.flows``
-stays ``None``, as on a JAX node without flows) and the health monitor
-(``health_enabled`` answers False).  Everything else — the registry and
-its switches, the node handles, the snapshot, export and trace
-documents, the flight-recorder directory and the network, store and
-work-stats wiring — is the reference's.
+stays ``None``, as on a JAX node without flows).  Everything else — the
+registry and its switches, the node handles, the snapshot, export and
+trace documents, the flight-recorder directory, the health switch and
+the network, store and work-stats wiring — is the reference's.
 
 Three pieces:
 
@@ -150,9 +149,12 @@ def snapshot_all() -> dict:
 
 
 def health_enabled() -> bool:
-    """Is the per-node health monitor on?  Always False: the monitor,
-    its detectors and ``--health`` are not ported yet."""
-    return False
+    """Is the per-node health monitor (telemetry/health.py) on?  Off by
+    default: ``HOTSTUFF_HEALTH=1`` / ``--health`` enable it."""
+    env = os.environ.get("HOTSTUFF_HEALTH")
+    return env is not None and env.strip().lower() not in (
+        "", "0", "false", "no", "off",
+    )
 
 
 def export_doc() -> dict:

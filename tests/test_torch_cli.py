@@ -6,11 +6,16 @@ quiet CPU fallback; the wave service's stats line against the harness's
 regex and the JAX package's line; a ``run-many`` committee fed by the
 client, whose logs ``benchmark.logs.LogParser`` reads; ``deploy``; and
 a port node joining a committee of JAX nodes through a reconfiguration
-submitted with the port's ``reconfig`` command.
+submitted with the port's ``reconfig`` command; the client's
+digest-only mode (``--size 0``) against a port committee; and the env
+knobs of planes the port does not have (``HOTSTUFF_FAULTS``,
+``HOTSTUFF_ADVERSARY``, ``HOTSTUFF_WAN_SPEC`` on asyncio) refused before
+boot by the CLI, ``Consensus.spawn`` and ``run_committee``.
 
 Every listener port comes from the OS; every wait has a deadline;
 every process is stopped in ``finally``."""
 
+import asyncio
 import logging
 import os
 import re
@@ -55,9 +60,9 @@ def test_keys_writes_a_private_key_file_both_packages_read(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["run", "--fault-plane", "{}"],
     ["run", "--adversary", "{}"],
-    ["run", "--health"],
+    ["run", "--health", "--fault-plane", "{}"],
     ["run", "--mesh-devices", "2"],
-    ["run-many", "--profile", "--health"],
+    ["run-many", "--profile", "--health", "--mesh-devices", "2"],
     ["deploy", "--scheme", "bls"],
     ["keys", "--scheme", "bls"],
 ], ids=lambda argv: "-".join(a.strip("-") for a in argv[:2]))
@@ -327,3 +332,159 @@ def test_gc_gen2_stretch_knob_and_undo(monkeypatch):
     finally:
         gc.set_threshold(*before)
         gc.unfreeze()
+
+
+# ---- the two repairs: Digest.random at --size 0, the env knobs ------------
+
+
+def test_client_at_size_0_runs_against_a_port_committee(tmp_path):
+    """``--size 0`` is the client's digest-only mode: every transaction
+    is a ``Digest.random()`` with no body.  The client used to die on its
+    first transaction (the port's ``Digest`` had no ``random``); now
+    ``LogParser`` reads its sample lines and the nodes' commits of them."""
+    from benchmark.logs import LogParser
+
+    write_port_committee(tmp_path, timeout_delay=1_000, sync_retry_delay=1_000)
+    keys = ",".join(str(tmp_path / f"key_{i}.json") for i in range(4))
+    log = open(tmp_path / "nodes.log", "w")
+    client_log = open(tmp_path / "client.log", "w")
+    nodes = client = None
+    try:
+        nodes = subprocess.Popen(
+            CLI + ["-vv", "run-many", "--verifier", "cpu", "--keys", keys, "--committee",
+                   str(tmp_path / "committee.json"), "--store-prefix", str(tmp_path / "db_"),
+                   "--parameters", str(tmp_path / "parameters.json")],
+            stdout=log, stderr=subprocess.STDOUT, env=ENV,
+        )
+        assert wait_for(lambda: (tmp_path / "nodes.log").read_text().count("successfully booted") == 4, 60)
+        client = subprocess.Popen(
+            [sys.executable, "-m", "hotstuff_tpu_torch.node.client", "--committee",
+             str(tmp_path / "committee.json"), "--rate", "300", "--size", "0", "--duration", "3",
+             "--warmup", "1"],
+            stdout=client_log, stderr=subprocess.STDOUT, env=ENV,
+        )
+        assert client.wait(timeout=60) == 0
+        assert nodes.poll() is None
+        nodes.send_signal(signal.SIGTERM)
+        assert nodes.wait(timeout=30) == 0
+    finally:
+        stop_all([client, nodes])
+        log.close()
+        client_log.close()
+    node_text = (tmp_path / "nodes.log").read_text()
+    client_text = (tmp_path / "client.log").read_text()
+    assert "Traceback" not in node_text + client_text
+    parser = LogParser([node_text], [client_text])
+    assert parser.tx_size == 0 and parser.input_rate == 300
+    samples = re.findall(r"Sending sample payload (\S+)", client_text)
+    assert len(samples) >= 20 and len(set(samples)) == len(samples)
+    assert parser.committed_payloads() > 0
+    assert parser.end_to_end_latency() is not None
+    assert "End-to-end BPS: n/a (digest-only payloads)" in parser.result()
+
+
+ENV_PLANES = ("HOTSTUFF_FAULTS", "HOTSTUFF_ADVERSARY", "HOTSTUFF_WAN_SPEC")
+
+
+@pytest.mark.parametrize("command", ["run", "run-many", "deploy"])
+@pytest.mark.parametrize("knob", ENV_PLANES)
+def test_env_knobs_of_unported_planes_are_refused_before_boot(tmp_path, monkeypatch, capsys, knob, command):
+    """A node started with a knob that switches on a plane the port does
+    not have yet (as ``benchmark/chaos.py`` and ``benchmark/local.py``
+    start nodes) stops with exit 2 and names the knob, before any node
+    boots; it used to boot and run without the plane."""
+    from hotstuff_tpu_torch.node.main import main
+
+    for other in ENV_PLANES:
+        monkeypatch.delenv(other, raising=False)
+    monkeypatch.setenv(knob, '{"seed": 1}')
+    monkeypatch.chdir(tmp_path)
+    required = {
+        "run": ["--keys", "k", "--committee", "c", "--store", str(tmp_path / "db")],
+        "run-many": ["--keys", "k", "--committee", "c", "--store-prefix", str(tmp_path / "db")],
+        "deploy": ["--nodes", "4"],
+    }[command]
+    with pytest.raises(SystemExit) as exit_:
+        main([command, *required])
+    assert exit_.value.code == 2
+    assert f"{knob} is set, but its plane is not ported yet" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())  # nothing booted, nothing written
+
+
+@pytest.mark.parametrize("env, transport, want", [
+    ({}, "asyncio", None),
+    ({"HOTSTUFF_FAULTS": ""}, "asyncio", None),
+    ({"HOTSTUFF_ADVERSARY": ""}, "native", None),
+    ({"HOTSTUFF_FAULTS": "x"}, "native", "HOTSTUFF_FAULTS"),
+    ({"HOTSTUFF_ADVERSARY": "x"}, "native", "HOTSTUFF_ADVERSARY"),
+    ({"HOTSTUFF_WAN_SPEC": "x"}, "asyncio", "HOTSTUFF_WAN_SPEC"),
+    ({"HOTSTUFF_WAN_SPEC": "x"}, "native", None),
+    ({"HOTSTUFF_WAN_SPEC": "x", "HOTSTUFF_ADVERSARY": "y"}, "asyncio", "HOTSTUFF_ADVERSARY"),
+    ({"HOTSTUFF_MESH_DEVICES": "2"}, "asyncio", None),
+])
+def test_unported_env_plane_follows_the_references_conditions(monkeypatch, env, transport, want):
+    """The knobs are refused exactly where ``hotstuff_tpu.consensus``'s
+    ``Consensus.spawn`` would switch their plane on: a non-empty value,
+    and the WAN spec only off the native transport.  The mesh size is
+    read only where a mesh backend is built, which the port does not
+    offer, so it is left alone as the reference leaves it."""
+    from hotstuff_tpu_torch.consensus.consensus import unported_env_plane
+
+    for knob in ENV_PLANES + ("HOTSTUFF_MESH_DEVICES",):
+        monkeypatch.delenv(knob, raising=False)
+    for knob, value in env.items():
+        monkeypatch.setenv(knob, value)
+    assert unported_env_plane(transport) == want
+
+
+def test_wan_spec_on_the_native_transport_still_boots(tmp_path):
+    """The reference applies ``HOTSTUFF_WAN_SPEC`` on the asyncio
+    transport only, so a native node with it set boots, as a JAX node
+    does."""
+    write_port_committee(tmp_path)
+    log = open(tmp_path / "node_0.log", "w")
+    proc = None
+    try:
+        proc = subprocess.Popen(
+            CLI + ["-vv", "run", "--verifier", "cpu", "--transport", "native", "--keys",
+                   str(tmp_path / "key_0.json"), "--committee", str(tmp_path / "committee.json"),
+                   "--store", str(tmp_path / "db_0"), "--parameters", str(tmp_path / "parameters.json")],
+            stdout=log, stderr=subprocess.STDOUT, env={**ENV, "HOTSTUFF_WAN_SPEC": '{"regions": []}'},
+        )
+        assert wait_for(lambda: booted(tmp_path, 0), 120)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        stop_all([proc])
+        log.close()
+    assert "Traceback" not in log_text(tmp_path, 0)
+
+
+@pytest.mark.parametrize("knob", ENV_PLANES)
+def test_consensus_spawn_and_run_committee_raise_on_the_knobs(tmp_path, monkeypatch, knob):
+    """In-process committees cannot start quietly either:
+    ``Consensus.spawn`` raises before it builds anything, and so does
+    ``run_committee``."""
+    from hotstuff_tpu_torch.bench.committee import run_committee
+
+    from .test_torch_core import PORT as S
+
+    for other in ENV_PLANES:
+        monkeypatch.delenv(other, raising=False)
+    monkeypatch.setenv(knob, "spec.json")
+
+    async def body():
+        store = S.store.Store(str(tmp_path / "db"))
+        name, secret = S.keys()[0]
+        try:
+            with pytest.raises(NotImplementedError, match=f"{knob} is set, but its plane is not ported yet"):
+                await S.consensus.Consensus.spawn(
+                    name, S.committee(range(7000, 7004)), S.consensus.Parameters(),
+                    S.crypto.SignatureService(secret), store, asyncio.Queue(),
+                )
+        finally:
+            store.close()
+
+    asyncio.run(body())
+    with pytest.raises(NotImplementedError, match=knob):
+        run_committee(nodes=4, rate=10, duration=1, verifier="cpu")
