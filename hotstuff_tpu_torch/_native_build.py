@@ -11,7 +11,10 @@ unset) from sources of ``native/``, with the flags of
 - ``ed25519``: ``ed25519_batch.cpp``, the batch equation
   (``hs_ed25519_*``), with ``-O3``, as ``libhs_ed25519.so``;
 - ``store``: ``store_engine.cpp``, the C++ WAL engine (``hs_*``), as
-  ``libhs_store.so``.
+  ``libhs_store.so``;
+- ``bls``: ``bls_pairing.cpp`` (with its header ``bls_constants.h``), the
+  BLS12-381 pairing verifier (``hs_bls_*``), with ``-O3``, as
+  ``libhs_bls.so``.
 
 A library lands in ``build/torch_native/`` at the root of the checkout,
 named by a hash of its sources and flags (``libhs_ed25519_<hash>.so``),
@@ -48,12 +51,14 @@ CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra")
 
 class Library(NamedTuple):
     """One Makefile rule: its sources, its own compile flags, its link
-    flags and the function that declares its ctypes signatures."""
+    flags, the function that declares its ctypes signatures and the
+    headers its sources include (hashed, not compiled)."""
 
     sources: tuple[str, ...]
     flags: tuple[str, ...]
     link_flags: tuple[str, ...]
     bind: Callable[[ctypes.CDLL], ctypes.CDLL]
+    headers: tuple[str, ...] = ()
 
 
 def _bind_transport(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -154,12 +159,34 @@ def _bind_store(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_bls(lib: ctypes.CDLL) -> ctypes.CDLL:
+    cp, sz, ci = ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int
+    lib.hs_bls_verify_one_ex.restype = ci
+    lib.hs_bls_verify_one_ex.argtypes = [cp, sz, cp, cp, ci]
+    lib.hs_bls_selftest.restype = ci
+    lib.hs_bls_selftest.argtypes = []
+    lib.hs_bls_aggregate_sigs.restype = ci
+    lib.hs_bls_aggregate_sigs.argtypes = [cp, sz, cp]
+    lib.hs_bls_verify_batch.restype = ci
+    lib.hs_bls_verify_batch.argtypes = [cp, cp, cp, sz, cp, ci]
+    for name in ("hs_bls_g1_decompress_many", "hs_bls_hash_base_many"):
+        fn = getattr(lib, name)
+        fn.restype = ci
+        fn.argtypes = [cp, sz, cp]
+    lib.hs_bls_verify_batch_points.restype = ci
+    lib.hs_bls_verify_batch_points.argtypes = [cp, cp, sz, cp, ci]
+    return lib
+
+
 LIBRARIES: dict[str, Library] = {
     "transport": Library(
         ("transport.cpp", "wave_pack.cpp"), (), ("-lpthread",), _bind_transport
     ),
     "ed25519": Library(("ed25519_batch.cpp",), ("-O3",), (), _bind_ed25519),
     "store": Library(("store_engine.cpp",), (), (), _bind_store),
+    "bls": Library(
+        ("bls_pairing.cpp",), ("-O3",), (), _bind_bls, ("bls_constants.h",)
+    ),
 }
 
 _LOCK = threading.Lock()
@@ -174,7 +201,7 @@ def _command_flags(lib: Library) -> tuple[str, ...]:
 def source_hash(name: str) -> str:
     lib = LIBRARIES[name]
     h = hashlib.sha256()
-    for source in lib.sources:
+    for source in lib.sources + lib.headers:
         h.update(source.encode())
         h.update((NATIVE_DIR / source).read_bytes())
     h.update(" ".join(_command_flags(lib) + lib.link_flags).encode())

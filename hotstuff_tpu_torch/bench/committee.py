@@ -17,7 +17,10 @@ admission.
 
 Listener ports come from the OS: each node's socket is bound to port 0
 first, the committee is built from the numbers the OS assigned, and
-each socket is closed just before its node's receiver binds the port.
+each socket holds its port until the run ends.  The node's receiver
+binds beside it (both set ``SO_REUSEADDR`` and only the receiver
+listens), so no outgoing connection of the committee can take a node's
+port before its receiver binds it, or while a restarted node is down.
 Keys and payload bodies are made from ``seed``.
 
 With ``restart`` one node crashes and recovers inside the load window,
@@ -52,7 +55,8 @@ from ..consensus.wire import (
     encode_producer,
     encode_state_read,
 )
-from ..crypto import Digest, SignatureService, generate_keypair
+from ..crypto import Digest
+from ..crypto.scheme import bls_pop, keygen_deterministic, make_signing_service
 from ..crypto.async_service import AsyncVerifyService
 from ..network.framing import read_frame, set_nodelay, write_frame
 from ..node import make_verifier
@@ -79,9 +83,12 @@ RE_CURSOR = re.compile(r"State sync advanced commit cursor (\d+) -> (\d+) ")
 
 def reserve_ports(n: int, host: str = "127.0.0.1") -> list[socket.socket]:
     """``n`` sockets bound to ports the OS assigns on ``host``, not
-    listening.  Each port stays reserved until its socket is closed,
-    which the caller does just before binding a listener there (or hands
-    the socket to ``asyncio.start_server(sock=...)``).  OS-assigned ports
+    listening.  Each port stays reserved until its socket is closed.  A
+    listener that sets ``SO_REUSEADDR`` (asyncio's and the native
+    transport's do) can bind the port while its socket stays open, which
+    keeps the port from every other socket, an outgoing connection's
+    included, for as long as the caller holds it; or the caller closes
+    the socket just before binding a listener there.  OS-assigned ports
     lie in the ephemeral range, apart from any fixed port range."""
     socks = []
     try:
@@ -283,7 +290,7 @@ async def _drained(service, limit_s: float = 10.0) -> None:
 
 async def _committee(
     nodes, rate, duration, size, verifier, device, timeout_delay, sync_retry_delay,
-    seed, restart, transport,
+    seed, restart, transport, scheme="ed25519",
 ) -> dict:
     loop = asyncio.get_running_loop()
     t_boot = time.perf_counter()
@@ -311,16 +318,22 @@ async def _committee(
             os.environ["HOTSTUFF_MAX_PEER_CONNS"] = cap
             log.info("fd limit too low for %d nodes: pools capped at %s", nodes, cap)
         seed_bytes = seed.to_bytes(32, "little")
-        keys = [generate_keypair(seed_bytes, i) for i in range(nodes)]
+        keys = [keygen_deterministic(scheme, seed_bytes, i) for i in range(nodes)]
+        pops = (
+            {pk: bls_pop(secret.to_bytes()) for pk, secret in keys}
+            if scheme == "bls" else None
+        )
         socks = reserve_ports(nodes)
         committee = Committee.new(
             [
                 (pk, 1, ("127.0.0.1", s.getsockname()[1]))
                 for (pk, _), s in zip(keys, socks)
-            ]
+            ],
+            scheme=scheme,
+            pops=pops,
         )
         quorum = committee.quorum_threshold()
-        backend = make_verifier(verifier, device=device)
+        backend = make_verifier(verifier, scheme, device=device)
         backend.precompute([pk.to_bytes() for pk in committee.authorities])
         service = AsyncVerifyService.for_backend(backend)
         if hasattr(backend, "warmup"):
@@ -332,7 +345,7 @@ async def _committee(
             backend.warmup(batch=min(1024, nodes * (quorum + 2)))
             service.warm_buckets()
         launches = None
-        if verifier == "cuda":
+        if verifier == "cuda" and scheme == "ed25519":
             from ..gpu import dsm
 
             launches = dsm.launches
@@ -351,7 +364,7 @@ async def _committee(
                     name,
                     committee,
                     params,
-                    SignatureService(secret),
+                    make_signing_service(scheme, secret),
                     store,
                     queues[i],
                     verifier=backend,
@@ -363,11 +376,12 @@ async def _committee(
                 raise
             stores[i], stacks[i] = store, stack
 
-        for i, sock in enumerate(socks):
+        for i in range(nodes):
             stacks.append(None)
             stores.append(None)
             queues.append(asyncio.Queue())
-            sock.close()  # free the reserved port for this node's receiver
+            # the receiver binds beside the reservation, which stays
+            # until the run ends: a restarted node's port is never free
             await spawn(i)
 
         async def connect(i: int) -> _ProducerConn:
@@ -639,9 +653,12 @@ def run_committee(
     restart: dict | None = None,
     sync_retry_delay: int = 10_000,
     transport: str = "asyncio",
+    scheme: str = "ed25519",
 ) -> dict:
-    """Boot ``nodes`` co-located consensus stacks sharing one
-    ``make_verifier(verifier, device=device)``, feed them ``rate``
+    """Boot ``nodes`` co-located consensus stacks of a ``scheme``
+    committee (``"bls"``: BLS12-381 keys with their proofs of possession,
+    compact certificates) sharing one
+    ``make_verifier(verifier, scheme, device=device)``, feed them ``rate``
     producer frames a second for ``duration`` seconds, shut them down,
     and return what happened:
 
@@ -700,6 +717,6 @@ def run_committee(
     return asyncio.run(
         _committee(
             nodes, rate, duration, size, verifier, device, timeout_delay,
-            sync_retry_delay, seed, restart, transport,
+            sync_retry_delay, seed, restart, transport, scheme,
         )
     )

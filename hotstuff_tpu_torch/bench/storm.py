@@ -1,4 +1,4 @@
-"""View-change-storm micro-benchmark (BASELINE config 4), Ed25519 half.
+"""View-change-storm micro-benchmark (BASELINE config 4).
 
 A copy of ``benchmark/storm.py`` for the port.  The storm shape: a
 committee of N = 256 (f = 85) hits a round timeout.  Every correct node
@@ -20,8 +20,15 @@ then has to process, on its consensus loop:
 Backends: ``ed25519-cpu`` (the host verifier) and, with ``device=True``,
 ``ed25519-cuda``: the host a node uses, ``make_verifier("cuda")``, after
 ``precompute`` and ``warmup(quorum)``; the async service's bucket shapes
-are warmed with ``warm_buckets()`` before the off-loop row.  The BLS
-rows are not ported.
+are warmed with ``warm_buckets()`` before the off-loop row.  With
+``bls=True`` (off by default here; the reference runs them by default)
+the BLS rows follow: ``bls-cpu`` (the aggregate QC is one pairing
+equality; the TC's same-digest groups aggregate; the native multi-pairing
+for the distinct-digest worst case) with its off-loop TC row, and, with
+``device=True`` too, ``bls-cuda-storm-offload``: the worst-case TC's
+3n G1 ladders and the weighted-signature sum on the card's G1 kernels
+(``StormOffload``), measured only when the offload engages at this
+quorum (``storm_offload_engaged``), as in ``benchmark/storm.py``.
 """
 
 from __future__ import annotations
@@ -78,6 +85,58 @@ def _ed25519_fixture(n: int, quorum: int):
         votes=[
             (pk, Signature.new(timeout_digest(10, i), sk), i)
             for i, (pk, sk) in enumerate(members[:quorum])
+        ],
+    )
+    return committee, timeouts, (tc, tc_worst), high_qc
+
+
+def _bls_fixture(n: int, quorum: int):
+    """The same storm over a BLS committee (PoPs in the committee file):
+    (committee, timeouts, (tc_realistic, tc_worst), high_qc)."""
+    from ..consensus import QC, TC, Timeout, Vote
+    from ..consensus.config import Committee
+    from ..consensus.messages import timeout_digest
+    from ..crypto import Digest
+    from ..crypto.bls.service import BlsSigningService
+    from ..crypto.scheme import bls_keygen, bls_pop
+
+    seed = b"\x52" * 32
+    members = [bls_keygen(seed, i) for i in range(n)]
+    committee = Committee.new(
+        [(pk, 1, ("127.0.0.1", 41_000 + i)) for i, (pk, _) in enumerate(members)],
+        scheme="bls",
+        pops={pk: bls_pop(secret) for pk, secret in members},
+    )
+    signers = [BlsSigningService(secret) for _, secret in members[:quorum]]
+    block_digest = Digest.of(b"storm high-qc block")
+    vote_digest = Vote(hash=block_digest, round=9, author=members[0][0]).digest()
+    high_qc = QC(
+        hash=block_digest,
+        round=9,
+        votes=[
+            (members[i][0], signers[i].sign_sync(vote_digest))
+            for i in range(quorum)
+        ],
+    )
+    timeouts = []
+    for i in range(quorum):
+        t = Timeout(high_qc=high_qc, round=10, author=members[i][0])
+        t.signature = signers[i].sign_sync(t.digest())
+        timeouts.append(t)
+    # realistic TC (every entry shares high_qc_round = 9 — same digest)
+    tc = TC(
+        round=10,
+        votes=[
+            (members[i][0], signers[i].sign_sync(timeout_digest(10, 9)), 9)
+            for i in range(quorum)
+        ],
+    )
+    # adversarial worst case: distinct per-entry digests
+    tc_worst = TC(
+        round=10,
+        votes=[
+            (members[i][0], signers[i].sign_sync(timeout_digest(10, i)), i)
+            for i in range(quorum)
         ],
     )
     return committee, timeouts, (tc, tc_worst), high_qc
@@ -176,12 +235,13 @@ def _measure_offloop_tc(committee, tc_worst, verifier) -> dict[str, float]:
 
 
 def run_storm(
-    nodes: int = N_DEFAULT, device: bool = False, torch_device=None
+    nodes: int = N_DEFAULT, device: bool = False, torch_device=None,
+    bls: bool = True,
 ) -> dict[str, dict[str, float]]:
     """The storm's rows per backend.  ``device=True`` adds the
     ``ed25519-cuda`` row on ``make_verifier("cuda", device=torch_device)``
     (the current CUDA device by default; ``"cpu"`` runs the kernels'
-    plain versions)."""
+    plain versions); ``bls=True`` the BLS rows (``bls_rows``)."""
     from ..crypto.service import CpuVerifier
 
     quorum = 2 * nodes // 3 + 1
@@ -201,6 +261,48 @@ def run_storm(
         row = _measure(committee, timeouts, tc, v)
         row.update(_measure_offloop_tc(committee, tc[1], v))
         results["ed25519-cuda"] = row
+
+    if bls:
+        results.update(
+            bls_rows(_bls_fixture(nodes, quorum), quorum, device, torch_device)
+        )
+    return results
+
+
+def bls_rows(
+    fixture, quorum: int, device: bool = False, torch_device=None
+) -> dict[str, dict[str, float]]:
+    """The BLS rows on a ``_bls_fixture`` result: ``bls-cpu`` (with its
+    off-loop TC row) and, with ``device=True``, ``bls-cuda-storm-offload``
+    when the offload engages at ``quorum``."""
+    from ..crypto.scheme import make_cpu_verifier, make_device_verifier
+
+    committee, timeouts, tc, _ = fixture
+    results: dict[str, dict[str, float]] = {}
+    bls_verifier = make_cpu_verifier("bls")
+    results["bls-cpu"] = _measure(committee, timeouts, tc, bls_verifier)
+    if getattr(bls_verifier, "async_kind", None):
+        results["bls-cpu"].update(
+            _measure_offloop_tc(committee, tc[1], bls_verifier)
+        )
+    if device:
+        # the device ladder offload for the all-distinct storm, measured
+        # next to the host route
+        v = make_device_verifier("bls", "cuda", device=torch_device)
+        v.warmup_storm_offload(quorum)
+        # only publish the row when the offload will serve this quorum
+        # size — a declined offload (quorum < 16) would measure the host
+        # route under the offload label
+        if v.storm_offload_engaged(quorum):
+            results["bls-cuda-storm-offload"] = _measure(
+                committee, timeouts, tc, v
+            )
+        else:
+            print(
+                f" storm offload declined for quorum={quorum} "
+                "(not warmed or below the n>=16 floor); "
+                "bls-cuda-storm-offload row skipped"
+            )
     return results
 
 

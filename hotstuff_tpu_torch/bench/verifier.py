@@ -34,6 +34,12 @@ versions, whose times say nothing of a card.  Prints ONE JSON line with
   ``verify_host_wall_seconds`` / ``verify_device_wall_seconds``, with
   the device route's signatures and the verify kernel's launches;
 - ``device``: the card's name and power limit (``nvidia-smi``).
+
+``bench_agg_qc`` (``bench.py:472``, run with ``--agg-qc``) is the BLS
+block: the compact (aggregated) QC against the vote-list QC at n = 64,
+256 and 512, its G1 sums on the card's kernels (``--device cpu``: their
+plain versions).  Its Handel columns wait on ``consensus/handel.py``,
+which is not ported.
 """
 
 from __future__ import annotations
@@ -294,8 +300,12 @@ def bench_verify_split(msgs, pks, sigs, device="cuda", qc: int = 256,
         dev_backend = make_verifier("cuda", device=device)
         dev_backend.precompute(pks)
         dev_backend.warmup(batch=qc)
-        launched = dsm.launches["verify_compressed"]
         service = AsyncVerifyService(dev_backend, device=True)
+        # every bucket warm, as a node's service is at boot: a cold first
+        # wave would set the router's device EWMA above the CPU estimate
+        # and send the rest of the waves to the CPU
+        service.warm_buckets()
+        launched = dsm.launches["verify_compressed"]
         try:
             for _ in range(waves):
                 _check(await host.verify_claims([claim]) == [True],
@@ -344,6 +354,113 @@ def card() -> dict:
     return {"platform": "gpu", "name": name, "power_limit": limit}
 
 
+def bench_agg_qc(sizes=(64, 256, 512), reps: int = 5, device: str = "cuda") -> dict:
+    """Compact (aggregated) QC vs the vote-list BLS baseline, per
+    committee size (``bench.py:472``): certificate wire bytes, QC
+    formation p50 (build + encode from already-accumulated votes — the
+    compact path snapshots the running G1 sum and emits ~50 wire bytes,
+    the vote-list path copies and encodes n x 144), and verify p50 —
+    ``verify_aggregate_msg``'s one pairing over the memoized key sum vs
+    ``verify_shared_msg``'s O(n) re-aggregation per certificate (its G1
+    sum on the device aggregator).  ``verify_cold_ms`` keeps the
+    first-bitmap cost (one O(n) key sum) next to the steady-state p50.
+    The running sum is built as a committee builds it, one
+    ``G1RunningSum.add`` a vote on ``device``, and checked against the
+    host sum.  Committee secrets are small scalars so fixture generation
+    is O(n) cheap point multiplies.  ``flat_ratio`` = compact verify p50
+    at the largest size over the smallest.  The reference's Handel
+    columns are left out (``consensus/handel.py`` is not ported)."""
+    from ..consensus.messages import QC, make_signer_bitmap
+    from ..crypto import Digest, PublicKey, Signature
+    from ..crypto.bls import BlsSecretKey
+    from ..crypto.bls.curve import G1Point
+    from ..crypto.scheme import make_cpu_verifier, make_device_verifier
+    from ..gpu.bls import G1RunningSum
+
+    dev_name = str(device)
+    where = card() if dev_name.startswith("cuda") else {
+        "platform": "cpu", "name": "cpu (plain versions)", "power_limit": None,
+    }
+    digest = Digest.of(b"bench agg qc block digest")
+    msg = digest.to_bytes()
+    out: dict = {"device": where}
+    p50s: dict[int, float] = {}
+    for n in sizes:
+        verifier = make_device_verifier("bls", "cuda", device=device)  # fresh memo
+        sks = [BlsSecretKey(i + 2) for i in range(n)]
+        pks = sorted(PublicKey(sk.public_key().to_bytes()) for sk in sks)
+        sk_by_pk = {PublicKey(sk.public_key().to_bytes()): sk for sk in sks}
+        quorum = 2 * n // 3 + 1
+        signers = pks[:quorum]
+        votes = [(pk, Signature(sk_by_pk[pk].sign(msg).to_bytes())) for pk in signers]
+        verifier.precompute([pk.to_bytes() for pk in signers])
+        sig_points = [
+            G1Point.from_bytes(sig.to_bytes(), subgroup_check=False) for _, sig in votes
+        ]
+        acc = G1RunningSum(device=device)
+        for pt in sig_points:
+            acc.add(pt)
+        running_sum = acc.snapshot()  # what the accumulator holds
+        _check(running_sum == G1Point.sum(sig_points),
+               f"agg qc n={n}: the running sum equals the host sum")
+
+        def timed(fn, count=reps):
+            samples = []
+            for _ in range(count):
+                t0 = time.perf_counter()
+                fn()
+                samples.append((time.perf_counter() - t0) * 1e3)
+            samples.sort()
+            return samples
+
+        def form_compact():
+            bitmap = make_signer_bitmap(signers, pks)
+            qc = QC(hash=digest, round=3, votes=[],
+                    agg_sig=Signature(running_sum.to_bytes()), signers=bitmap)
+            return qc.wire_size()
+
+        def form_votelist():
+            return QC(hash=digest, round=3, votes=list(votes)).wire_size()
+
+        compact_bytes = form_compact()
+        votelist_bytes = form_votelist()
+        form_c = timed(form_compact)
+        form_v = timed(form_votelist)
+
+        agg_bytes = running_sum.to_bytes()
+        pk_bytes = [pk.to_bytes() for pk in signers]
+        _check(verifier.verify_aggregate_msg(digest, pk_bytes, agg_bytes),
+               f"agg qc n={n}: the compact QC verifies")
+        _check(verifier.verify_shared_msg(digest, votes),
+               f"agg qc n={n}: the vote-list QC verifies")
+        bad = list(votes)
+        bad[0] = (bad[0][0], votes[1][1])
+        _check(not verifier.verify_shared_msg(digest, bad),
+               f"agg qc n={n}: a vote-list QC with a swapped signature is rejected")
+        fresh = make_cpu_verifier("bls")  # cold: the first-bitmap key sum
+        fresh.precompute(pk_bytes)
+        t0 = time.perf_counter()
+        _check(fresh.verify_aggregate_msg(digest, pk_bytes, agg_bytes),
+               f"agg qc n={n}: cold compact verify")
+        cold = (time.perf_counter() - t0) * 1e3
+        verify_c = timed(lambda: verifier.verify_aggregate_msg(digest, pk_bytes, agg_bytes))
+        verify_v = timed(lambda: verifier.verify_shared_msg(digest, votes))
+        p50s[n] = verify_c[len(verify_c) // 2]
+        out[str(n)] = {
+            "qc_bytes_compact": compact_bytes,
+            "qc_bytes_votelist": votelist_bytes,
+            "form_p50_ms": round(form_c[len(form_c) // 2], 3),
+            "form_votelist_p50_ms": round(form_v[len(form_v) // 2], 3),
+            "verify_p50_ms": round(verify_c[len(verify_c) // 2], 3),
+            "verify_cold_ms": round(cold, 3),
+            "verify_votelist_p50_ms": round(verify_v[len(verify_v) // 2], 3),
+        }
+    lo, hi = min(sizes), max(sizes)
+    out["verify_p50_ms"] = round(p50s[hi], 3)
+    out["flat_ratio"] = round(p50s[hi] / max(p50s[lo], 1e-9), 3)
+    return out
+
+
 def run(device: str = "cuda", batch: int = BATCH, rounds: int = ROUNDS,
         reps: int = LAT_REPS, qc_sizes=QC_SIZES, tc: int = TC_QUORUM) -> dict:
     """Every block on one verifier; the result ``main`` prints."""
@@ -388,6 +505,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=LAT_REPS)
     ap.add_argument("--qc-sizes", default=",".join(map(str, QC_SIZES)))
     ap.add_argument("--tc", type=int, default=TC_QUORUM)
+    ap.add_argument("--agg-qc", action="store_true",
+                    help="run bench_agg_qc (BLS compact vs vote-list QCs) instead")
     args = ap.parse_args(argv)
     import torch
 
@@ -395,6 +514,9 @@ def main(argv=None) -> int:
         print("bench.verifier: no CUDA device; pass --device cpu to run the "
               "plain versions", file=sys.stderr)
         return 2
+    if args.agg_qc:
+        print(json.dumps(bench_agg_qc(device=args.device)))
+        return 0
     qc_sizes = tuple(int(x) for x in args.qc_sizes.split(",") if x)
     result = run(args.device, args.batch, args.rounds, args.reps, qc_sizes, args.tc)
     print(json.dumps(result))

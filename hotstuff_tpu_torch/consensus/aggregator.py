@@ -25,21 +25,24 @@ Timeouts are verified on entry by the core (like the reference,
 core.rs:288), so ``TCMaker`` accumulates pre-verified entries and emits
 the TC without re-verification.
 
-A copy of ``hotstuff_tpu.consensus.aggregator`` for Ed25519 committees:
-the BLS compact-certificate emission and its running G1 signature sum
-(``_SigAccumulator``) are not ported, so a BLS committee raises at
-construction.  The ``compact_qcs``/``compact_tcs`` counters stay 0.
+A copy of ``hotstuff_tpu.consensus.aggregator``, whole.  The running G1
+signature sum of a BLS committee (``_SigAccumulator``) runs on the card
+(``gpu/bls.py`` ``G1RunningSum``) when one is there, chosen as the JAX
+package chooses its device; once chosen, a failure to build or launch
+raises instead of falling back to the host sum.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import sys
 
 from ..crypto import Digest, PublicKey, Signature
 from ..crypto.service import VerifierBackend
 from .config import Committee
 from .errors import AuthorityReuse, ConsensusError, InvalidSignature, UnknownAuthority
-from .messages import QC, TC, Round, Timeout, Vote
+from .messages import QC, TC, Round, Timeout, Vote, make_signer_bitmap
 
 log = logging.getLogger(__name__)
 
@@ -49,12 +52,89 @@ ROUND_LOOKAHEAD = 64
 MAX_DIGEST_CELLS = 8
 
 
-def _check_scheme(committee: Committee) -> None:
-    """BLS committees aggregate their certificates into the compact form,
-    whose G1 sums need the BLS12-381 host crypto the port does not have
-    yet.  Ed25519 committees always emit vote lists."""
-    if getattr(committee, "scheme", "ed25519") == "bls":
-        raise NotImplementedError("BLS certificate aggregation is not ported yet")
+def _compact_enabled(committee: Committee) -> bool:
+    """Compact (one-agg-sig + signer-bitmap) certificate emission:
+    default ON for BLS committees — their G1 signatures aggregate —
+    HOTSTUFF_COMPACT_QC=0 reverts to the vote-list form.  Ed25519
+    committees always emit vote lists (no aggregate form; the wire
+    layer rejects compact certificates for them outright)."""
+    return (
+        getattr(committee, "scheme", "ed25519") == "bls"
+        and os.environ.get("HOTSTUFF_COMPACT_QC", "1").strip() != "0"
+    )
+
+
+class _SigAccumulator:
+    """Running Σ sig_i over a cell's vote list: one G1 add per
+    arriving vote, so the aggregate signature already exists when quorum
+    lands — O(1) marginal work per vote instead of an O(n) sum at QC
+    formation.
+
+    The sum runs on the card (``gpu.bls.G1RunningSum``, one kernel launch
+    per vote) when HOTSTUFF_AGG_DEVICE_SUM=1 forces it (raising without a
+    card), or, with the variable unset, when ``torch`` is loaded and a
+    CUDA device is there; HOTSTUFF_AGG_DEVICE_SUM=0, or no card, takes an
+    incremental host Jacobian add.  Once the device is chosen, a failure
+    to build or launch raises: the JAX package drops to the host sum
+    quietly.  Per-signature decompress skips the r-torsion
+    ladder — the emitted aggregate is subgroup-checked by every verifier
+    (the same soundness argument as ``BlsVerifier.verify_shared_msg``).
+
+    ``count`` mirrors the number of accumulated signatures; the owning
+    cell compares it against its vote list to detect evict/replace
+    divergence and rebuilds from the surviving votes (rare, adversarial
+    path)."""
+
+    def __init__(self):
+        self.count = 0
+        self._device = None
+        self._host = None
+        if self._want_device():
+            from ..gpu.bls import G1RunningSum
+
+            self._device = G1RunningSum(device="cuda")
+        if self._device is None:
+            from ..crypto.bls.curve import G1Point
+
+            self._host = G1Point.identity()
+
+    @staticmethod
+    def _want_device() -> bool:
+        env = os.environ.get("HOTSTUFF_AGG_DEVICE_SUM", "").strip().lower()
+        if env:
+            return env not in ("0", "off", "no", "false")
+        # unset: a process that never loaded torch has no card in use
+        if "torch" not in sys.modules:
+            return False
+        import torch
+
+        return torch.cuda.is_available()
+
+    def add(self, sig: Signature) -> bool:
+        """Accumulate one signature; False when it doesn't decompress
+        (a spoofed blob — the cell falls back to rebuild-at-quorum)."""
+        from ..crypto.bls.curve import G1Point
+
+        pt = G1Point.from_bytes(sig.to_bytes(), subgroup_check=False)
+        if pt is None:
+            return False
+        if self._device is not None:
+            self._device.add(pt)
+        else:
+            self._host = self._host + pt
+        self.count += 1
+        return True
+
+    def aggregate(self) -> bytes | None:
+        """The compressed 48-byte aggregate, or None for the empty sum."""
+        pt = (
+            self._device.snapshot()
+            if self._device is not None
+            else self._host
+        )
+        if pt.inf:
+            return None
+        return pt.to_bytes()
 
 
 class AggregationBounds(ConsensusError):
@@ -87,6 +167,10 @@ class QCMaker:
         # empty at quorum, the batch dispatch is skipped — every
         # signature in the certificate already passed.
         self.unverified: set[PublicKey] = set()
+        # Running Σ sig for compact-QC emission (BLS committees only;
+        # built lazily on the first vote).  None when the committee
+        # scheme has no aggregate form or compact emission is off.
+        self._acc: _SigAccumulator | None = None
 
     def append(
         self,
@@ -126,6 +210,13 @@ class QCMaker:
             self.unverified.add(author)
         self.used.add(author)
         self.votes.append((author, vote.signature))
+        if _compact_enabled(committee):
+            # O(1) marginal work per vote: the aggregate signature is
+            # ready the moment quorum lands
+            if self._acc is None:
+                self._acc = _SigAccumulator()
+            self._acc.add(vote.signature)  # failure -> count diverges,
+            # _compact_qc rebuilds from the (verified) survivors
         self.weight += stake
         if self.weight < committee.quorum_threshold():
             return None
@@ -142,7 +233,43 @@ class QCMaker:
 
         self.verified = True
         self.weight = 0  # a QC is made at most once
+        if _compact_enabled(committee):
+            qc = self._compact_qc(vote, committee)
+            if qc is not None:
+                return qc
         return QC(hash=vote.hash, round=vote.round, votes=list(self.votes))
+
+    def _compact_qc(self, vote: Vote, committee: Committee) -> QC | None:
+        """Emit the constant-size form: one aggregate signature + signer
+        bitmap.  None (vote-list fallback) when the signer set doesn't
+        map onto the committee bitmap or no aggregate can be formed —
+        correctness never depends on the compact path."""
+        try:
+            bitmap = make_signer_bitmap(
+                [pk for pk, _ in self.votes], committee.sorted_keys()
+            )
+        except (UnknownAuthority, ValueError):
+            return None
+        if self._acc is None or self._acc.count != len(self.votes):
+            # evict/replace (or a non-decompressing spoof) diverged the
+            # running sum from the vote list: rebuild from the survivors
+            # — all of them just passed verification
+            acc = _SigAccumulator()
+            if not all(acc.add(sig) for _, sig in self.votes):
+                return None
+            self._acc = acc
+        agg = self._acc.aggregate()
+        if agg is None:
+            return None
+        if self.owner is not None:
+            self.owner.compact_qcs += 1
+        return QC(
+            hash=vote.hash,
+            round=vote.round,
+            votes=[],
+            agg_sig=Signature(agg),
+            signers=bitmap,
+        )
 
     def check_any_valid(self, digest: Digest, verifier: VerifierBackend) -> bool:
         """Verify the stored signatures against the cell's vote digest;
@@ -179,6 +306,7 @@ class QCMaker:
                 )
                 self.votes[i] = (vote.author, vote.signature)
                 self.unverified.discard(pk)
+                self._acc = None  # running sum diverged; rebuilt on emit
             return
 
     def _evict_invalid(
@@ -200,6 +328,7 @@ class QCMaker:
                 self.used.discard(pk)
                 self.suspect.add(pk)
         self.votes = [v for v, valid in zip(self.votes, ok) if valid]
+        self._acc = None  # running sum diverged; rebuilt on emit
         # every survivor just passed a per-signature check
         self.unverified.clear()
         self.weight = sum(committee.stake(pk) for pk, _ in self.votes)
@@ -235,7 +364,48 @@ class TCMaker:
         if self.weight < committee.quorum_threshold():
             return None
         self.weight = 0  # a TC is made at most once
+        if _compact_enabled(committee):
+            tc = self._compact_tc(timeout.round, committee)
+            if tc is not None:
+                return tc
         return TC(round=timeout.round, votes=list(self.votes))
+
+    def _compact_tc(self, round_: Round, committee: Committee) -> TC | None:
+        """Compact TC: one (agg sig, signer bitmap) per distinct high-QC
+        round.  Honest storms collapse to one or two groups, so the wire
+        form is ~groups x (48 + bitmap) bytes instead of n x 144.
+        Entries here were verified on entry by the core, so the host
+        aggregation is over genuine signatures.  Vote-list fallback on
+        any mapping/decompress failure, as with the QC path."""
+        from ..crypto.bls.curve import G1Point
+
+        ordered = committee.sorted_keys()
+        by_hq: dict[Round, list[tuple[PublicKey, Signature]]] = {}
+        for pk, sig, hq in self.votes:
+            by_hq.setdefault(hq, []).append((pk, sig))
+        groups: list[tuple[Round, Signature, bytes]] = []
+        for hq in sorted(by_hq):
+            members = by_hq[hq]
+            try:
+                bitmap = make_signer_bitmap(
+                    [pk for pk, _ in members], ordered
+                )
+            except (UnknownAuthority, ValueError):
+                return None
+            pts = []
+            for _, sig in members:
+                pt = G1Point.from_bytes(sig.to_bytes(), subgroup_check=False)
+                if pt is None:
+                    return None
+                pts.append(pt)
+            agg = G1Point.sum(pts)
+            if agg.inf:
+                return None
+            groups.append((hq, Signature(agg.to_bytes()), bitmap))
+        if self.owner is not None:
+            self.owner.compact_tcs += 1
+        return TC(round=round_, votes=[], groups=groups)
+
 
 class Aggregator:
     """Per-round certificate accumulators with cleanup and DoS bounds.
@@ -254,8 +424,6 @@ class Aggregator:
         verifier: VerifierBackend,
         self_key: PublicKey | None = None,
     ):
-        for com in committee.committees():
-            _check_scheme(com)
         self.committee = committee
         self.verifier = verifier
         self.self_key = self_key
@@ -284,8 +452,12 @@ class Aggregator:
         # from one author — conflicting validly-signed votes).
         self.qc_rejects = 0
         self.vote_conflicts = 0
-        # wire size of the most recent QC (the scaling SUMMARY's
-        # qc_bytes column)
+        # Compact-certificate accounting: certificates emitted
+        # in the aggregated form, and the wire size of the most recent
+        # QC (compact or vote-list — the scaling SUMMARY's qc_bytes
+        # column reads this to show the O(1)-vs-O(n) gap).
+        self.compact_qcs = 0
+        self.compact_tcs = 0
         self.qc_wire_bytes = 0
 
     def add_vote(
@@ -521,5 +693,7 @@ class Aggregator:
             "cells_evicted_total": self.cells_evicted,
             "qc_rejects_total": self.qc_rejects,
             "vote_conflicts_total": self.vote_conflicts,
+            "compact_qcs_total": self.compact_qcs,
+            "compact_tcs_total": self.compact_tcs,
             "qc_wire_bytes": self.qc_wire_bytes,
         }

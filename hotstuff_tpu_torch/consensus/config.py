@@ -5,9 +5,8 @@ Parity target: reference ``consensus/src/config.rs:10-85`` — ``Parameters``
 public keys to {stake, address} with epoch number and the BFT quorum rule
 ``2N/3 + 1`` (= N - f for N = 3f + 1 + k).
 
-A copy of ``hotstuff_tpu.consensus.config`` for Ed25519 committees: the
-BLS proof-of-possession check needs the BLS12-381 host crypto, which the
-port does not have yet, so ``verify_pops`` raises for a BLS committee.
+A copy of ``hotstuff_tpu.consensus.config``, whole (the BLS
+proof-of-possession check included).
 """
 
 from __future__ import annotations
@@ -29,6 +28,12 @@ def parse_address(s: str) -> Address:
 
 def format_address(a: Address) -> str:
     return f"{a[0]}:{a[1]}"
+
+
+#: (public key, proof of possession) pairs that passed
+#: ``Committee.verify_pops`` in this process, bounded
+_VERIFIED_POPS: set[tuple[bytes, bytes]] = set()
+_VERIFIED_POPS_CAP = 4096
 
 
 @dataclass
@@ -191,11 +196,35 @@ class Committee:
     def verify_pops(self) -> None:
         """BLS committees: require a valid proof of possession per
         authority (see ``Authority.pop``); no-op for ed25519 (per-vote
-        signatures there already prove key possession).  The BLS check
-        is not ported yet: a BLS committee raises NotImplementedError."""
+        signatures there already prove key possession).  Raises
+        ``InvalidCommittee``.  Cost: one pairing equality per member,
+        paid once at spawn, and once a process: a (key, proof) pair that
+        verified is remembered (``_VERIFIED_POPS``), so the co-located
+        nodes of one committee (``run-many``) do not each repeat every
+        member's check, which the JAX package does (64 nodes x 64
+        pairings at boot).  The verdict is the same: only pairs that
+        passed are kept, and verification is deterministic."""
         if self.scheme != "bls":
             return
-        raise NotImplementedError("BLS committees are not ported yet")
+        from ..crypto.bls import BlsPublicKey, BlsSignature, verify_possession
+
+        for pk, auth in self.authorities.items():
+            if auth.pop is None:
+                raise InvalidCommittee(
+                    f"BLS committee member {pk} has no proof of possession"
+                )
+            key = (pk.to_bytes(), bytes(auth.pop))
+            if key in _VERIFIED_POPS:
+                continue
+            pub = BlsPublicKey.from_bytes(pk.to_bytes())
+            proof = BlsSignature.from_bytes(auth.pop)
+            if pub is None or proof is None or not verify_possession(pub, proof):
+                raise InvalidCommittee(
+                    f"invalid BLS proof of possession for {pk}"
+                )
+            if len(_VERIFIED_POPS) >= _VERIFIED_POPS_CAP:
+                _VERIFIED_POPS.clear()
+            _VERIFIED_POPS.add(key)
 
     def for_round(self, round_: int) -> "Committee":
         """Committee in effect for ``round_``.  A bare Committee is a

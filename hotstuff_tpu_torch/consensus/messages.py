@@ -17,10 +17,10 @@ TC entries sign the timeout digest for (tc.round, entry.high_qc_round)
 (messages.rs:305-311).
 
 A copy of ``hotstuff_tpu.consensus.messages``: the same digests, wire
-bytes and verification rules.  The compact (aggregated BLS) certificate
-forms stay as wire formats; the port's Ed25519 backends have no
-``verify_aggregate_msg``, so a compact certificate never verifies, as
-under the JAX package's Ed25519 backends.
+bytes and verification rules.  A compact (aggregated BLS) certificate
+verifies through ``BlsVerifier.verify_aggregate_msg``; the Ed25519
+backends have none, so under them it never verifies, as in the JAX
+package.
 """
 
 from __future__ import annotations

@@ -64,7 +64,11 @@ the arena's column addresses on the CPU route.  With telemetry on
 (``hotstuff_tpu_torch.telemetry``) the service registers the reference's
 instruments: claims submitted and unique, the wave-size histogram, the
 device and host wall seconds, the waves a route and the ingest
-counters.  Not ported: the BLS aggregate-preferring route.
+counters.  Backends that prefer aggregate verification of shared claims
+(BLS: one pairing equality a claim instead of one a signature) advertise
+``prefers_aggregate = True`` and get their own branch of
+``eval_claims_sync``; ``always_offload`` backends always take the worker
+threads.
 """
 
 from __future__ import annotations
@@ -238,10 +242,59 @@ def flatten_claims(claims: list) -> tuple[list, list, list, list]:
 
 def eval_claims_sync(backend, claims: list) -> list[bool]:
     """Synchronous claim evaluation on ``backend`` (the inline path and
-    the worker-thread body): everything flattens into a single batch —
-    one native batch equation on a ``supports_flat_batch`` backend,
+    the worker-thread body).  Shared claims go through the backend's
+    aggregate check when it prefers one (BLS: one pairing equality a
+    claim); otherwise everything flattens into a single batch — one
+    native batch equation on a ``supports_flat_batch`` backend,
     ``verify_many`` otherwise or when that equation fails — and each
     claim's verdict is ``all()`` over its own span."""
+    if getattr(backend, "prefers_aggregate", False):
+        with _spans.span("agg.verify"):
+            from .digest import Digest
+            from .keys import PublicKey
+            from .signature import Signature
+
+            out: list[bool] = []
+            singles: list[tuple[int, tuple]] = []
+            for claim in claims:
+                if claim[0] == "shared":
+                    votes = [
+                        (PublicKey(pk), Signature(sig))
+                        for pk, sig in claim[2]
+                    ]
+                    # zero signatures prove nothing (flatten path below)
+                    out.append(
+                        bool(votes)
+                        and bool(
+                            backend.verify_shared_msg(Digest(claim[1]), votes)
+                        )
+                    )
+                elif claim[0] == "agg":
+                    # compact certificate: pre-aggregated signature +
+                    # bitmap-resolved signer keys — ONE pairing however
+                    # large the committee.  claim[2] is the agg-sig
+                    # BYTES (not a vote list): it must never reach the
+                    # flatten/verify_many shapes.
+                    fn = getattr(backend, "verify_aggregate_msg", None)
+                    out.append(
+                        fn is not None
+                        and bool(
+                            fn(Digest(claim[1]), list(claim[3]), claim[2])
+                        )
+                    )
+                else:
+                    singles.append((len(out), claim))
+                    out.append(False)  # placeholder
+            if singles:
+                ok = backend.verify_many(
+                    [c[1] for _, c in singles],
+                    [c[2] for _, c in singles],
+                    [c[3] for _, c in singles],
+                )
+                for (pos, _), valid in zip(singles, ok):
+                    out[pos] = bool(valid)
+            return out
+
     if any(c[0] == "agg" for c in claims):
         # non-aggregating backend (ed25519) handed a compact
         # certificate: resolve each "agg" claim directly (False when the
@@ -1059,11 +1112,12 @@ class AsyncVerifyService:
             return "cpu"
         occupancy = len(self._inflight)
         forced = bool(os.environ.get("HOTSTUFF_FORCE_DEVICE_ROUTE"))
+        offload = getattr(self.backend, "always_offload", False)
         if occupancy >= self.pipeline_depth:
             # depth cap: queue when the device is (or is forced to be)
             # the right route, otherwise serve from the CPU.  No probe
             # here — a probe would need the slot we don't have.
-            if forced or self._device_ewma_s is None:
+            if forced or offload or self._device_ewma_s is None:
                 return "wait"
             marginal = self._device_ewma_s * PIPELINE_MARGINAL_COST
             if marginal <= self._cpu_estimate_s(n_sigs):
@@ -1073,6 +1127,11 @@ class AsyncVerifyService:
             # profiling knob: pin warmed-up waves to the device so the waterfall measures the
             # dispatch pipeline, not the cost-model's mood — gated AFTER
             # the readiness/overdue/depth checks, which stay load-bearing
+            return "device"
+        if offload:
+            # backends whose offload frees the loop unconditionally
+            # (BLS native pairings: ctypes releases the GIL) — no
+            # cost-model routing needed
             return "device"
         if self._device_ewma_s is None:
             return "device"  # optimistic first dispatch

@@ -3,8 +3,8 @@
 A copy of ``hotstuff_tpu.node.config`` (reference
 ``node/src/config.rs:21-85``): ``Secret`` keypair files, committee files
 and parameters files, written byte for byte as the JAX package writes
-them.  Only the Ed25519 scheme's keys are ported: ``Secret.new("bls")``
-and reading a BLS key file raise through the scheme registry.
+them, for both schemes (a BLS key file carries its proof of
+possession).
 """
 
 from __future__ import annotations
@@ -41,8 +41,13 @@ def _write_json(path: str, data: dict) -> None:
 class Secret:
     """A node's identity: {name, secret, scheme[, pop]} as base64 JSON
     (reference node/src/config.rs:52-68; ``scheme`` is this framework's
-    addition — "ed25519" default).  ``pop`` (a BLS key's proof of
-    possession) is carried through when a file has one."""
+    addition — "ed25519" default, "bls" for BLS12-381 committees).
+
+    For BLS keys the file also records the proof of possession: it is
+    public committee material (``Authority.pop``) that the operator
+    pastes into the committee file next to the public key — publishing
+    a BLS key without it is useless, since ``Consensus.spawn`` refuses
+    PoP-less BLS committees (rogue-key defence)."""
 
     def __init__(
         self,
@@ -52,14 +57,19 @@ class Secret:
         pop: bytes | None = None,
     ):
         self.name = name
-        self.secret = secret
+        self.secret = secret  # SecretKey (ed25519) or OpaqueSecret (bls)
         self.scheme = scheme
         self.pop = pop
 
     @classmethod
     def new(cls, scheme: str = "ed25519") -> "Secret":
         name, secret = keygen_production(scheme)
-        return cls(name, secret, scheme)
+        pop = None
+        if scheme == "bls":
+            from ..crypto.scheme import bls_pop
+
+            pop = bls_pop(secret.to_bytes())
+        return cls(name, secret, scheme, pop)
 
     def write(self, path: str) -> None:
         import base64

@@ -34,9 +34,15 @@ and, with ``--journal-dir``, a ``<node>-campaign.json`` ring beside the
 journals.  It acts where telemetry is on (``--metrics-port``,
 ``--journal-dir``, ``--profile`` or ``HOTSTUFF_TELEMETRY``).
 
+``--scheme bls`` on ``keys`` and ``deploy`` makes BLS12-381 keys (each
+key file carries its proof of possession); a BLS committee's nodes
+aggregate their certificates into the compact form, with the G1 sums on
+the card's kernels under ``--verifier cuda``.  ``run-many`` takes the
+scheme from its files, as in the JAX package.
+
 Flags of planes the port does not have yet — ``--fault-plane``,
-``--adversary``, ``--mesh-devices`` and ``--scheme bls`` — are accepted
-by the parser and refused before boot with exit code 2.  So are ``run``,
+``--adversary`` and ``--mesh-devices`` — are accepted by the parser and
+refused before boot with exit code 2.  So are ``run``,
 ``run-many`` and ``deploy`` when an env knob would switch such a plane
 on (``HOTSTUFF_FAULTS``, ``HOTSTUFF_ADVERSARY``, or ``HOTSTUFF_WAN_SPEC``
 on the asyncio transport; ``consensus.unported_env_plane``).
@@ -44,8 +50,10 @@ on the asyncio transport; ``consensus.unported_env_plane``).
 ``run`` and ``run-many`` stop cleanly on SIGTERM or SIGINT: every node
 shuts down, and the process logs the wave service's last stats line and,
 when the CUDA kernels were loaded, their launch counts
-(``Kernel launches: verify_compressed=N dual_scalar_mult=M``), which it
-also logs once every node has booted (``Kernel launches at boot: ...``).
+(``Kernel launches: dual_scalar_mult=M verify_compressed=N`` and, for
+the G1 kernels, ``g1_aggregate=A g1_running_add=B g1_scalar_mult=C``),
+which it also logs once every node has booted (``Kernel launches at
+boot: ...``).
 """
 
 from __future__ import annotations
@@ -184,8 +192,6 @@ def _unported(args) -> str | None:
         value = getattr(args, dest, None)
         if value is not None and value is not False:
             return flag
-    if getattr(args, "scheme", "ed25519") != "ed25519":
-        return f"--scheme {args.scheme}"
     return None
 
 
@@ -288,14 +294,16 @@ async def _report_verifier(service) -> None:
 
 
 def _log_launches(what: str) -> None:
-    """Log the CUDA kernels' launch counts so far, when they were loaded."""
-    dsm = sys.modules.get("hotstuff_tpu_torch.gpu.dsm")
-    if dsm is not None:
-        log.info(
-            "%s: %s",
-            what,
-            " ".join(f"{k}={v}" for k, v in sorted(dsm.launches.items())),
-        )
+    """Log the CUDA kernels' launch counts so far, those of each kernel
+    module that was loaded (the Ed25519 verify kernels, then the G1
+    kernels)."""
+    counts = []
+    for name in ("hotstuff_tpu_torch.gpu.dsm", "hotstuff_tpu_torch.gpu.bls"):
+        mod = sys.modules.get(name)
+        if mod is not None:
+            counts += [f"{k}={v}" for k, v in sorted(mod.launches.items())]
+    if counts:
+        log.info("%s: %s", what, " ".join(counts))
 
 
 async def _serve_until_stopped(nodes, boot, metrics_port=None) -> None:
@@ -554,18 +562,22 @@ async def _run_many(args) -> None:
 async def _deploy_testbed(
     nodes: int, base_port: int, verifier: str, device=None,
     transport: str = "asyncio", metrics_port: int | None = None,
+    scheme: str = "ed25519",
 ) -> None:
     """In-process local testbed (reference main.rs:102-148): n fresh
-    keypairs, committee.json + node_i.json on disk, every node spawned as
-    a task in this process, commit channels drained.  A leftover .db_*
-    of an earlier deployment belongs to another committee (the keys are
-    fresh), so the provenance check in ``Node.new`` discards it."""
-    keys = [Secret.new() for _ in range(nodes)]
+    keypairs of ``scheme``, committee.json + node_i.json on disk, every
+    node spawned as a task in this process, commit channels drained.  A
+    leftover .db_* of an earlier deployment belongs to another committee
+    (the keys are fresh), so the provenance check in ``Node.new``
+    discards it."""
+    keys = [Secret.new(scheme) for _ in range(nodes)]
     committee = Committee.new(
         [
             (secret.name, 1, ("127.0.0.1", base_port + i))
             for i, secret in enumerate(keys)
-        ]
+        ],
+        scheme=scheme,
+        pops={s.name: s.pop for s in keys if s.pop is not None},
     )
     write_committee(committee, ".committee.json")
     write_parameters(Parameters(), ".parameters.json")
@@ -703,7 +715,8 @@ def main(argv=None) -> int:
         "--scheme",
         choices=["ed25519", "bls"],
         default="ed25519",
-        help="signature scheme (bls: not ported yet, refused)",
+        help="signature scheme (the committee file records the same "
+        "scheme; BLS gives constant-cost aggregate QC verification)",
     )
 
     p_run = sub.add_parser("run", help="run a node")
@@ -775,7 +788,7 @@ def main(argv=None) -> int:
         "--scheme",
         choices=["ed25519", "bls"],
         default="ed25519",
-        help="signature scheme (bls: not ported yet, refused)",
+        help="signature scheme of the testbed's fresh keys",
     )
     _add_node_flags(p_dep)
 
@@ -809,7 +822,7 @@ def main(argv=None) -> int:
         asyncio.run(
             _deploy_testbed(
                 args.nodes, args.base_port, args.verifier, args.device,
-                args.transport, _metrics_port(args),
+                args.transport, _metrics_port(args), args.scheme,
             )
         )
         return 0

@@ -11,10 +11,12 @@ node.
 
 ``_DeviceDispatch``, ``LazyDeviceVerifier`` and ``make_verifier`` have
 the device kind ``"cuda"``, which materializes the port's
-``gpu.ed25519.BatchVerifier(min_device_batch=64)``; ``"cpu"`` is the
-host verifier.  The mesh kinds (``"tpu-sharded"``, ``"mesh"``) and BLS
-device verifiers are not ported yet and raise, and so does a
-mixed-scheme schedule (its dual verifier needs BLS).  ``Node.new`` has
+``gpu.ed25519.BatchVerifier(min_device_batch=64)`` for an Ed25519
+committee and ``crypto.scheme.make_device_verifier("bls", "cuda")`` (the
+G1 sums on the card) for a BLS one; ``"cpu"`` is the host verifier.  The
+mesh kinds (``"tpu-sharded"``, ``"mesh"``) are not ported yet and raise.
+A mixed-scheme schedule verifies through the dual router
+(``crypto.scheme.make_dual_verifier``).  ``Node.new`` has
 the reference's telemetry, flight-recorder journal and work-stats
 branches (a ``NodeTelemetry`` handle when telemetry is on, a ``Journal``
 when journaling is, a ``CountingVerifier`` and the ``Work stats:`` probe
@@ -39,7 +41,11 @@ import shutil
 from ..consensus import Consensus, Parameters
 from ..consensus.config import CommitteeSchedule
 from ..crypto.digest import sha512_trunc
-from ..crypto.scheme import make_cpu_verifier, make_signing_service
+from ..crypto.scheme import (
+    make_cpu_verifier,
+    make_device_verifier,
+    make_signing_service,
+)
 from ..crypto.service import CpuVerifier, VerifierBackend
 from ..store import Store
 from .config import ConfigError, Secret, read_committee, read_parameters
@@ -219,16 +225,15 @@ def make_verifier(
     """The verifier backend a node uses: ``"cpu"`` or ``"cuda"``.
     ``device`` (``"cuda"`` kind only) defaults to the current CUDA
     device and raises without one; ``device="cpu"`` runs the kernels'
-    plain versions."""
+    plain versions.  A BLS committee's ``"cuda"`` verifier sums vote
+    signatures on the card's G1 kernels, with the pairing on the host."""
     if kind == "cpu":
         return make_cpu_verifier(scheme)
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"the '{kind}' verifier is not ported yet")
     if kind == "cuda":
-        if scheme != "ed25519":
-            raise NotImplementedError(
-                f"a {scheme} device verifier is not ported yet"
-            )
+        if scheme == "bls":
+            return make_device_verifier(scheme, kind, device=device)
         return LazyDeviceVerifier(kind, device=device)
     raise ValueError(f"unknown verifier backend '{kind}'")
 
@@ -287,25 +292,47 @@ class Node:
             committee = CommitteeSchedule([(1, committee)])
         secret = Secret.read(key_file)
         schemes = {c.scheme for c in committee.committees()}
-        if len(schemes) != 1:
-            # a scheme changeover at an epoch boundary verifies both
-            # schemes through the dual router, which needs BLS
-            raise NotImplementedError(
-                "mixed-scheme schedules are not ported yet"
-            )
-        if secret.scheme != next(iter(schemes)):
-            raise ConfigError(
-                f"key file scheme '{secret.scheme}' does not match the "
-                f"committee scheme '{next(iter(schemes))}'"
-            )
+        if len(schemes) == 1:
+            if secret.scheme != next(iter(schemes)):
+                raise ConfigError(
+                    f"key file scheme '{secret.scheme}' does not match the "
+                    f"committee scheme '{next(iter(schemes))}'"
+                )
+        else:
+            # Mixed-scheme schedule (scheme changeover at an epoch
+            # boundary): identities are per-scheme — this node signs
+            # under its own key's scheme and must be a member of at
+            # least one epoch using it; verification must handle BOTH
+            # schemes (old-epoch certificates keep verifying after the
+            # changeover), so the verifier is the dual router.
+            my_epochs = [
+                c for c in committee.committees()
+                if secret.name in c.authorities
+            ]
+            if not my_epochs:
+                raise ConfigError(
+                    "key is not a member of any epoch in the schedule"
+                )
+            if any(c.scheme != secret.scheme for c in my_epochs):
+                raise ConfigError(
+                    f"key file scheme '{secret.scheme}' does not match an "
+                    "epoch this key belongs to"
+                )
         parameters = (
             read_parameters(parameters_file) if parameters_file else Parameters()
         )
         # before the store opens: a "cuda" verifier without a CUDA
         # device raises here, with nothing on disk touched
-        verifier = make_verifier(
-            verifier_backend, next(iter(schemes)), device=device
-        )
+        if len(schemes) == 1:
+            verifier = make_verifier(
+                verifier_backend, next(iter(schemes)), device=device
+            )
+        else:
+            from ..crypto.scheme import make_dual_verifier
+
+            verifier = make_dual_verifier(
+                lambda s: make_verifier(verifier_backend, s, device=device)
+            )
 
         self.store = Store(store_path)
         # Committee-hash provenance: persisted consensus/execution state

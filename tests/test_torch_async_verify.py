@@ -562,8 +562,19 @@ def test_make_verifier_kinds_and_per_device_singletons():
     for kind in ("tpu-sharded", "mesh"):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_verifier(kind)
-    with pytest.raises(NotImplementedError):
-        make_verifier("cuda", scheme="bls")
+    # BLS: the G1 sums on the card's kernels (raising without a card), or
+    # their plain versions, as the JAX package's make_verifier("tpu", "bls")
+    from hotstuff_tpu.crypto.bls.service import BlsVerifier as JaxBlsVerifier
+
+    bls = make_verifier("cuda", scheme="bls", device="cpu")
+    jax_bls = JaxBlsVerifier(aggregator="tpu")
+    assert bls.name == "bls-cuda" and jax_bls.name == "bls-tpu"
+    for attr in ("prefers_aggregate", "always_offload", "dispatch_deadline_s", "device_ready"):
+        assert getattr(bls, attr) == getattr(jax_bls, attr), attr
+    assert bls.async_kind == "bls-cuda-offload"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_verifier("cuda", scheme="bls")
     with pytest.raises(ValueError):
         make_verifier("gpu")
     if not torch.cuda.is_available():

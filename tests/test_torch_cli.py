@@ -63,8 +63,6 @@ def test_keys_writes_a_private_key_file_both_packages_read(tmp_path):
     ["run", "--health", "--fault-plane", "{}"],
     ["run", "--mesh-devices", "2"],
     ["run-many", "--profile", "--health", "--mesh-devices", "2"],
-    ["deploy", "--scheme", "bls"],
-    ["keys", "--scheme", "bls"],
 ], ids=lambda argv: "-".join(a.strip("-") for a in argv[:2]))
 def test_unported_flags_are_refused_before_boot(tmp_path, capsys, argv):
     from hotstuff_tpu_torch.node.main import main
@@ -218,6 +216,128 @@ def test_deploy_boots_a_local_testbed(tmp_path):
     text = (tmp_path / "deploy.log").read_text()
     assert text.count("successfully booted") == 4 and "Traceback" not in text
     assert (tmp_path / ".committee.json").exists() and (tmp_path / ".node_3.json").exists()
+
+
+def _write_bls_committee(tmp_path, n=4, timeout_delay=1_000):
+    """n BLS key files (``Secret.new("bls")``, each with its proof of
+    possession), the committee file carrying the proofs, on OS-assigned
+    ports, and a parameters file."""
+    from hotstuff_tpu_torch.consensus import Committee, Parameters
+    from hotstuff_tpu_torch.node.config import Secret, write_committee, write_parameters
+
+    keys = [Secret.new("bls") for _ in range(n)]
+    committee = Committee.new(
+        [(s.name, 1, ("127.0.0.1", p)) for s, p in zip(keys, _os_ports(n))],
+        scheme="bls", pops={s.name: s.pop for s in keys},
+    )
+    write_committee(committee, str(tmp_path / "committee.json"))
+    write_parameters(Parameters(timeout_delay=timeout_delay, sync_retry_delay=timeout_delay),
+                     str(tmp_path / "parameters.json"))
+    for i, s in enumerate(keys):
+        s.write(str(tmp_path / f"key_{i}.json"))
+    return [str(tmp_path / f"key_{i}.json") for i in range(n)]
+
+
+def _check_bls_files(committee_file, key_files):
+    """The JAX package reads the port's BLS files to the same keys, and
+    its committee passes the proof-of-possession check."""
+    import json
+
+    from hotstuff_tpu.consensus.config import Committee as JaxCommittee
+    from hotstuff_tpu.node.config import Secret as JaxSecret, read_committee as jax_read
+    from hotstuff_tpu_torch.node.config import Secret, read_committee
+
+    committee = jax_read(committee_file)
+    committee = committee if isinstance(committee, JaxCommittee) else committee.committees()[0]
+    assert committee.scheme == "bls" and read_committee(committee_file).scheme == "bls"
+    committee.verify_pops()
+    names = set()
+    for path in key_files:
+        mine, theirs = Secret.read(path), JaxSecret.read(path)
+        assert (mine.scheme, theirs.scheme) == ("bls", "bls") and mine.pop == theirs.pop
+        assert mine.name.to_bytes() == theirs.name.to_bytes()
+        assert mine.secret.to_bytes() == theirs.secret.to_bytes()
+        assert committee.authorities[theirs.name].pop == theirs.pop
+        names.add(theirs.name)
+        with open(path) as f:
+            assert set(json.load(f)) == {"name", "secret", "scheme", "pop"}
+    assert names == set(committee.authorities)
+
+
+@pytest.mark.parametrize("command", ["keys", "deploy", "run-many"])
+def test_bls_scheme_runs_from_the_cli(tmp_path, command):
+    """``--scheme bls`` from the command line: ``keys`` writes a BLS key
+    file as the JAX package's ``Secret.new("bls")`` does (its proof of
+    possession included); ``deploy --scheme bls`` writes a committee the
+    JAX package reads and accepts, and boots it; ``run-many`` on BLS key
+    and committee files (the files decide the scheme, as in the JAX
+    package) commits compact QCs under the client, read by the harness's
+    parser."""
+    from hotstuff_tpu.node.config import Secret as JaxSecret
+
+    if command == "keys":
+        path = str(tmp_path / "node.json")
+        subprocess.run(CLI + ["keys", "--scheme", "bls", "--filename", path], env=ENV, check=True, timeout=60)
+        assert stat.S_IMODE(os.stat(path).st_mode) == 0o600
+        theirs = str(tmp_path / "jax.json")
+        JaxSecret.new("bls").write(theirs)
+        import json
+
+        with open(path) as mine, open(theirs) as ref:
+            assert set(json.load(mine)) == set(json.load(ref))
+        from hotstuff_tpu.consensus.config import Committee as JaxCommittee
+        from hotstuff_tpu.node.config import write_committee as jax_write
+
+        secret = JaxSecret.read(path)
+        jax_write(JaxCommittee.new([(secret.name, 1, ("127.0.0.1", 1))], scheme="bls",
+                                   pops={secret.name: secret.pop}), str(tmp_path / "committee.json"))
+        _check_bls_files(str(tmp_path / "committee.json"), [path])
+        return
+    log_path = tmp_path / f"{command}.log"
+    log = open(log_path, "w")
+    procs = []
+    try:
+        if command == "deploy":
+            base = _free_run(4)
+            procs.append(subprocess.Popen(
+                CLI + ["-vv", "deploy", "--scheme", "bls", "--nodes", "4", "--base-port", str(base),
+                       "--verifier", "cpu"],
+                stdout=log, stderr=subprocess.STDOUT, env=ENV, cwd=tmp_path,
+            ))
+            assert wait_for(lambda: "Deployed 4-node local testbed" in log_path.read_text(), 120)
+        else:
+            keys = _write_bls_committee(tmp_path)
+            common = ["--keys", ",".join(keys), "--committee", str(tmp_path / "committee.json"),
+                      "--store-prefix", str(tmp_path / "db_"), "--parameters",
+                      str(tmp_path / "parameters.json"), "--verifier", "cpu"]
+            procs.append(subprocess.Popen(
+                CLI + ["-vv", "run-many", "--metrics-port", "0", *common],
+                stdout=log, stderr=subprocess.STDOUT, env=ENV,
+            ))
+            assert wait_for(lambda: log_path.read_text().count("successfully booted") == 4, 120)
+            procs.append(spawn_client(tmp_path, rate=200, duration=3))
+            assert procs[1].wait(timeout=60) == 0
+            # every node's telemetry snapshot (one each 5 s) after the load
+            # carries its compact-QC counter
+            seen = log_path.read_text().count("Telemetry snapshot")
+            assert wait_for(lambda: log_path.read_text().count("Telemetry snapshot") >= seen + 4, 60)
+        procs[0].send_signal(signal.SIGTERM)
+        assert procs[0].wait(timeout=30) == 0
+    finally:
+        stop_all(procs)
+        log.close()
+    text = log_path.read_text()
+    assert text.count("successfully booted") == 4 and "Traceback" not in text
+    if command == "deploy":
+        _check_bls_files(str(tmp_path / ".committee.json"),
+                         [str(tmp_path / f".node_{i}.json") for i in range(4)])
+        return
+    from benchmark.logs import LogParser
+
+    _check_bls_files(str(tmp_path / "committee.json"), keys)
+    parser = LogParser([text], [(tmp_path / "client.log").read_text()])
+    assert parser.committed_payloads() > 0
+    assert parser.compact_qcs > 0
 
 
 RE_EPOCH = re.compile(r"Epoch (\d+) activated at round (\d+)")

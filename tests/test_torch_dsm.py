@@ -128,7 +128,7 @@ def test_wrappers_refuse_a_device_without_a_kernel():
 
 
 def test_nothing_built_at_import():
-    assert _build._LIB is None
+    assert not _build._LIBS
     assert _build.library_path().parent == _build.BUILD_DIR
     assert _build.library_path().name.startswith("libhs_dsm_")
 

@@ -421,13 +421,37 @@ def test_aggregators_emit_the_same_certificates():
     assert jstats[0] == 1  # the never-replaced spoof was evicted
 
 
-def test_bls_committees_are_not_ported():
-    keys = _keys(PORT, 4)
-    com = pcons.Committee.new([(pk, 1, ("127.0.0.1", 1)) for pk, _ in keys], scheme="bls")
-    with pytest.raises(NotImplementedError):
-        com.verify_pops()
-    with pytest.raises(NotImplementedError):
-        pcons.Aggregator(com, pcrypto.CpuVerifier())
+def test_bls_committees_check_pops_and_aggregate_as_jax():
+    """A BLS committee: without proofs of possession both packages refuse
+    it (``InvalidCommittee``), with them both accept it, a forged proof is
+    refused by both, and both packages' aggregators take it."""
+    from hotstuff_tpu.consensus.config import InvalidCommittee as JInvalid
+    from hotstuff_tpu.crypto.scheme import bls_keygen as j_keygen, bls_pop as j_pop
+    from hotstuff_tpu_torch.consensus.config import InvalidCommittee as PInvalid
+    from hotstuff_tpu_torch.crypto.scheme import bls_keygen, bls_pop
+
+    pkeys = [bls_keygen(SEED, i) for i in range(4)]
+    jkeys = [j_keygen(SEED, i) for i in range(4)]
+    assert [pk.to_bytes() for pk, _ in pkeys] == [pk.to_bytes() for pk, _ in jkeys]
+    pops = {pk: bls_pop(sk) for pk, sk in pkeys}
+    assert [pops[pk] for pk, _ in pkeys] == [j_pop(sk) for _, sk in jkeys]
+    for lib, keys, invalid in ((PORT, pkeys, PInvalid), (JAX, jkeys, JInvalid)):
+        members = [(pk, 1, ("127.0.0.1", 1 + i)) for i, (pk, _) in enumerate(keys)]
+        bare = lib.c.Committee.new(members, scheme="bls")
+        with pytest.raises(invalid, match="no proof of possession"):
+            bare.verify_pops()
+        proven = lib.c.Committee.new(
+            members, scheme="bls", pops={pk: bls_pop(sk) for pk, sk in keys}
+        )
+        proven.verify_pops()
+        forged = lib.c.Committee.new(
+            members, scheme="bls",
+            pops={pk: bls_pop(keys[(i + 1) % 4][1]) for i, (pk, _) in enumerate(keys)},
+        )
+        with pytest.raises(invalid, match="invalid BLS proof of possession"):
+            forged.verify_pops()
+        agg = lib.c.Aggregator(proven, lib.k.CpuVerifier())
+        assert agg.compact_qcs == agg.compact_tcs == 0
 
 
 def test_scheme_registry_and_signing_service_match():
@@ -440,9 +464,22 @@ def test_scheme_registry_and_signing_service_match():
     sig = signer.sign_sync(digest)
     assert sig.to_bytes() == j_make("ed25519", jsk).sign_sync(jcrypto.Digest(digest.to_bytes())).to_bytes()
     assert isinstance(scheme.make_cpu_verifier("ed25519"), pcrypto.CpuVerifier)
+    # the BLS scheme: the same keys, proofs and signatures as JAX's
+    from hotstuff_tpu.crypto import scheme as jscheme
+
+    bpk, bsecret = scheme.keygen_deterministic("bls", SEED, 2)
+    jpk, jsecret = jscheme.keygen_deterministic("bls", SEED, 2)
+    assert bpk.to_bytes() == jpk.to_bytes() and len(bpk.to_bytes()) == 96
+    assert bsecret.to_bytes() == jsecret.to_bytes()
+    assert scheme.bls_pop(bsecret.to_bytes()) == jscheme.bls_pop(jsecret.to_bytes())
+    bsig = scheme.make_signing_service("bls", bsecret).sign_sync(digest)
+    assert bsig.to_bytes() == jscheme.make_signing_service("bls", jsecret).sign_sync(
+        jcrypto.Digest(digest.to_bytes())).to_bytes()
+    verifier = scheme.make_cpu_verifier("bls")
+    assert verifier.name == jscheme.make_cpu_verifier("bls").name == "bls-cpu"
+    assert verifier.verify_one(digest, bpk, bsig)
+    assert scheme.read_secret("bls", bsecret.encode_base64()).to_bytes() == bsecret.to_bytes()
     for make in (scheme.make_cpu_verifier, lambda s: scheme.make_signing_service(s, psk)):
-        with pytest.raises(NotImplementedError):
-            make("bls")
         with pytest.raises(scheme.UnknownScheme):
             make("rsa")
     signer.shutdown()

@@ -8,6 +8,8 @@ range, or the JAX tests' port counter, would collide with other test
 files running in parallel workers."""
 
 import asyncio
+import errno
+import socket
 
 import pytest
 
@@ -26,6 +28,7 @@ from hotstuff_tpu_torch.network import (
     send_frame,
     write_frame,
 )
+from hotstuff_tpu_torch.network import native
 from hotstuff_tpu_torch.network.errors import classify
 
 
@@ -81,6 +84,39 @@ def test_receiver_dispatches_and_acks(payload):
         assert rx.connections == 1
         writer.close()
         await rx.shutdown()
+
+    asyncio.run(body())
+
+
+@pytest.mark.parametrize("transport", ["asyncio", "native"])
+def test_a_receiver_binds_beside_a_held_reservation_across_a_restart(transport):
+    """What a co-located committee's restarted node relies on: its
+    receiver binds the reserved port while the reservation stays open,
+    and while the receiver is down the port refuses connections and no
+    other socket can bind it."""
+    make = Receiver if transport == "asyncio" else native.NativeReceiver
+
+    async def body():
+        (sock,) = reserve_ports(1)
+        port = port_of(sock)
+        try:
+            for _ in range(2):  # the boot, then the restart
+                rx = make("127.0.0.1", port, EchoHandler())
+                await rx.spawn()
+                try:
+                    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+                    await send_frame(writer, b"up")
+                    assert await asyncio.wait_for(read_frame(reader), 5) == b"Ack"
+                    writer.close()
+                finally:
+                    await rx.shutdown()
+                with pytest.raises(ConnectionRefusedError):
+                    await asyncio.open_connection("127.0.0.1", port)
+                with socket.socket() as other, pytest.raises(OSError) as e:
+                    other.bind(("127.0.0.1", port))
+                assert e.value.errno == errno.EADDRINUSE
+        finally:
+            sock.close()
 
     asyncio.run(body())
 

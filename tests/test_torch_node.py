@@ -123,7 +123,7 @@ def test_config_files_are_byte_equal_and_cross_read(tmp_path, kind):
     assert _read(JAX, kind, paths[PORT.root]) == _read(PORT, kind, paths[PORT.root])
 
 
-def test_secret_files_are_private_and_bls_is_refused(tmp_path):
+def test_secret_files_are_private_and_bls_keys_match_jax(tmp_path):
     from hotstuff_tpu_torch.crypto import scheme
     from hotstuff_tpu_torch.node.config import Secret
 
@@ -137,10 +137,27 @@ def test_secret_files_are_private_and_bls_is_refused(tmp_path):
     pk, sk = scheme.keygen_deterministic("ed25519", SEED, 3)
     assert (pk, sk.to_bytes()) == (PORT.crypto.generate_keypair(SEED, 3)[0],
                                    PORT.crypto.generate_keypair(SEED, 3)[1].to_bytes())
-    for call in (lambda: Secret.new("bls"), lambda: scheme.keygen_production("bls"),
-                 lambda: scheme.read_secret("bls", "AAAA")):
-        with pytest.raises(NotImplementedError):
-            call()
+    # BLS: a private file with the key's proof of possession, which the
+    # JAX package reads to the same key, secret and proof
+    from hotstuff_tpu.crypto.bls import BlsPublicKey, BlsSignature, verify_possession
+    from hotstuff_tpu.crypto.scheme import keygen_deterministic as j_keygen
+    from hotstuff_tpu.node.config import Secret as JaxSecret
+
+    bls_path = str(tmp_path / "bls.json")
+    bls = Secret.new("bls")
+    bls.write(bls_path)
+    assert stat.S_IMODE(os.stat(bls_path).st_mode) == 0o600
+    theirs = JaxSecret.read(bls_path)
+    assert theirs.scheme == "bls" and theirs.name.to_bytes() == bls.name.to_bytes()
+    assert theirs.secret.to_bytes() == bls.secret.to_bytes() and theirs.pop == bls.pop
+    assert verify_possession(BlsPublicKey.from_bytes(bls.name.to_bytes()),
+                             BlsSignature.from_bytes(bls.pop))
+    mine = Secret.read(bls_path)
+    assert (mine.scheme, mine.pop, mine.secret.to_bytes()) == ("bls", bls.pop, bls.secret.to_bytes())
+    pk, secret = scheme.keygen_deterministic("bls", SEED, 3)
+    jpk, jsecret = j_keygen("bls", SEED, 3)
+    assert (pk.to_bytes(), secret.to_bytes()) == (jpk.to_bytes(), jsecret.to_bytes())
+    assert scheme.keygen_production("bls")[0] != pk
     with pytest.raises(scheme.UnknownScheme):
         Secret.new("rsa")
 

@@ -21,7 +21,7 @@ def test_storm_rows_match_the_jax_benchmark(monkeypatch):
     monkeypatch.setattr(LazyDeviceVerifier, "dispatch_deadline_s", 600.0, raising=False)
     want = jax_run_storm(nodes=16, bls=False)
     dsm.reset_launches()
-    got = run_storm(nodes=16, device=True, torch_device="cpu")  # raises on any false verdict
+    got = run_storm(nodes=16, device=True, torch_device="cpu", bls=False)  # raises on any false verdict
     assert list(got) == ["ed25519-cpu", "ed25519-cuda"]
     assert list(want) == ["ed25519-cpu"]
     assert set(got["ed25519-cpu"]) == set(want["ed25519-cpu"])
