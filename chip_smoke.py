@@ -166,10 +166,29 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    agree, compact QCs were emitted, and the running-sum kernel launched
    at least once for every vote those QCs summed (logs in
    ``chiprun_out/bls_phase/``);
-17. a ``{"kernels": [...]}`` line, then the last line
+17. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
+   card (``default_mesh()``, one card here) and on four shards of card 0
+   (``Mesh([cuda:0] * 4)``, the port's counterpart of XLA's forced host
+   device count): (l1) ``ShardedBatchVerifier`` after ``precompute`` and
+   ``warmup``: step 3's wave, the 171-vote QC and the forged QC, every
+   verdict equal to the single-device verifier's and the oracle's; 20
+   back-to-back waves with one forged claim moving across the shards; the
+   word-only readback of all-valid QCs (spans ``mesh.psum`` and no
+   ``readback``); ``make_sharded_qc_check`` and the word; K1 launched
+   once a shard a dispatch.  (l2) ``bench_sharded``: the QC-256 sharded
+   dispatch's CUDA-event ms beside K1's on one device at the same padded
+   batch.  (l3) ``G1Aggregator(mesh=...)`` at 171 points: X, Y, Z equal
+   to the plain sharded sum's mod q, the point to ``aggregate_plain``'s
+   and the oracle's, CUDA-event ms beside B4 on one device; and
+   ``BlsVerifier(aggregator="cuda-sharded").verify_shared_msg`` on a
+   171-vote QC and a forged one.  (l4) (e) with ``--verifier mesh
+   --mesh-devices 1`` (logs in ``chiprun_out/mesh_phase/``): the checks
+   of (e) and ``mesh=`` > 0 and equal to ``device=`` in the last stats
+   line.  Prints a ``mesh {json}`` line;
+18. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the main-path runs (3 and (a)-(j) for the Ed25519 kernels, (k2)
-   and (k3) for the G1 kernels), each counted from 0.
+   over the main-path runs (3, (a)-(j) and (l) for the Ed25519 verify
+   kernel, (k2), (k3) and (l3) for the G1 kernels), each counted from 0.
 
 Phases (c), (e) and (g) print the wave service's routes (device, cpu and
 probe waves, ``ewma_ms``, the mean wave and the verify kernel's launches
@@ -208,6 +227,7 @@ PAD_SIZES = (128, 256, 1024)
 TIMED_LAUNCHES = 10
 REPEATED_LAUNCHES = 20
 QC_CALLS = 20
+SPLIT_TRIALS = 3  # more fresh wave services through the verify split in (h)
 WATCHDOG_S = 900
 
 # Peak rates of one H100 SXM used for the bound (at its 700 W limit):
@@ -1104,7 +1124,7 @@ def parse_node_logs(node_log: str, client_log: str) -> dict:
         out["stats"] = {
             "dispatches": int(last[1]), "device": int(last[2]), "cpu": int(last[3] or 0),
             "probe": int(last[4] or 0), "device_sigs": int(last[5]), "cpu_sigs": int(last[6]),
-            "deadline_misses": int(last[7]), "ewma_ms": float(last[13]),
+            "deadline_misses": int(last[7]), "mesh": int(last[10] or 0), "ewma_ms": float(last[13]),
             "zc": int(last[14] or 0), "fb": int(last[15] or 0),
         }
     for key, regex in (("launches", RE_LAUNCHES), ("boot_launches", RE_BOOT_LAUNCHES)):
@@ -1191,6 +1211,19 @@ def verifier_phase(card: str, claims, torch_device=None, batch: int = WAVE, roun
         check(split["device_sigs"] >= split["waves"] * split["qc_size"],
               "verify split: every device-route claim verified on the card")
         check(split["launches"] >= split["waves"], "verify split: the verify kernel launched for every wave")
+        # a fresh service's first device wave seeds the router's EWMA:
+        # its slot threads stage into buffers warm_buckets allocated, so
+        # every wave of every fresh service stays on the card
+        qm, qp, qs = bench.make_qc_batch(split["qc_size"])
+        trials = [bench.bench_verify_split(qm, qp, qs, device=torch_device or "cuda", qc=split["qc_size"])
+                  for _ in range(SPLIT_TRIALS)]
+        print(f"verify split, {SPLIT_TRIALS} more fresh services: first device wave "
+              f"{[t['first_device_wave_ms'] for t in trials]} ms (CPU estimate {split['cpu_estimate_ms']} ms; "
+              f"the first service's {split['first_device_wave_ms']} ms), device sigs "
+              f"{[t['device_sigs'] for t in trials]}, probes {[t['probe_dispatches'] for t in trials]} [{card}]")
+        for i, t in enumerate(trials):
+            check(t["device_sigs"] >= t["waves"] * t["qc_size"],
+                  f"verify split, fresh service {i}: every device-route claim verified on the card")
 
     # the seven adversarial cases of step 3's wave (cases 1-7 of every
     # 16) and a small-order R, each through both routes
@@ -1382,7 +1415,11 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
         r.update(boot_s=boot_s, stop_s=stop_s, wall_s=wall)
         return r["launches"], r
     check(r["commit_lines"] >= nodes * 5, f"{phase}: at least 5 committed blocks a node")
-    if verifier == "cuda":
+    if verifier == "mesh":
+        check(r["stats"] is not None and 0 < stats["mesh"] == stats["device"],
+              f"{phase}: the last stats line counts every device wave under mesh= "
+              f"(mesh={stats.get('mesh')}, device={stats.get('device')})")
+    if verifier in ("cuda", "mesh"):
         check(r["stats"] is not None and r["boot_launches"] is not None,
               f"{phase}: the node process logged its stats line and its launches at boot")
         print(f"{phase} routes: {routes(stats, stats['ewma_ms'], after_boot)} [{card}]")
@@ -2391,6 +2428,254 @@ def bls_phase(card: str, torch_device=None, nodes: int = 64, duration: float = G
 
 
 
+MESH_SHARDS = 4  # the four-shard mesh of one card (XLA's forced host device count)
+MESH_WAVES = 20  # back-to-back waves, one forged claim moving across the shards
+MESH_WORD_CALLS = 5  # all-valid QCs whose readback must be the word alone
+
+
+def mesh_phase(card: str, claims, single, torch_device=None, waves: int = MESH_WAVES, qc: int = 256,
+               node_duration: float | None = 20) -> dict:
+    """(l) The mesh verifier (``parallel/mesh.py``) and the sharded G1
+    aggregate on two meshes: every visible card (``default_mesh()``) and
+    ``MESH_SHARDS`` shards of card 0.  (l1) ``ShardedBatchVerifier``:
+    ``precompute`` and ``warmup``, step 3's wave, the 171-vote QC and the
+    forged one (verdicts equal to ``single``'s, the single-device
+    verifier, and the oracle's), ``waves`` back-to-back waves with one
+    forged claim moving across the shards, the word-only readback of an
+    all-valid QC (its spans hold ``mesh.psum`` and no ``readback``),
+    ``make_sharded_qc_check`` and the word, and K1 launched once a shard a
+    dispatch; (l2) ``bench_sharded`` (QC-``qc``); (l3)
+    ``G1Aggregator(mesh=...)`` at 171 points: X, Y, Z equal to the plain
+    sharded sum's mod q (the same rows through a CPU mesh of the same
+    size), the point equal to ``aggregate_plain``'s and the oracle's, and
+    ``BlsVerifier(aggregator="cuda-sharded").verify_shared_msg`` on a
+    171-vote QC and a forged one; (l4) ``node_phase`` with ``--verifier
+    mesh --mesh-devices 1`` (``mesh=`` > 0 and equal to ``device=``).
+    ``torch_device="cpu"`` rehearses (l1)-(l3) on CPU meshes (then no
+    kernel launches; ``node_duration=None`` skips (l4)).  Prints a
+    ``mesh {json}`` line; returns its numbers with the K1 and B4 launches
+    of the phase."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.bench import verifier as bench
+    from hotstuff_tpu_torch.crypto import Digest
+    from hotstuff_tpu_torch.crypto.bls.curve import G1Point
+    from hotstuff_tpu_torch.crypto.bls.fields import P as Q
+    from hotstuff_tpu_torch.crypto.bls.service import BlsSigningService
+    from hotstuff_tpu_torch.crypto.scheme import bls_keygen, make_device_verifier
+    from hotstuff_tpu_torch.gpu import bls as G, dsm
+    from hotstuff_tpu_torch.parallel import mesh as M
+    from hotstuff_tpu_torch.telemetry import spans
+
+    t_phase = time.perf_counter()
+    on_card = torch_device != "cpu"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    first = M.default_mesh() if on_card else M.Mesh([dev])
+    meshes = {f"{first.size} card(s)" if on_card else "one shard": first,
+              f"{MESH_SHARDS} shards": M.Mesh([dev] * MESH_SHARDS)}
+    out = {"meshes": {}, "k1_launches": 0, "b4_launches": 0}
+
+    # (l1) the sharded verifier
+    msgs, wpks, sigs, expect_wave = claims["wave"]
+    n = len(msgs)
+    single_wave = single.verify_device(msgs, wpks, sigs).tolist()
+    check(single_wave == expect_wave, "(l1) the single-device verifier's wave verdicts")
+    digest, votes, want_qc = claims["qc"]
+    _, bad_votes, want_bad = claims["qc_bad"]
+    check(want_qc and not want_bad, "(l1) the oracle: the QC valid, the forged QC not")
+    qc_cols = ([digest.to_bytes()] * len(votes), [p.to_bytes() for p, _ in votes],
+               [s.to_bytes() for _, s in votes])
+    bad_cols = (qc_cols[0], qc_cols[1], [s.to_bytes() for _, s in bad_votes])
+    n_bad = sum(a != b for a, b in zip(qc_cols[2], bad_cols[2]))
+    # a wave of valid claims only (those of step 3's wave, repeated)
+    clean = [c for c, ok in zip(zip(msgs, wpks, sigs), expect_wave) if ok]
+    clean = (clean * (n // len(clean) + 1))[:n]
+    c_msgs, c_pks, c_sigs = (list(col) for col in zip(*clean))
+    for label, mesh in meshes.items():
+        row = {"devices": [str(d) for d in mesh.devices]}
+        t0 = time.perf_counter()
+        sv = M.ShardedBatchVerifier(mesh, min_device_batch=0)
+        sv.precompute(claims["pks"])
+        sv.warmup(COMMITTEE)
+        row["warmup_s"] = time.perf_counter() - t0
+        lanes = next(p for p in sv.pad_sizes if p >= n) // mesh.size
+        dsm.reset_launches()
+        dispatches = 0
+        got = sv.verify_device(msgs, wpks, sigs).tolist()
+        dispatches += 1
+        check(got == expect_wave == single_wave,
+              f"(l1) {label}: the {n}-claim wave equals the single-device verifier and the oracle")
+        check(sv.verify_shared_msg(digest, votes), f"(l1) {label}: the {len(votes)}-vote QC")
+        check(not sv.verify_shared_msg(digest, bad_votes), f"(l1) {label}: the forged QC")
+        dispatches += 2
+        for k in range(waves):
+            f = (k * n // waves + k) % n
+            m_k = list(c_msgs)
+            m_k[f] = Digest.of(b"mesh phase forged %d" % k).to_bytes()
+            check(sv.verify_device(m_k, c_pks, c_sigs).tolist() == [i != f for i in range(n)],
+                  f"(l1) {label}: back-to-back wave {k}, forged claim {f} on shard {f // lanes}")
+        dispatches += waves
+        rec = spans.enable()
+        try:
+            word_only = 0
+            for _ in range(MESH_WORD_CALLS):
+                check(sv.verify_shared_msg(digest, votes), f"(l1) {label}: the QC, profiled")
+                names = [span[0] for span in rec.drain()]
+                word_only += "mesh.psum" in names and "readback" not in names
+            check(not sv.verify_shared_msg(digest, bad_votes), f"(l1) {label}: the forged QC, profiled")
+            names = [span[0] for span in rec.drain()]
+        finally:
+            spans.disable()
+        dispatches += MESH_WORD_CALLS + 1
+        check(word_only == MESH_WORD_CALLS, f"(l1) {label}: every all-valid QC read back the word alone")
+        check("mesh.psum" in names and "readback" in names, f"(l1) {label}: the forged QC read its lanes")
+        _, ops = sv.prepare(*qc_cols)
+        check(bool(M.make_sharded_qc_check(mesh)(*ops)), f"(l1) {label}: make_sharded_qc_check, valid QC")
+        _, ops = sv.prepare(*bad_cols)
+        check(not bool(M.make_sharded_qc_check(mesh)(*ops)), f"(l1) {label}: make_sharded_qc_check, forged")
+        _, word = M.make_sharded_verify(mesh, psum_word=True)(*ops)
+        check(int(word) == n_bad, f"(l1) {label}: the word counts the forged votes")
+        dispatches += 3
+        launched = dsm.launches["verify_compressed"]
+        check(launched == (mesh.size * dispatches if on_card else 0),
+              f"(l1) {label}: K1 once a shard a dispatch ({launched} launches, {mesh.size} x {dispatches})")
+        t0 = time.perf_counter()
+        for _ in range(QC_CALLS):
+            sv.verify_shared_msg(digest, votes)
+        row["qc_ms"] = (time.perf_counter() - t0) / QC_CALLS * 1e3
+        t0 = time.perf_counter()
+        for _ in range(5):
+            sv.verify_device(msgs, wpks, sigs)
+        row["wave_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        row.update(pad_sizes=list(sv.pad_sizes), buckets=list(sv.wave_bucket_shapes), dispatches=dispatches,
+                   word_only=word_only, k1_launches=dsm.launches["verify_compressed"])
+        out["k1_launches"] += dsm.launches["verify_compressed"]
+        if on_card:
+            # CUDA-event times at the QC's pad: B1 (the lanes and the
+            # word), B2 (the bool); B3 (each shard's row gather) at the
+            # wave's pad; the bounds are K1's for the same lanes and the
+            # gather's bytes (rows read and written once, the indices)
+            _, ops = sv.prepare(*qc_cols)
+            ops = tuple(tuple(t.clone() for t in op) for op in ops)
+            qc_pad = sum(t.shape[0] for t in ops[0])
+            word_fn, check_fn = M.make_sharded_verify(mesh, psum_word=True), M.make_sharded_qc_check(mesh)
+            word_fn(*ops)
+            row["b1_ms"] = cuda_ms(lambda: word_fn(*ops), TIMED_LAUNCHES)
+            row["b2_ms"] = cuda_ms(lambda: check_fn(*ops), TIMED_LAUNCHES)
+            row["b1_bound"] = bounds(qc_pad)[0][0]
+            sv.prepare(msgs, wpks, sigs)
+            wave_pad = lanes * mesh.size
+            slot, build = sv._scratch.pool[wave_pad], sv._tables
+            row["b3_ms"] = cuda_ms(lambda: [sv._gather_device_rows(build, i, sh) for i, sh in enumerate(slot.shards)],
+                                   TIMED_LAUNCHES)
+            row["b3_bound"] = (2 * 4 * wave_pad * 20 * 4 + wave_pad * 8) / HBM_BYTES_PER_S * 1e3
+            row["qc_pad"] = qc_pad
+            print(f"(l1) {label}: B1 sharded verify with the word {row['b1_ms']:.4f} ms, B2 QC check "
+                  f"{row['b2_ms']:.4f} ms at B={qc_pad} (bound {row['b1_bound']:.4f} ms, K1's); B3 row gather "
+                  f"{row['b3_ms']:.4f} ms at B={wave_pad} (bound {row['b3_bound']:.6f} ms, bytes); "
+                  f"CUDA events, means of {TIMED_LAUNCHES} [{card}]")
+        print(f"(l1) {label} {row['devices']}: pad grid {sv.pad_sizes}, buckets {sv.wave_bucket_shapes}; the "
+              f"{n}-claim wave, the QC, the forged QC, {waves} waves with a forged claim moving over the shards, "
+              f"the word and make_sharded_qc_check right; {word_only} of {MESH_WORD_CALLS} all-valid QCs read "
+              f"back the word alone; K1 {launched} launches = {mesh.size} shards x {dispatches} dispatches; "
+              f"QC {row['qc_ms']:.3f} ms, wave {row['wave_ms']:.1f} ms host clock (means of {QC_CALLS} and 5); "
+              f"warmup {row['warmup_s']:.1f} s [{card}]")
+
+        # (l2) bench_sharded: a measurement, so its launches (its checks
+        # and its CUDA-event loops) stay out of the path's K1 count
+        qm, qp, qs = bench.make_qc_batch(qc)
+        b = bench.bench_sharded(qm, qp, qs, mesh=mesh, qc=qc)
+        row["bench"] = b
+        print(f"(l2) {label}: bench_sharded {json.dumps(b)} [{card}]")
+        out["meshes"][label] = row
+
+    # (l3) the sharded G1 aggregate, and the BLS verifier on it
+    pts = g1_points(QUORUM, seed=8)
+    want = G1Point.sum(pts)
+    for label, mesh in meshes.items():
+        row = out["meshes"][label]
+        agg = G.G1Aggregator(mesh=mesh)
+        padded = agg._padded_size(QUORUM)
+        rows = np.zeros((3, padded, G.NLIMBS), np.int32)
+        rows[0, :QUORUM] = G.ints_to_limbs_batch([p.x for p in pts])
+        rows[1, :QUORUM] = G.ints_to_limbs_batch([p.y for p in pts])
+        rows[2, :QUORUM, 0] = 1
+        rows[1, QUORUM:, 0] = 1
+        blocks = np.ascontiguousarray(rows.reshape(3, mesh.size, -1, G.NLIMBS).transpose(1, 0, 2, 3))
+        on_mesh = list(zip(*(torch.from_numpy(b).to(d).unbind(0) for b, d in zip(blocks, mesh.devices))))
+        on_cpu = list(zip(*(torch.from_numpy(b).unbind(0) for b in blocks)))
+        # the path: G1Aggregator.aggregate, counted; the comparisons and
+        # the CUDA-event loops below launch B4 uncounted
+        G.reset_launches()
+        check(agg.aggregate(pts) == want, f"(l3) {label}: G1Aggregator at {QUORUM} points vs the oracle")
+        check(G.launches["g1_aggregate"] == (mesh.size + 1 if on_card else 0),
+              f"(l3) {label}: B4 once a shard and once on the partials ({G.launches['g1_aggregate']})")
+        t0 = time.perf_counter()
+        for _ in range(QC_CALLS):
+            agg.aggregate(pts)
+        aggregate_ms = (time.perf_counter() - t0) / QC_CALLS * 1e3
+        b4_launches = G.launches["g1_aggregate"]
+        out["b4_launches"] += b4_launches
+        xyz = [c.cpu().numpy() for c in agg._sharded(*on_mesh)]
+        plain = [c.numpy() for c in G.make_sharded_g1_aggregate(M.Mesh(["cpu"] * mesh.size))(*on_cpu)]
+        err = max(abs(G.limbs_to_int(a) * pow(G.R_MONT, -1, Q) % Q - G.limbs_to_int(b) * pow(G.R_MONT, -1, Q) % Q)
+                  for a, b in zip(xyz, plain))
+        check(err == 0, f"(l3) {label}: X, Y, Z equal the plain sharded sum's mod q")
+        single_plain = G.aggregate_plain(*torch.from_numpy(rows).unbind(0))
+        check(G.projective_to_affine(*xyz) == G.projective_to_affine(*(c.numpy() for c in single_plain)) == want,
+              f"(l3) {label}: the point equals aggregate_plain's (wide columns) and the oracle's")
+        row["g1"] = {"padded": padded, "err": err, "aggregate_ms": aggregate_ms, "b4_launches": b4_launches,
+                     "bound": g1_bound(padded - 1, 3 * padded * G.NLIMBS * 4 + 3 * G.NLIMBS * 4)}
+        if on_card:
+            agg._sharded(*on_mesh)  # warm
+            row["g1"]["ms"] = cuda_ms(lambda: agg._sharded(*on_mesh), TIMED_LAUNCHES)
+            one = torch.from_numpy(rows).to(dev).unbind(0)
+            row["g1"]["one_device_ms"] = cuda_ms(lambda: G.aggregate(*one, plain=True), TIMED_LAUNCHES)
+        print(f"(l3) {label}: G1Aggregator(mesh) at {QUORUM} points (pad {padded}): X, Y, Z equal the plain "
+              f"sharded sum's mod q, the point aggregate_plain's and the oracle's; sharded sum "
+              f"{row['g1'].get('ms')} ms CUDA events beside B4 on one device {row['g1'].get('one_device_ms')} ms "
+              f"(means of {TIMED_LAUNCHES}; bound {row['g1']['bound'][0]:.6f} ms, {row['g1']['bound'][1]}); "
+              f"G1Aggregator.aggregate {row['g1']['aggregate_ms']:.3f} ms host clock "
+              f"(mean of {QC_CALLS}); B4 {b4_launches} launches on the path [{card}]")
+    t0 = time.perf_counter()
+    members = [bls_keygen(b"\x6c" * 32, i) for i in range(QUORUM)]
+    d = Digest.of(b"mesh phase BLS block")
+    bls_votes = [(pk.to_bytes(), BlsSigningService(sec).sign_sync(d).to_bytes()) for pk, sec in members]
+    forged = bls_votes[:-1] + [(bls_votes[-1][0], bls_votes[0][1])]
+    keys_s = time.perf_counter() - t0
+    bv = make_device_verifier("bls", "cuda-sharded", device=torch_device)
+    check(bv.name == "bls-cuda-sharded" and bv._dev_agg.mesh.size == first.size,
+          "(l3) BlsVerifier(aggregator='cuda-sharded') spans the visible cards")
+    G.reset_launches()
+    check(bv.verify_shared_msg(d, bls_votes), f"(l3) the sharded BLS verifier on a {QUORUM}-vote QC")
+    check(not bv.verify_shared_msg(d, forged), "(l3) the sharded BLS verifier on a forged QC")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        bv.verify_shared_msg(d, bls_votes)
+    bls_ms = (time.perf_counter() - t0) / 5 * 1e3
+    check(G.launches["g1_aggregate"] == ((first.size + 1) * 7 if on_card else 0),
+          f"(l3) the BLS verifier's sums ran on the mesh ({G.launches['g1_aggregate']} B4 launches)")
+    out["b4_launches"] += G.launches["g1_aggregate"]
+    out["bls_qc_ms"] = bls_ms
+    print(f"(l3) BlsVerifier(aggregator='cuda-sharded') on {first.size} card(s): {QUORUM}-vote QC verify "
+          f"{bls_ms:.2f} ms host clock (mean of 5), the forged QC refused; {QUORUM} BLS keys and signatures made "
+          f"in {keys_s:.1f} s (host) [{card}]")
+
+    # (l4) the node CLI on the mesh verifier
+    if node_duration is not None:
+        t0 = time.perf_counter()
+        launches, r = node_phase(card, duration=node_duration, verifier="mesh", label="mesh phase",
+                                 extra_args=("--mesh-devices", "1"))
+        out["k1_launches"] += launches
+        out["node"] = {k: r[k] for k in ("committed_rounds", "consensus_payloads_per_s", "timeouts", "stats",
+                                         "launches", "launches_after_boot")}
+        print(f"phase (l4) took {time.perf_counter() - t0:.1f} s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print("mesh " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2612,6 +2897,10 @@ def main() -> int:
     print(f"phase (k) took {time.perf_counter() - t0:.1f} s")
     for name, count in g1_launches.items():
         check(count > 0, f"(k) the main path never launched {name}")
+    t0 = time.perf_counter()
+    mesh = mesh_phase(card, claims, v)
+    print(f"phase (l) took {time.perf_counter() - t0:.1f} s")
+    check(mesh["k1_launches"] > 0 and mesh["b4_launches"] > 0, "(l) the mesh never launched K1 and B4")
     keys = ("boot_s", "committed_rounds", "consensus_payloads_per_s", "latency_mean_s", "latency_p50_s",
             "timeouts", "launches", "stop_s")
     print(f"telemetry overhead, same call: (e) {node_r['committed_rounds']} rounds, "
@@ -2635,7 +2924,7 @@ def main() -> int:
             "launches": (main_launches["verify_compressed"] + storm_launches + wave_launches
                          + committee_launches + restart_launches + node_launches
                          + ingest_launches + native_launches + bench_launches
-                         + telemetry_launches + health_launches),
+                         + telemetry_launches + health_launches + mesh["k1_launches"]),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],
@@ -2665,7 +2954,7 @@ def main() -> int:
             "route": "cuda",
             "source": "hotstuff_tpu_torch/gpu/csrc/g1_kernels.cu",
             "replaces": "hotstuff_tpu/tpu/bls.py:255",
-            "launches": g1_launches["g1_aggregate"],
+            "launches": g1_launches["g1_aggregate"] + mesh["b4_launches"],
             "max_abs_err": b4["b4"]["err"],
             "ms": b4_main["ms"],
             "plain_ms": b4_main["plain_ms"],

@@ -21,6 +21,8 @@ nothing from it: what it needs is copied and trimmed.  Layers, top down:
 - ``telemetry/``: the registry and ``/metrics`` endpoint, the per-round
   trace, the span recorder and the flight-recorder journal, off by
   default;
+- ``parallel/mesh.py``: the mesh verifier, the verify batch and the G1
+  sums sharded over a list of devices driven from one process;
 - ``gpu/``: plain PyTorch versions of the field and curve layers, and
   hand-written CUDA kernels for the fused double-scalar-multiplication
   verifier, built with ``nvcc`` on first use.

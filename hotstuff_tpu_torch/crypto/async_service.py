@@ -106,6 +106,9 @@ def cpu_batch_estimate_s(n_sigs: int) -> float:
     """Estimated batched-CPU wall seconds for an n_sigs wave."""
     return n_sigs * (CPU_BATCH_US_PER_SIG + CPU_BATCH_FIXED_US / n_sigs) * 1e-6
 
+# Bound on warm_buckets' wait for the slot threads' buffer allocation.
+WARM_THREAD_TIMEOUT_S = 60.0
+
 # EWMA smoothing for device dispatch wall time.
 _EWMA_ALPHA = 0.3
 
@@ -659,11 +662,26 @@ def eval_claims_arena(backend, wave: AdoptedWave, claims: list) -> list[bool]:
 #: are daemons AND get an explicit sentinel at atexit
 _live_dispatch_loops: "set[_DispatchLoop]" = set()
 
+#: slot threads sent their sentinel but not joined (``close(wait=False)``)
+_stopping_slot_threads: "list[threading.Thread]" = []
+
+# how long the exit hook waits for each slot thread to finish
+_SLOT_EXIT_JOIN_S = 2.0
+
 
 @atexit.register
 def _shutdown_dispatch_loops() -> None:
+    """Stop every slot thread and join it before the interpreter
+    finalizes: a daemon thread still inside the device library then
+    (freeing its thread's staging buffers and streams on the way out)
+    is unwound by the runtime's thread exit through C++ frames that may
+    not unwind, and the process aborts."""
     for dl in list(_live_dispatch_loops):
         dl.close()
+    for t in _stopping_slot_threads:
+        if t is not threading.current_thread():
+            t.join(timeout=_SLOT_EXIT_JOIN_S)
+    _stopping_slot_threads.clear()
 
 
 class _DispatchLoop:
@@ -704,6 +722,36 @@ class _DispatchLoop:
                 self._threads.append(t)
         self._q.put((fn, on_done))
 
+    def run_on_each(self, fn, timeout: float) -> None:
+        """Run ``fn`` once on every slot thread and wait for all of
+        them (at most ``timeout`` seconds); re-raises the first error.
+        Each job holds its thread at a barrier until every thread has
+        taken one, so no thread runs two."""
+        barrier = threading.Barrier(self.depth)
+        done = threading.Semaphore(0)
+        errors: list[BaseException] = []
+
+        def job():
+            try:
+                fn()
+            finally:
+                barrier.wait(timeout)
+
+        def on_done(_result, exc):
+            if exc is not None:
+                errors.append(exc)
+            done.release()
+
+        for _ in range(self.depth):
+            self.submit(job, on_done)
+        deadline = time.monotonic() + timeout
+        for _ in range(self.depth):
+            if not done.acquire(timeout=max(0.0, deadline - time.monotonic())):
+                barrier.abort()
+                raise TimeoutError(f"slot threads not done in {timeout} s")
+        if errors:
+            raise errors[0]
+
     def _worker(self) -> None:
         while True:
             item = self._q.get()
@@ -730,6 +778,8 @@ class _DispatchLoop:
         if wait:
             for t in self._threads:
                 t.join(timeout=1.0)
+        _stopping_slot_threads[:] = [t for t in _stopping_slot_threads if t.is_alive()]
+        _stopping_slot_threads.extend(t for t in self._threads if t.is_alive())
         self._threads = []
 
 
@@ -806,6 +856,15 @@ class AsyncVerifyService:
         self.device_dispatches = 0
         self.cpu_dispatches = 0
         self.probe_dispatches = 0
+        # mesh route label: device waves dispatched into a mesh-sharded
+        # backend count separately (device_dispatches stays the total),
+        # so a committee run tells sharded dispatches from single-device
+        # ones
+        self.mesh_dispatches = 0
+        self._device_route_label = (
+            "mesh" if ("sharded" in str(kind) or "mesh" in str(kind))
+            else "device"
+        )
         self.device_sigs = 0
         self.cpu_sigs = 0
         # compact-certificate ("agg") claims and the signer count they
@@ -866,8 +925,8 @@ class AsyncVerifyService:
                 "Wall seconds spent in host (CPU) claim evaluation",
                 labels,
             )
-            # "mesh" stays 0 until the mesh verifier is ported: the
-            # family carries the reference's five routes
+            # the reference's five routes; a mesh-sharded backend's
+            # device waves count under "mesh"
             self._tel_route = {
                 r: reg.counter(
                     "verify_route",
@@ -1068,9 +1127,10 @@ class AsyncVerifyService:
         synchronously, so the first real wave of any bucket finds its
         staging buffers allocated and its kernels built instead of
         paying for them mid-consensus.  On the verifier's pad grid the
-        buckets land on 128, 128, 256 and 1024 lanes.  No-op for inline
-        services, non-padding backends, and hosts whose device isn't
-        warm yet."""
+        buckets land on 128, 128, 256 and 1024 lanes.  A backend that
+        stages per thread (``warm_thread``) then allocates every slot
+        thread's buffers for those buckets.  No-op for inline services,
+        non-padding backends, and hosts whose device isn't warm yet."""
         if not (self.device and self._packing_on):
             return
         if not getattr(self.backend, "device_ready", True):
@@ -1079,6 +1139,15 @@ class AsyncVerifyService:
         pad = make_pad_claim()
         for bucket in self.wave_buckets:
             eval_claims_sync(target, [pad] * bucket)
+        warm_thread = getattr(target, "warm_thread", None)
+        if warm_thread is not None:
+            # the backend stages per thread: give every slot thread its
+            # buffers and streams now, or each one's first wave pays for
+            # them and that cold wall seeds the routing EWMA
+            buckets = tuple(self.wave_buckets)
+            self._dispatch_loop().run_on_each(
+                lambda: warm_thread(buckets), WARM_THREAD_TIMEOUT_S
+            )
 
     def _route_device(self, n_sigs: int) -> str:
         """Route this batch: "device", "cpu", "probe", or "wait".
@@ -1145,6 +1214,18 @@ class AsyncVerifyService:
             return "probe"
         return "cpu"
 
+    def _dispatch_loop(self) -> _DispatchLoop:
+        if self._dispatch is None:
+            # one slot thread per pipeline stage: the kernel launch and
+            # the readback release the GIL, so while wave N waits on the
+            # device, wave N+1 stages on the next slot — that overlap IS
+            # the pipeline.  The backend is thread-compatible (table
+            # rebuilds publish atomically under its own lock) and keeps
+            # staging buffers and a CUDA stream per thread, so each slot
+            # reuses its own buffers wave after wave.
+            self._dispatch = _DispatchLoop(self.pipeline_depth)
+        return self._dispatch
+
     def _spawn_device(
         self,
         loop,
@@ -1163,15 +1244,7 @@ class AsyncVerifyService:
         end_holder)``; the slot thread appends its completion stamp to
         ``end_holder`` under the profiler so the lander can charge the
         slot-thread -> loop wakeup gap to verdict.fanout."""
-        if self._dispatch is None:
-            # one slot thread per pipeline stage: the kernel launch and
-            # the readback release the GIL, so while wave N waits on the
-            # device, wave N+1 stages on the next slot — that overlap IS
-            # the pipeline.  The backend is thread-compatible (table
-            # rebuilds publish atomically under its own lock) and keeps
-            # staging buffers and a CUDA stream per thread, so each slot
-            # reuses its own buffers wave after wave.
-            self._dispatch = _DispatchLoop(self.pipeline_depth)
+        self._dispatch_loop()
         self._wave_serial += 1
         serial = self._wave_serial
         # guarded-by: gil -- written here on the event loop, popped by
@@ -1385,7 +1458,9 @@ class AsyncVerifyService:
                         )
                     route = self._route_device(n_sigs)
                 if self._tel_route is not None:
-                    self._tel_route[route].inc()
+                    self._tel_route[
+                        self._device_route_label if route == "device" else route
+                    ].inc()
                 dispatch_claims = claims
                 if (
                     route in ("device", "probe")
@@ -1412,6 +1487,8 @@ class AsyncVerifyService:
                     adopted = None  # released by the probe dispatch
                 if route == "device":
                     self.device_dispatches += 1
+                    if self._device_route_label == "mesh":
+                        self.mesh_dispatches += 1
                     self.device_sigs += n_sigs
                     deadline = self._deadline_s()
                     exec_fut, end_holder = self._spawn_device(
@@ -1575,10 +1652,10 @@ class AsyncVerifyService:
         so far, as one log line.  The fields up to ``fb=`` are the JAX
         package's, in its order (the harness's log contract,
         ``hotstuff_tpu/crypto/async_service.py`` ``_log_stats``):
-        ``zc`` counts waves adopted from an ingest arena and ``fb``
-        vote-overlapping waves that resynced the plane and flattened;
-        the mesh is not ported, so ``mesh`` stays 0.  The port's own
-        fields follow."""
+        ``mesh`` counts the device waves of a mesh-sharded backend,
+        ``zc`` waves adopted from an ingest arena and ``fb``
+        vote-overlapping waves that resynced the plane and flattened.
+        The port's own fields follow."""
         return (
             f"Verify service stats [{self._stats_tag}]: "
             f"dispatches={self.dispatches} device={self.device_dispatches} "
@@ -1586,7 +1663,8 @@ class AsyncVerifyService:
             f"device_sigs={self.device_sigs} cpu_sigs={self.cpu_sigs} "
             f"deadline_misses={self.deadline_misses} "
             f"waits={self.pipeline_waits} depth={self.pipeline_depth} "
-            f"mesh=0 agg={self.agg_claims} agg_sigs={self.agg_sigs} "
+            f"mesh={self.mesh_dispatches} agg={self.agg_claims} "
+            f"agg_sigs={self.agg_sigs} "
             f"ewma_ms={(self._device_ewma_s or 0.0) * 1e3:.1f} "
             f"zc={self.zero_copy_waves} fb={self.fallback_waves} "
             f"peak_inflight={self.peak_inflight} "

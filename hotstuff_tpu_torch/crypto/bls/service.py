@@ -1,10 +1,12 @@
 """BLS backend behind the framework's verifier/signing boundaries.
 
 A copy of ``hotstuff_tpu.crypto.bls.service``.  Differences: the device
-aggregator is ``aggregator="cuda"`` (``gpu/bls.py`` ``G1Aggregator``,
-the hand G1 kernels) in place of ``"tpu"``, with an explicit ``device``
-(``"cpu"`` runs the kernels' plain versions); ``"tpu-sharded"`` waits on
-the mesh and raises; the native library is the port's build
+aggregators are ``aggregator="cuda"`` (``gpu/bls.py`` ``G1Aggregator``,
+the hand G1 kernels) and ``"cuda-sharded"`` (the same over a mesh of
+every visible card) in place of ``"tpu"`` and ``"tpu-sharded"``, with
+an explicit ``device`` (``"cpu"`` runs the kernels' plain versions, on a
+one-position CPU mesh for the sharded aggregator); the JAX names raise,
+naming the port's; the native library is the port's build
 (``crypto/bls/native.py``), and a failed build raises instead of falling
 back to the Python pairing (``HOTSTUFF_BLS_NATIVE=0`` selects that).
 
@@ -61,8 +63,9 @@ class BlsVerifier:
     """VerifierBackend over BLS bytes; caches decoded public keys.
 
     ``aggregator="cuda"`` runs the G1 signature sum on the card
-    (``gpu/bls.py``, the tree-sum kernel); the pairing equality stays on
-    the host in both modes, one constant-cost call per QC.
+    (``gpu/bls.py``, the tree-sum kernel), ``"cuda-sharded"`` over the
+    mesh of every visible card; the pairing equality stays on the host in
+    every mode, one constant-cost call per QC.
 
     Async-claims integration (crypto/async_service.py):
 
@@ -104,9 +107,24 @@ class BlsVerifier:
 
             self._dev_agg = G1Aggregator(device="cuda" if device is None else device)
             self.name = "bls-cuda"
-        elif aggregator == "tpu-sharded":
-            raise NotImplementedError(
-                "the sharded G1 aggregate waits on the mesh: not ported yet"
+        elif aggregator == "cuda-sharded":
+            # batch sharded over every visible card: B4 on each card's
+            # slice, then once more on the partial points
+            import torch
+
+            from ...gpu.bls import G1Aggregator
+            from ...parallel.mesh import Mesh, default_mesh
+
+            if device is not None and torch.device(device).type == "cpu":
+                mesh = Mesh([device])
+            else:
+                mesh = default_mesh()
+            self._dev_agg = G1Aggregator(mesh=mesh)
+            self.name = "bls-cuda-sharded"
+        elif aggregator in ("tpu", "tpu-sharded"):
+            raise ValueError(
+                f"'{aggregator}' is the JAX package's aggregator: the port's "
+                f"is '{aggregator.replace('tpu', 'cuda')}'"
             )
         elif aggregator != "cpu":
             raise ValueError(f"unknown BLS aggregator '{aggregator}'")

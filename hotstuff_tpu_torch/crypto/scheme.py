@@ -150,9 +150,9 @@ def make_device_verifier(
     if scheme == "bls":
         from .bls.service import BlsVerifier
 
-        # 'cuda': the single-device G1 tree sum; 'tpu-sharded' (the
-        # batch sharded over a mesh) waits on the mesh and raises.
-        # BlsVerifier rejects anything else.
+        # 'cuda': the single-device G1 tree sum; 'cuda-sharded': the
+        # batch sharded over the mesh of every visible card, the partial
+        # points summed on the first.  BlsVerifier rejects anything else.
         v = BlsVerifier(aggregator=kind, device=device)
         if not hasattr(v, "dispatch_deadline_s"):
             # the pure-Python pairing (HOTSTUFF_BLS_NATIVE=0): one

@@ -54,7 +54,10 @@ A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel or raises.  ``launches`` counts kernel launches
 per wrapper.  The host classes (``G1Aggregator``, ``G1RunningSum``,
 ``G1ScalarMul``, ``StormOffload``) take an explicit ``device``: ``cuda``
-(the default; it raises without a card) or ``cpu`` (the plain versions).
+(the default; it raises without a card) or ``cpu`` (the plain versions);
+``G1Aggregator(mesh=...)`` sums over a device mesh instead
+(``make_sharded_g1_aggregate``, B4 on each device's slice and once more
+on the partial points).
 """
 
 from __future__ import annotations
@@ -518,22 +521,78 @@ def projective_to_affine(x, y, z) -> G1Point:
     return G1Point(xi * z_inv % Q, yi * z_inv % Q)
 
 
+def make_sharded_g1_aggregate(mesh):
+    """Cross-device G1 aggregation (``tpu/bls.py:304-337``): the batch is
+    split over the mesh's ``dp`` axis; B4 (``aggregate``) sums each
+    device's slice to ONE partial point, the D partials are copied to
+    the mesh's first device (D x 90 int32 words: JAX's ``all_gather``),
+    and B4 sums those D rows there.  Point addition is not componentwise,
+    so a plain sum of the partials cannot apply.
+
+    The mesh must be 1-D over ``dp`` with a power-of-two size D (B4's
+    tree takes a power-of-two row count); any other raises here, so a
+    node fails at boot, not inside its first QC verify.
+
+    Returns ``fn(xs, ys, zs)``: each a tuple of per-position [B/D, 30]
+    PLAIN rows (contiguous, on the position's device; B/D a power of
+    two) -> (X, Y, Z), [30] each, 2^390-Montgomery, on the first device.
+    The partials are Montgomery rows, so the combine reads them with
+    ``plain=False``."""
+    from ..parallel.mesh import DP_AXIS, to_first
+
+    d = mesh.size
+    if d & (d - 1):
+        raise ValueError(f"sharded G1 aggregation needs a power-of-two mesh, got {d} devices")
+    if tuple(mesh.axis_names) != (DP_AXIS,):
+        raise ValueError(
+            f"sharded G1 aggregation needs a 1-D ('{DP_AXIS}',) mesh, "
+            f"got axes {tuple(mesh.axis_names)}"
+        )
+
+    def aggregate_sharded(xs, ys, zs):
+        partials = to_first(
+            mesh,
+            [torch.stack(aggregate(x, y, z, plain=True)) for x, y, z in zip(xs, ys, zs)],
+        )
+        rows = torch.stack(partials, dim=1)  # [3, D, 30]
+        return aggregate(*rows.unbind(0), plain=False)
+
+    return aggregate_sharded
+
+
 class G1Aggregator:
     """Aggregate G1 points (vote signatures) on the device: the device
     does the O(n) part (the tree sum), the caller feeds the aggregate
     into the host pairing check, one constant-cost pairing per QC.  The
-    counterpart of ``TpuG1Aggregator`` without its mesh (the sharded
-    aggregate is not ported).  Inputs must be subgroup points."""
+    counterpart of ``TpuG1Aggregator``.
+
+    ``mesh`` (optional, a 1-D ``parallel.mesh.Mesh`` over axis ``dp``)
+    shards the batch across its devices (``make_sharded_g1_aggregate``);
+    the aggregator then runs on the mesh, not on ``device``.  Inputs must
+    be subgroup points."""
 
     PAD_SIZES = (8, 32, 128, 512)
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", mesh=None):
+        self.mesh = mesh
+        self._sharded = None
+        if mesh is not None:
+            # checks the mesh: fails at construction (node boot)
+            self._sharded = make_sharded_g1_aggregate(mesh)
+            device = mesh.devices[0]
         self.device = _device(device)
 
     def _padded_size(self, n: int) -> int:
-        return next(
+        padded = next(
             (s for s in self.PAD_SIZES if s >= n), 1 << (n - 1).bit_length()
         )
+        if self.mesh is not None:
+            # equal power-of-two slices per device (the mesh size is a
+            # power of two, so this ends)
+            d = self.mesh.size
+            while padded % d or (padded // d) & (padded // d - 1):
+                padded *= 2
+        return padded
 
     def aggregate(self, points: list[G1Point]) -> G1Point:
         real = [pt for pt in points if not pt.inf]
@@ -548,9 +607,23 @@ class G1Aggregator:
             rows[1, :m] = ints_to_limbs_batch([pt.y for pt in real])
             rows[2, :m, 0] = 1
             rows[1, m:, 0] = 1
-            staged = torch.from_numpy(rows).to(self.device)
+            if self._sharded is None:
+                staged = torch.from_numpy(rows).to(self.device)
+            else:
+                # shard-major, [D, 3, B/D, 30]: each device's block is
+                # one contiguous copy
+                d = self.mesh.size
+                blocks = np.ascontiguousarray(
+                    rows.reshape(3, d, padded // d, NLIMBS).transpose(1, 0, 2, 3)
+                )
+                shards = [
+                    torch.from_numpy(b).to(dev) for b, dev in zip(blocks, self.mesh.devices)
+                ]
         with _spans.span("dispatch"):
-            x, y, z = aggregate(*staged.unbind(0), plain=True)
+            if self._sharded is None:
+                x, y, z = aggregate(*staged.unbind(0), plain=True)
+            else:
+                x, y, z = self._sharded(*zip(*(s.unbind(0) for s in shards)))
         with _spans.span("readback"):
             out = torch.stack((x, y, z)).cpu().numpy()
             return projective_to_affine(*out)

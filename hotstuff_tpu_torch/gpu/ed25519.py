@@ -90,14 +90,37 @@ def _s_below_l(sig_rows: np.ndarray) -> np.ndarray:
     return (s_be[np.arange(n), first] < _L_BE[first]) & any_diff
 
 
+class _Shard:
+    """The device side of one shard of a staging slot: the buffers the
+    kernel reads for that shard's lanes, on the shard's device, and the
+    event that marks when the last wave's H2D copies into them finished
+    reading the host side."""
+
+    def __init__(self, lanes: int, device: torch.device):
+        def dev(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.device = device
+        self.d_s_win = dev((curve.NWIN, lanes), torch.int32)
+        self.d_k_win = dev((curve.NWIN, lanes), torch.int32)
+        self.d_r_y = dev((lanes, F.NLIMBS), torch.int32)
+        self.d_r_sign = dev((lanes,), torch.int32)
+        self.d_idxs = dev((lanes,), torch.int64)
+        self.d_a = dev((4, lanes, F.NLIMBS), torch.int32)
+        self.copied = torch.cuda.Event() if device.type == "cuda" else None
+
+
 class _Slot:
     """One thread's staging buffers for one pad size: host arrays (pinned
-    when the device is CUDA, so the H2D copies run non-blocking) and the
-    device buffers the kernel reads.  Reused wave after wave; ``copied``
-    marks when the last wave's H2D copies finished reading the host side."""
+    when the devices are CUDA, so the H2D copies run non-blocking) and a
+    ``_Shard`` for each device the batch is split over (one for
+    ``BatchVerifier``, one a mesh position for the sharded verifier).
+    The window planes are laid out shard-major, [shards, 64, lanes], so
+    each shard's block is one contiguous copy.  Reused wave after wave."""
 
-    def __init__(self, padded: int, device: torch.device):
-        pin = device.type == "cuda"
+    def __init__(self, padded: int, devices: tuple):
+        pin = devices[0].type == "cuda"
+        lanes = padded // len(devices)
 
         def host(shape, dtype):
             return torch.zeros(shape, dtype=dtype, pin_memory=pin)
@@ -106,37 +129,29 @@ class _Slot:
         self.h_k = host((padded, 32), torch.uint8)
         self.h_r_sign = host((padded,), torch.int32)
         self.h_idxs = host((padded,), torch.int64)
-        self.h_s_win = host((curve.NWIN, padded), torch.int32)
-        self.h_k_win = host((curve.NWIN, padded), torch.int32)
+        self.h_s_win = host((len(devices), curve.NWIN, lanes), torch.int32)
+        self.h_k_win = host((len(devices), curve.NWIN, lanes), torch.int32)
         self.h_r_y = host((padded, F.NLIMBS), torch.int32)
         # numpy views of the host buffers (the staging code is numpy)
         self.sig = self.h_sig.numpy()
         self.k = self.h_k.numpy()
         self.r_sign = self.h_r_sign.numpy()
         self.idxs = self.h_idxs.numpy()
-
-        def dev(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=device)
-
-        self.d_s_win = dev((curve.NWIN, padded), torch.int32)
-        self.d_k_win = dev((curve.NWIN, padded), torch.int32)
-        self.d_r_y = dev((padded, F.NLIMBS), torch.int32)
-        self.d_r_sign = dev((padded,), torch.int32)
-        self.d_idxs = dev((padded,), torch.int64)
-        self.d_a = dev((4, padded, F.NLIMBS), torch.int32)
-        self.copied = torch.cuda.Event() if pin else None
+        self.shards = [_Shard(lanes, d) for d in devices]
 
     def reset(self) -> None:
-        if self.copied is not None:
-            self.copied.synchronize()
+        for shard in self.shards:
+            if shard.copied is not None:
+                shard.copied.synchronize()
         for a in (self.sig, self.k, self.r_sign, self.idxs):
             a.fill(0)
 
 
 class BatchVerifier:
     """Host-side driver: prepares batches, caches committee points, runs
-    the verify kernel.  Thread-compatible: per-thread staging slots and
-    CUDA streams, and caches keyed by immutable bytes.
+    the verify kernel.  Thread-compatible: per-thread staging slots, a
+    CUDA stream per thread and device, and caches keyed by immutable
+    bytes.
 
     Hybrid routing: batches smaller than ``min_device_batch`` are
     verified on the host instead — a dispatch has a fixed cost that
@@ -157,12 +172,16 @@ class BatchVerifier:
         # _table_lock serializes cache inserts and rebuilds
         self._table_lock = threading.Lock()
         self._tables: tuple | None = None
-        # (build, device-resident copy of its tables [4, k, 20]),
-        # published with one assignment
+        # (build, its tables [4, k, 20] on each shard device), published
+        # with one assignment
         self._device_staged: tuple | None = None
+        # the devices a batch is split over, one a shard: this device
+        # alone (the sharded verifier: its mesh's, in mesh order)
+        self._shard_devices = (self.device,)
         # per-thread staging slots (keyed by padded size) and, on CUDA,
-        # the thread's own stream: the wave service's slot threads stage
-        # and launch concurrently, and each waits only on its own work
+        # the thread's own stream on each device: the wave service's
+        # slot threads stage and launch concurrently, and each waits only
+        # on its own work
         self._scratch = threading.local()
         # challenge-hash memo: k = H(R||A||M) per claim; pad claims and
         # re-verified claims hit it.  Bounded; cleared when full.
@@ -197,6 +216,15 @@ class BatchVerifier:
             if not out.all():
                 raise RuntimeError("verifier warmup produced invalid result")
 
+    def warm_thread(self, batches) -> None:
+        """Allocate the calling thread's staging slots for waves of
+        ``batches`` signatures, and its streams: a slot thread's first
+        wave then stages into warm buffers."""
+        with self._on_thread_stream():
+            grid = self.pad_sizes
+            for padded in {next((p for p in grid if p >= n), grid[-1]) for n in batches}:
+                self._slot_for(padded)
+
     def _neg_point(self, pk: bytes):
         hit = self._point_cache.get(pk)
         if hit is None and pk not in self._point_cache:
@@ -210,26 +238,36 @@ class BatchVerifier:
     # staged device-side committee gather
     device_key_cache = True
 
-    def _device_build(self, build) -> torch.Tensor:
-        """The device-resident copy of ``build``'s stacked tables, staged
-        on first use after each rebuild and published with the build it
-        mirrors in one assignment (last writer wins; every copy is of
-        the same immutable build)."""
+    def _device_build(self, build) -> tuple:
+        """The device-resident copies of ``build``'s stacked tables, one
+        a shard (a device that holds several shards holds one copy):
+        replicated on first use after each rebuild and published with
+        the build they mirror in one assignment (last writer wins; every
+        copy is of the same immutable build)."""
         staged = self._device_staged
         if staged is None or staged[0] is not build:
-            tables, _ = build
-            staged = (build, torch.from_numpy(np.stack(tables)).to(self.device))
-            if self.device.type == "cuda":
-                # the upload ran on this thread's stream: finish it
-                # before another thread's stream can read the table
-                torch.cuda.current_stream(self.device).synchronize()
+            host = torch.from_numpy(np.stack(build[0]))
+            replicas = {}
+            for device in dict.fromkeys(self._shard_devices):
+                replicas[device] = host.to(device)
+                if device.type == "cuda":
+                    # the upload ran on this thread's stream: finish it
+                    # before another thread's stream can read the table
+                    torch.cuda.current_stream(device).synchronize()
+            staged = (build, tuple(replicas[d] for d in self._shard_devices))
             self._device_staged = staged
-        table = staged[1]
-        if self.device.type == "cuda":
+        return staged[1]
+
+    def _gather_device_rows(self, build, index: int, shard: _Shard) -> None:
+        """Shard ``index``'s committee rows, by id, from its device's
+        replica of the key tables into ``shard.d_a``: each device
+        gathers its own slice of the batch."""
+        table = self._device_build(build)[index]
+        if table.device.type == "cuda":
             # read on this thread's stream: the allocator must not reuse
             # the memory after a rebuild until that read is done
-            table.record_stream(torch.cuda.current_stream(self.device))
-        return table
+            table.record_stream(torch.cuda.current_stream(table.device))
+        torch.index_select(table, 1, shard.d_idxs, out=shard.d_a)
 
     def _slot_for(self, padded: int) -> _Slot:
         pool = getattr(self._scratch, "pool", None)
@@ -237,7 +275,7 @@ class BatchVerifier:
             pool = self._scratch.pool = {}
         slot = pool.get(padded)
         if slot is None:
-            slot = pool[padded] = _Slot(padded, self.device)
+            slot = pool[padded] = _Slot(padded, self._shard_devices)
         else:
             slot.reset()
         return slot
@@ -309,19 +347,25 @@ class BatchVerifier:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+            for device in dict.fromkeys(self._shard_devices):
+                torch.cuda.current_stream(device).synchronize()
 
     def _on_thread_stream(self) -> ExitStack:
-        """Make the verifier's device and this thread's stream current
-        (nothing on the CPU).  The CUDA current device and stream are
-        per thread, so every slot thread sets both."""
+        """Make this thread's stream current on every shard device, and
+        the verifier's device current (nothing on the CPU).  The CUDA
+        current device and streams are per thread, so every slot thread
+        sets them."""
         ctx = ExitStack()
         if self.device.type == "cuda":
-            stream = getattr(self._scratch, "stream", None)
-            if stream is None:
-                stream = self._scratch.stream = torch.cuda.Stream(self.device)
+            streams = getattr(self._scratch, "streams", None)
+            if streams is None:
+                streams = self._scratch.streams = {}
+            for device in dict.fromkeys(self._shard_devices):
+                stream = streams.get(device)
+                if stream is None:
+                    stream = streams[device] = torch.cuda.Stream(device)
+                ctx.enter_context(torch.cuda.stream(stream))
             ctx.enter_context(torch.cuda.device(self.device))
-            ctx.enter_context(torch.cuda.stream(stream))
         return ctx
 
     def _run_staged(self, stage_fn, n: int) -> np.ndarray:
@@ -490,26 +534,42 @@ class BatchVerifier:
 
         # pad lanes are all-zero rows (s=0, k=0 -> P = identity, which
         # compresses to y=1, sign=0; r_y gets matching 'one' rows)
-        slot.h_s_win.numpy()[...] = _bytes_to_windows_msb(slot.sig[:, 32:]).T
-        slot.h_k_win.numpy()[...] = _bytes_to_windows_msb(slot.k).T
+        shards = len(slot.shards)
+        lanes = slot.sig.shape[0] // shards
+        for h, rows in ((slot.h_s_win, slot.sig[:, 32:]), (slot.h_k_win, slot.k)):
+            win = _bytes_to_windows_msb(rows).T  # [64, padded]
+            h.numpy()[...] = win.reshape(curve.NWIN, shards, lanes).transpose(1, 0, 2)
         r_y = slot.h_r_y.numpy()
         r_y[...] = _bytes_rows_to_limbs(slot.sig[:, :32])
         r_y[n:, 0] = 1
 
-        for d, h in (
-            (slot.d_s_win, slot.h_s_win),
-            (slot.d_k_win, slot.h_k_win),
-            (slot.d_r_y, slot.h_r_y),
-            (slot.d_r_sign, slot.h_r_sign),
-        ):
-            d.copy_(h, non_blocking=True)
-        # committee rows by id from the device-resident key tables
-        slot.d_idxs.copy_(slot.h_idxs, non_blocking=True)
-        torch.index_select(self._device_build(build), 1, slot.d_idxs, out=slot.d_a)
-        if slot.copied is not None:
-            slot.copied.record()
-        ax, ay, az, at = slot.d_a.unbind(0)
-        return (ax, ay, az, at, slot.d_s_win, slot.d_k_win, slot.d_r_y, slot.d_r_sign)
+        # each shard's block to its device (on that device's current
+        # stream), and its committee rows by id from its device's replica
+        # of the key tables
+        operands = []
+        for i, shard in enumerate(slot.shards):
+            lo, hi = i * lanes, (i + 1) * lanes
+            for d, h in (
+                (shard.d_s_win, slot.h_s_win[i]),
+                (shard.d_k_win, slot.h_k_win[i]),
+                (shard.d_r_y, slot.h_r_y[lo:hi]),
+                (shard.d_r_sign, slot.h_r_sign[lo:hi]),
+                (shard.d_idxs, slot.h_idxs[lo:hi]),
+            ):
+                d.copy_(h, non_blocking=True)
+            self._gather_device_rows(build, i, shard)
+            if shard.copied is not None:
+                shard.copied.record(torch.cuda.current_stream(shard.device))
+            ax, ay, az, at = shard.d_a.unbind(0)
+            operands.append(
+                (ax, ay, az, at, shard.d_s_win, shard.d_k_win, shard.d_r_y, shard.d_r_sign)
+            )
+        return self._kernel_operands(operands)
+
+    def _kernel_operands(self, shards: list) -> tuple:
+        """The kernel operands from each shard's: this verifier has one
+        shard, whose tensors feed ``_run_kernel`` directly."""
+        return shards[0]
 
     def _run_kernel(self, ax, ay, az, at, s_win, k_win, r_y, r_sign) -> torch.Tensor:
         """Device dispatch: bool [padded] verdict lanes (on the device)."""

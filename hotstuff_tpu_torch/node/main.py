@@ -12,8 +12,10 @@ A copy of ``hotstuff_tpu.node.main`` (reference ``node/src/main.rs:15-148``):
     python -m hotstuff_tpu_torch.node -vv deploy --nodes 4
 
 ``--verifier`` is ``cuda`` (the default; it raises without a CUDA
-device) or ``cpu``; ``--device cpu`` runs the ``cuda`` verifier's
-kernels as their plain PyTorch versions.  ``--transport`` is ``asyncio``
+device), ``cuda-sharded`` (alias ``mesh``: the verify batch sharded over
+a mesh of ``--mesh-devices N`` cards, or ``HOTSTUFF_MESH_DEVICES``,
+every visible one by default) or ``cpu``; ``--device cpu`` runs the
+device verifiers' kernels as their plain PyTorch versions.  ``--transport`` is ``asyncio``
 (the default) or ``native``, the C++ epoll reactor
 (``network/native.py``), for ``run``, ``run-many`` and ``deploy``.
 ``-v`` repeats raise verbosity; the millisecond log format is the
@@ -40,9 +42,9 @@ aggregate their certificates into the compact form, with the G1 sums on
 the card's kernels under ``--verifier cuda``.  ``run-many`` takes the
 scheme from its files, as in the JAX package.
 
-Flags of planes the port does not have yet — ``--fault-plane``,
-``--adversary`` and ``--mesh-devices`` — are accepted by the parser and
-refused before boot with exit code 2.  So are ``run``,
+Flags of planes the port does not have yet — ``--fault-plane`` and
+``--adversary`` — are accepted by the parser and refused before boot
+with exit code 2.  So are ``run``,
 ``run-many`` and ``deploy`` when an env knob would switch such a plane
 on (``HOTSTUFF_FAULTS``, ``HOTSTUFF_ADVERSARY``, or ``HOTSTUFF_WAN_SPEC``
 on the asyncio transport; ``consensus.unported_env_plane``).
@@ -181,7 +183,6 @@ def _freeze_boot_objects():
 _UNPORTED_FLAGS = (
     ("fault_plane", "--fault-plane"),
     ("adversary", "--adversary"),
-    ("mesh_devices", "--mesh-devices"),
 )
 
 
@@ -219,6 +220,15 @@ def _metrics_port(args) -> int | None:
     except ValueError:
         log.warning("ignoring non-integer HOTSTUFF_METRICS_PORT=%r", env)
         return None
+
+
+def _apply_mesh_devices(args) -> None:
+    """Bridge ``--mesh-devices N`` into HOTSTUFF_MESH_DEVICES (the
+    env-first pattern) so the sharded verifier sizes its device mesh at
+    materialization — in this process and in any child node process."""
+    n = getattr(args, "mesh_devices", None)
+    if n is not None:
+        os.environ["HOTSTUFF_MESH_DEVICES"] = str(max(1, n))
 
 
 def _apply_journal_dir(args) -> None:
@@ -374,6 +384,7 @@ async def _fd_probe() -> None:
 async def _run_node(args) -> None:
     _apply_env_bridges(args)
     _apply_health(args)
+    _apply_mesh_devices(args)
     nodes: list[Node] = []
 
     async def boot() -> None:
@@ -532,6 +543,7 @@ async def _run_many(args) -> None:
     measured path: every actor shares one asyncio loop."""
     _apply_env_bridges(args)
     _apply_health(args)
+    _apply_mesh_devices(args)
     key_files = args.keys.split(",")
     n = len(key_files)
     # Co-location hint: the verifier layer coalesces all these nodes'
@@ -617,15 +629,16 @@ def _add_node_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--verifier",
-        choices=["cuda", "cpu"],
+        choices=["cuda", "cuda-sharded", "mesh", "cpu"],
         default="cuda",
-        help="signature verification backend: the CUDA device (default) "
-        "or the CPU",
+        help="signature verification backend: the CUDA device (default), "
+        "the batch sharded over a mesh of CUDA devices (cuda-sharded, "
+        "alias mesh) or the CPU",
     )
     p.add_argument(
         "--device",
         default=None,
-        help="torch device of the cuda verifier (default: the current "
+        help="torch device of the device verifiers (default: the current "
         "CUDA device; 'cpu' runs the kernels' plain versions)",
     )
     p.add_argument(
@@ -692,13 +705,19 @@ def _add_node_flags(p: argparse.ArgumentParser) -> None:
         "(docs/TELEMETRY.md; default: off, or the HOTSTUFF_HEALTH env "
         "knob)",
     )
+    p.add_argument(
+        "--mesh-devices",
+        type=int,
+        default=None,
+        metavar="N",
+        help="device count for the sharded mesh verifier (default: every "
+        "visible device, or the HOTSTUFF_MESH_DEVICES env knob; only "
+        "meaningful with --verifier mesh/cuda-sharded)",
+    )
     # planes the port does not have yet: parsed, then refused
     not_ported = "not ported yet: refused"
     p.add_argument("--fault-plane", default=None, help=not_ported)
     p.add_argument("--adversary", default=None, help=not_ported)
-    p.add_argument(
-        "--mesh-devices", type=int, default=None, metavar="N", help=not_ported
-    )
 
 
 def main(argv=None) -> int:
@@ -819,6 +838,7 @@ def main(argv=None) -> int:
     if args.command == "deploy":
         _apply_env_bridges(args)
         _apply_health(args)
+        _apply_mesh_devices(args)
         asyncio.run(
             _deploy_testbed(
                 args.nodes, args.base_port, args.verifier, args.device,

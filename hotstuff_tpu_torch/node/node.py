@@ -13,8 +13,13 @@ node.
 the device kind ``"cuda"``, which materializes the port's
 ``gpu.ed25519.BatchVerifier(min_device_batch=64)`` for an Ed25519
 committee and ``crypto.scheme.make_device_verifier("bls", "cuda")`` (the
-G1 sums on the card) for a BLS one; ``"cpu"`` is the host verifier.  The
-mesh kinds (``"tpu-sharded"``, ``"mesh"``) are not ported yet and raise.
+G1 sums on the card) for a BLS one, and the mesh kind
+``"cuda-sharded"`` (alias ``"mesh"``), which materializes
+``parallel.mesh.ShardedBatchVerifier`` over ``HOTSTUFF_MESH_DEVICES``
+cards (every visible one by default) or the BLS verifier with its G1
+sums sharded over the cards; ``"cpu"`` is the host verifier.  The JAX
+package's ``"tpu"`` and ``"tpu-sharded"`` raise, naming the port's
+kinds.
 A mixed-scheme schedule verifies through the dual router
 (``crypto.scheme.make_dual_verifier``).  ``Node.new`` has
 the reference's telemetry, flight-recorder journal and work-stats
@@ -52,8 +57,8 @@ from .config import ConfigError, Secret, read_committee, read_parameters
 
 log = logging.getLogger(__name__)
 
-#: verifier kinds whose port is still to come (the multi-device mesh)
-_NOT_PORTED = ("tpu-sharded", "mesh")
+#: the JAX package's device kinds -> the port's
+_TPU_KINDS = {"tpu": "cuda", "tpu-sharded": "cuda-sharded"}
 
 #: provenance tag on persisted state: the hash of the committee the
 #: store's consensus/state records were produced under.  Disjoint from
@@ -102,6 +107,13 @@ class _DeviceDispatch:
         arena."""
         return self._device.verify_packed(dig_buf, pk_buf, sig_buf, rows)
 
+    def warm_thread(self, batches) -> None:
+        """The calling slot thread's staging for ``batches``
+        (``AsyncVerifyService.warm_buckets``)."""
+        warm = getattr(self._device, "warm_thread", None)
+        if warm is not None:
+            warm(batches)
+
 
 class LazyDeviceVerifier:
     """Defers building the device verifier until a batch is big enough
@@ -115,14 +127,24 @@ class LazyDeviceVerifier:
     stream.  Keying by device keeps a CPU host and a CUDA host in one
     process apart.
 
-    ``device`` defaults to ``cuda`` and raises without one; the tests
-    pass ``device="cpu"``, which runs the kernels' plain versions."""
+    ``kind`` is ``"cuda"`` (one card) or ``"cuda-sharded"`` (alias
+    ``"mesh"``: the batch sharded over a mesh of ``HOTSTUFF_MESH_DEVICES``
+    cards, every visible one by default, read when the verifier
+    materializes).  ``device`` defaults to ``cuda`` and raises without
+    one; the tests pass ``device="cpu"``, which runs the kernels' plain
+    versions (the mesh kind: over ``HOTSTUFF_MESH_DEVICES`` virtual CPU
+    shards, one by default)."""
 
     min_device_batch = 64
 
-    # the kind materializes an ed25519 BatchVerifier, which accepts
+    # both kinds materialize ed25519 BatchVerifiers, which accept
     # fixed-shape wave padding
     supports_wave_padding = True
+
+    #: "mesh" is the user-facing spelling of the sharded kind (node
+    #: --verifier mesh); it normalizes at construction, so both names
+    #: share one process-wide device verifier and warm state
+    _KIND_ALIASES = {"mesh": "cuda-sharded"}
 
     _shared_device: dict[tuple, VerifierBackend] = {}
     _shared_dispatch: dict[tuple, _DeviceDispatch] = {}
@@ -131,7 +153,8 @@ class LazyDeviceVerifier:
     _warm: set[tuple] = set()
 
     def __init__(self, kind: str = "cuda", device=None):
-        if kind != "cuda":
+        kind = self._KIND_ALIASES.get(kind, kind)
+        if kind not in ("cuda", "cuda-sharded"):
             raise ValueError(f"unknown device verifier kind '{kind}'")
         from ..gpu.ed25519 import resolve_device
 
@@ -162,14 +185,47 @@ class LazyDeviceVerifier:
     def _device(self) -> VerifierBackend | None:
         return self._shared_device.get(self._key)
 
+    @property
+    def wave_bucket_shapes(self) -> tuple | None:
+        """The device verifier's advertised wave bucket ladder (the mesh
+        verifier's mesh-multiple shapes) — None until the device
+        materializes, so the wave service's lazy bucket resolution uses
+        the canonical ladder before warmup and the mesh grid from then
+        on."""
+        device = self._device
+        if device is None:
+            return None
+        return getattr(device, "wave_bucket_shapes", None)
+
     def _materialize(self) -> VerifierBackend:
         device = self._shared_device.get(self._key)
         if device is None:
-            from ..gpu.ed25519 import BatchVerifier
+            if self._kind == "cuda":
+                from ..gpu.ed25519 import BatchVerifier
 
-            device = BatchVerifier(
-                min_device_batch=self.min_device_batch, device=self.device
-            )
+                device = BatchVerifier(
+                    min_device_batch=self.min_device_batch, device=self.device
+                )
+            else:
+                from ..parallel.mesh import (
+                    Mesh,
+                    ShardedBatchVerifier,
+                    default_mesh,
+                    mesh_devices_from_env,
+                )
+
+                # HOTSTUFF_MESH_DEVICES (node --mesh-devices) sizes the
+                # mesh; read HERE, when the mesh is built, because the
+                # CLI bridge sets it before any verifier exists
+                n = mesh_devices_from_env()
+                mesh = (
+                    Mesh([self.device] * (n or 1))
+                    if self.device.type == "cpu"
+                    else default_mesh(n)
+                )
+                device = ShardedBatchVerifier(
+                    mesh=mesh, min_device_batch=self.min_device_batch
+                )
             self._shared_device[self._key] = device
         if self._precomputed:
             device.precompute(self._precomputed)
@@ -222,19 +278,26 @@ class LazyDeviceVerifier:
 def make_verifier(
     kind: str, scheme: str = "ed25519", device=None
 ) -> VerifierBackend:
-    """The verifier backend a node uses: ``"cpu"`` or ``"cuda"``.
-    ``device`` (``"cuda"`` kind only) defaults to the current CUDA
-    device and raises without one; ``device="cpu"`` runs the kernels'
-    plain versions.  A BLS committee's ``"cuda"`` verifier sums vote
-    signatures on the card's G1 kernels, with the pairing on the host."""
+    """The verifier backend a node uses: ``"cpu"``, ``"cuda"`` or
+    ``"cuda-sharded"`` (alias ``"mesh"``).  ``device`` (the device kinds
+    only) defaults to the current CUDA device and raises without one;
+    ``device="cpu"`` runs the kernels' plain versions.  A BLS committee's
+    device verifier sums vote signatures on the card's G1 kernels (over
+    the mesh of every visible card for the sharded kind), with the
+    pairing on the host."""
     if kind == "cpu":
         return make_cpu_verifier(scheme)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"the '{kind}' verifier is not ported yet")
-    if kind == "cuda":
+    if kind in ("cuda", "cuda-sharded", "mesh"):
         if scheme == "bls":
-            return make_device_verifier(scheme, kind, device=device)
+            return make_device_verifier(
+                scheme, "cuda" if kind == "cuda" else "cuda-sharded", device=device
+            )
         return LazyDeviceVerifier(kind, device=device)
+    if kind in _TPU_KINDS:
+        raise ValueError(
+            f"'{kind}' is the JAX package's verifier: the port's is "
+            f"'{_TPU_KINDS[kind]}'"
+        )
     raise ValueError(f"unknown verifier backend '{kind}'")
 
 
@@ -278,7 +341,8 @@ class Node:
         device=None,
     ) -> "Node":
         """Boot a node.  ``verifier_backend`` is ``"cuda"`` (the
-        default: it raises without a CUDA device) or ``"cpu"``;
+        default: it raises without a CUDA device), ``"cuda-sharded"``
+        (alias ``"mesh"``) or ``"cpu"``;
         ``device`` goes to ``make_verifier`` (``device="cpu"`` runs the
         kernels' plain versions); ``transport`` is ``"asyncio"`` or
         ``"native"`` (the C++ reactor, ``network/native.py``)."""

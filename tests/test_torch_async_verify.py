@@ -28,6 +28,7 @@ from hotstuff_tpu_torch.crypto.async_service import (
     flatten_claims,
 )
 from hotstuff_tpu_torch.gpu import dsm
+from hotstuff_tpu_torch.gpu.ed25519 import BatchVerifier
 from hotstuff_tpu_torch.node import LazyDeviceVerifier, make_verifier
 
 torch.set_num_threads(1)
@@ -491,6 +492,64 @@ def test_warm_buckets_drives_every_bucket_shape(monkeypatch):
     plain.close()
 
 
+def test_warm_buckets_warms_every_slot_thread(monkeypatch):
+    # a backend that stages per thread gets each slot thread's buffers
+    # allocated once, for every bucket, before the first real wave
+    monkeypatch.setenv("HOTSTUFF_WAVE_BUCKETS", "4,8")
+    monkeypatch.setenv("HOTSTUFF_VERIFY_PIPELINE", "3")
+    host = _FakeDeviceHost(kind="warm-thread-test")
+    host.supports_wave_padding = True
+    warmed = []
+    host.async_backend.warm_thread = lambda batches: warmed.append(
+        (threading.current_thread().name, tuple(batches))
+    )
+    service = AsyncVerifyService(host, device=True)
+    try:
+        service.warm_buckets()
+        assert host.dispatched_batches == [4, 8]
+        assert sorted(warmed) == [(f"verify-slot-{i}", (4, 8)) for i in range(3)]
+    finally:
+        service.close()
+
+
+def test_exit_hook_joins_the_slot_threads_of_closed_loops(monkeypatch):
+    # a loop closed without waiting leaves its threads to the exit hook,
+    # which joins them before the interpreter finalizes
+    monkeypatch.setattr(asv, "_live_dispatch_loops", set())
+    monkeypatch.setattr(asv, "_stopping_slot_threads", [])
+    loop = asv._DispatchLoop(2)
+    started = threading.Event()
+
+    def slow():
+        started.set()
+        time.sleep(0.3)
+
+    loop.submit(slow, lambda result, exc: None)
+    assert started.wait(timeout=10)
+    threads = list(loop._threads)
+    loop.close()
+    assert any(t.is_alive() for t in threads)
+    assert set(asv._stopping_slot_threads) <= set(threads)
+    asv._shutdown_dispatch_loops()
+    assert not any(t.is_alive() for t in threads)
+    assert asv._stopping_slot_threads == []
+
+
+def test_warm_thread_allocates_the_calling_thread_staging_slots():
+    v = BatchVerifier(min_device_batch=0, device="cpu")
+    pools = {}
+
+    def warm():
+        v.warm_thread([3, 128, 200, 5000])
+        pools["slot"] = dict(v._scratch.pool)
+
+    worker = threading.Thread(target=warm)
+    worker.start()
+    worker.join(timeout=30)
+    assert sorted(pools["slot"]) == [128, 256, 1024]
+    assert getattr(v._scratch, "pool", None) is None  # this thread's stays cold
+
+
 @async_test
 async def test_round_window_coalesces_qc_and_tc_into_one_wave(monkeypatch):
     monkeypatch.setenv("HOTSTUFF_COALESCE_WINDOW_MS", "80")
@@ -559,8 +618,15 @@ def test_no_claim_dedup_gives_private_services(monkeypatch):
 
 def test_make_verifier_kinds_and_per_device_singletons():
     assert isinstance(make_verifier("cpu"), CpuVerifier)
-    for kind in ("tpu-sharded", "mesh"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # the mesh kinds build (here on virtual CPU meshes) and carry their
+    # names; the JAX package's kinds raise, naming the port's
+    for kind in ("cuda-sharded", "mesh"):
+        mesh = make_verifier(kind, device="cpu")
+        assert mesh.name == "cuda-sharded" and mesh.async_kind == "cuda-sharded@cpu"
+        assert mesh._key == ("cuda-sharded", "cpu") and mesh.supports_wave_padding
+        assert make_verifier(kind, scheme="bls", device="cpu").name == "bls-cuda-sharded"
+    for kind, ours in (("tpu", "cuda"), ("tpu-sharded", "cuda-sharded")):
+        with pytest.raises(ValueError, match=f"the port's is '{ours}'"):
             make_verifier(kind)
     # BLS: the G1 sums on the card's kernels (raising without a card), or
     # their plain versions, as the JAX package's make_verifier("tpu", "bls")

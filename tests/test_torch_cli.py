@@ -24,6 +24,7 @@ import socket
 import stat
 import subprocess
 import sys
+from unittest import mock
 
 import pytest
 
@@ -61,8 +62,6 @@ def test_keys_writes_a_private_key_file_both_packages_read(tmp_path):
     ["run", "--fault-plane", "{}"],
     ["run", "--adversary", "{}"],
     ["run", "--health", "--fault-plane", "{}"],
-    ["run", "--mesh-devices", "2"],
-    ["run-many", "--profile", "--health", "--mesh-devices", "2"],
 ], ids=lambda argv: "-".join(a.strip("-") for a in argv[:2]))
 def test_unported_flags_are_refused_before_boot(tmp_path, capsys, argv):
     from hotstuff_tpu_torch.node.main import main
@@ -78,6 +77,47 @@ def test_unported_flags_are_refused_before_boot(tmp_path, capsys, argv):
     assert exit_.value.code == 2
     assert "is not ported yet" in capsys.readouterr().err
     assert not any(tmp_path.iterdir())  # nothing booted, nothing written
+
+
+class _Booted(Exception):
+    """Raised by the stand-in ``Node.new``: the command got to booting."""
+
+
+@pytest.mark.parametrize("command", ["run", "run-many", "deploy"])
+def test_mesh_devices_is_accepted_and_sizes_the_mesh(tmp_path, monkeypatch, command):
+    """``--mesh-devices 2`` with ``--verifier mesh`` boots (no exit 2)
+    and sets HOTSTUFF_MESH_DEVICES=2 before the first node is built,
+    where the sharded verifier reads it.  ``Node.new`` is a stand-in
+    that records what the boot saw and stops the command."""
+    from hotstuff_tpu_torch.node import main as cli
+
+    seen = []
+
+    class _Node:
+        @classmethod
+        async def new(cls, **kw):
+            seen.append((kw["verifier_backend"], os.environ.get("HOTSTUFF_MESH_DEVICES")))
+            raise _Booted
+
+    monkeypatch.setattr(cli, "Node", _Node)
+    monkeypatch.setattr(cli, "setup_logging", lambda verbosity: None)
+    monkeypatch.chdir(tmp_path)  # deploy writes its files here
+    write_port_committee(tmp_path)
+    required = {
+        "run": ["--keys", "key_0.json", "--committee", "committee.json", "--store", "db_0"],
+        "run-many": ["--keys", "key_0.json,key_1.json", "--committee", "committee.json",
+                     "--store-prefix", "db_"],
+        "deploy": ["--nodes", "4", "--base-port", "0"],
+    }[command]
+    # the command writes its knobs into os.environ: restore all of it after
+    before = dict(os.environ)
+    with mock.patch.dict(os.environ):
+        for knob in ("HOTSTUFF_MESH_DEVICES", "HOTSTUFF_COLOCATED_NODES", "HOTSTUFF_MAX_PEER_CONNS"):
+            os.environ.pop(knob, None)
+        with pytest.raises(_Booted):
+            cli.main([command, "--verifier", "mesh", "--mesh-devices", "2", *required])
+    assert seen == [("mesh", "2")]
+    assert dict(os.environ) == before
 
 
 def test_run_defaults_to_the_cuda_verifier_and_never_falls_back(tmp_path):
@@ -546,8 +586,8 @@ def test_unported_env_plane_follows_the_references_conditions(monkeypatch, env, 
     """The knobs are refused exactly where ``hotstuff_tpu.consensus``'s
     ``Consensus.spawn`` would switch their plane on: a non-empty value,
     and the WAN spec only off the native transport.  The mesh size is
-    read only where a mesh backend is built, which the port does not
-    offer, so it is left alone as the reference leaves it."""
+    read only where the mesh verifier is built, so it is no plane's
+    knob, as in the reference."""
     from hotstuff_tpu_torch.consensus.consensus import unported_env_plane
 
     for knob in ENV_PLANES + ("HOTSTUFF_MESH_DEVICES",):
