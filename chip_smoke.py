@@ -152,10 +152,14 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    points), 512 (171, the aggregator's pad) and 1024, the running sum over
    a 512-vote chain (the first 64 votes beside the plain version), the
    ladder at B = 171 with 128-bit scalars and at the storm offload's
-   shape (1024 lanes, 256 bits, every lane), the tree sum on that
-   ladder's Montgomery rows at B = 256 as the storm sums them; 20
-   back-to-back launches of each equal;
-   CUDA-event times, plain times, the host route's times and the bounds;
+   shape (1024 lanes, 256 bits, every lane), and on the storm offload's
+   own scalars (w h_eff, w, the group order; every lane against the
+   oracle), the tree sum on that ladder's Montgomery rows at B = 256 as
+   the storm sums them; 20 back-to-back launches of each equal;
+   CUDA-event times (the tree's and the ladder's beside the earlier
+   one-thread kernels'), plain times, the host route's
+   times, the bounds (the additions the data needs) and the ptxas lines
+   of the tree and the ladder;
    (k2) the storm's BLS rows at N = 256, quorum 171 (``bls-cpu`` and
    ``bls-cuda-storm-offload``, refused unless the offload engages), every
    signature checked against the native pairing, a forged vote, timeout
@@ -937,7 +941,9 @@ def ingest_phase(card: str, nodes: int = COMMITTEE, waves: int = 16, wave: int =
                 except asyncio.TimeoutError:
                     continue
             check(handler.warmed.is_set(), "ingest: the native sender connected")
-            tx0 = native.Reactor.shared().counters()["tx_frames"]
+            reactor = native.Reactor.shared()
+            tx0, txb0 = (reactor.counters()[k] for k in ("tx_frames", "tx_bytes"))
+            framed = 0  # the bytes of the frames handed to the reactor, prefixes included
             start = service.dispatches
             dsm.reset_launches()
             rec = spans.enable()
@@ -947,8 +953,13 @@ def ingest_phase(card: str, nodes: int = COMMITTEE, waves: int = 16, wave: int =
                     for k in range(0, wave, 128):  # under the reactor's 1000-frame outbox
                         for frame in frames[w][k : k + 128]:
                             await sender.send(addr, frame)
-                        await asyncio.sleep(0)
-                    sent = native.Reactor.shared().counters()["tx_frames"] - tx0
+                            framed += 4 + len(frame)
+                        # the simple sender drops a frame that a full outbox
+                        # refuses: the next batch waits until the reactor
+                        # has written this one to the socket
+                        await until(lambda: reactor.counters()["tx_bytes"] - txb0 >= framed,
+                                    f"the reactor to write wave {w}'s first {k + 128} frames")
+                    sent = reactor.counters()["tx_frames"] - tx0
                     # at most two waves outstanding: the dispatcher took
                     # this one, and the one before it landed
                     await until(lambda: service.dispatches > start + w,
@@ -2038,6 +2049,11 @@ G1_CHAIN_PLAIN = 64  # ... the first 64 also through the plain version (7,000 la
 G1_LADDER = 171  # B7 at 128 bits, the weights' width
 G1_STORM_LANES = 3 * QUORUM  # the storm offload's ladder: 513 points padded to 1024 ...
 G1_STORM_BITS = 256  # ... of 256-bit scalars (w * h_eff, and the group order)
+# The one-thread-an-addition kernels' times (PERF.md section 6, their
+# chip_smoke.py run on an H100 80GB HBM3 at 700 W), printed beside the
+# team kernels' as the earlier ones
+G1_EARLIER_MS = {"b4": {256: 0.428, 512: 0.493, 1024: 0.651, "mont": 0.432},
+                 "b7_171": 11.642, "b7_storm": 24.488}
 
 
 def g1_bound(point_adds: int, nbytes: int):
@@ -2049,6 +2065,30 @@ def g1_bound(point_adds: int, nbytes: int):
     t_ops = point_adds * G.MADS_PER_ADD / INT32_MADS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ladder_adds(scalars) -> int:
+    """The point additions a double-and-add ladder needs for these
+    scalars: below each scalar's top set bit, a doubling a bit and an add
+    a set bit (a zero scalar, a pad lane, needs none)."""
+    return sum(k.bit_length() - 1 + bin(k).count("1") - 1 for k in scalars if k)
+
+
+def ptxas_lines(library: str, kernel: str) -> list:
+    """The ``-Xptxas -v`` lines of one kernel's entry (stack frame,
+    spills, registers) from the library's build report."""
+    from hotstuff_tpu_torch.gpu import _build
+
+    report = _build.library_path(library).with_suffix(".ptxas.txt")
+    if not report.exists():
+        return ["no ptxas report"]
+    out, inside = [], False
+    for line in report.read_text().splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("stack frame" in line or "registers" in line):
+            out.append(line.replace("ptxas info    :", "").strip())
+    return out
 
 
 def g1_points(n: int, seed: int):
@@ -2074,13 +2114,17 @@ def g1_phase(card: str, torch_device=None) -> dict:
     chain (the first 64 votes beside the plain version); B7 at B = 171
     with 128-bit scalars, and at the storm offload's shape (513 points
     padded to 1024 lanes, 256 bits: every lane against the plain version,
-    every real lane against the oracle); B4 in the storm's mode, on the
-    ladder's Montgomery rows padded to 256.  X, Y, Z are compared as integers mod q
-    (the kernels return canonical rows, the plain versions loose ones):
-    the tolerance is zero.  20 back-to-back launches of each kernel give
-    equal results; CUDA-event times of each kernel and plain version,
-    the host route's time for the same sums, and the bounds.  Returns the
-    numbers of the kernels line."""
+    every real lane against the oracle), and on the storm offload's own
+    scalars (every real lane against the oracle); B4 in the storm's mode,
+    on the ladder's Montgomery rows padded to 256.  X, Y, Z are compared
+    as integers mod q (the kernels return canonical rows, the plain
+    versions loose ones): the tolerance is zero.  20 back-to-back
+    launches of each kernel give equal results; CUDA-event times of
+    each kernel (B4 and B7 beside the earlier ones, ``G1_EARLIER_MS``)
+    and plain version, the host route's time for
+    the same sums, the bounds (the additions the data needs: n - 1 for
+    n points, ``ladder_adds`` for the scalars), and the ptxas lines of
+    B4 and B7.  Returns the numbers of the kernels line."""
     import numpy as np
     import torch
 
@@ -2132,10 +2176,11 @@ def g1_phase(card: str, torch_device=None) -> dict:
         t0 = time.perf_counter()
         G1Point.sum(pts[:n])
         host_ms = (time.perf_counter() - t0) * 1e3
-        bound = g1_bound(batch - 1, 3 * batch * G.NLIMBS * 4 + 3 * G.NLIMBS * 4)
+        # the additions the data needs: n - 1 (the pads are identities)
+        bound = g1_bound(n - 1, 3 * batch * G.NLIMBS * 4 + 3 * G.NLIMBS * 4)
         b4[batch] = {"ms": ms, "plain_ms": plain_ms, "bound": bound, "host_ms": host_ms}
         print(f"B4 g1_aggregate_kernel B={batch} ({n} points): {ms:.4f} ms CUDA events (mean of "
-              f"{TIMED_LAUNCHES}), plain {plain_ms:.1f} ms, bound {bound[0]:.6f} ms ({bound[1]}), host route "
+              f"{TIMED_LAUNCHES}; earlier {G1_EARLIER_MS['b4'][batch]} ms), plain {plain_ms:.1f} ms, bound {bound[0]:.6f} ms ({bound[1]}), host route "
               f"(G1Point.sum, Jacobian) {host_ms:.2f} ms; X, Y, Z equal the plain version's mod q, the point "
               f"the oracle's; {REPEATED_LAUNCHES} launches equal [{card}]")
     agg = G.G1Aggregator(device=dev)
@@ -2240,17 +2285,40 @@ def g1_phase(card: str, torch_device=None) -> dict:
     check(all(all(torch.equal(a, b) for a, b in zip(r, storm_got)) for r in reps),
           f"g1_scalar_mult_kernel: {REPEATED_LAUNCHES} back-to-back launches at the storm shape equal")
     b7_ms = cuda_ms(lambda: G.scalar_mult(*staged), TIMED_LAUNCHES)
-    b7_bound = g1_bound(storm_batch * G1_STORM_BITS * 2, storm_batch * (G1_STORM_BITS + 3 * G.NLIMBS * 2) * 4)
-    b7_171_bound = g1_bound(G1_LADDER * 128 * 2, G1_LADDER * (128 + 3 * G.NLIMBS * 2) * 4)
-    print(f"B7 g1_scalar_mult_kernel: B=171 x 128 bits {b7_171_ms:.3f} ms (bound {b7_171_bound[0]:.5f} ms, "
-          f"{b7_171_bound[1]}), plain {b7_171_plain_ms:.1f} ms; storm shape B={storm_batch} x {G1_STORM_BITS} bits "
-          f"{b7_ms:.3f} ms (bound {b7_bound[0]:.5f} ms, {b7_bound[1]}), plain {b7_plain_ms:.1f} ms; host route "
+    # the storm offload's own scalars (StormOffload.batch_points): w * h_eff
+    # (~192 bits), w (128 bits), the group order (255 bits), by kind;
+    # every real lane vs the oracle
+    from hotstuff_tpu_torch.crypto.bls.curve import H1
+    from hotstuff_tpu_torch.crypto.bls.fields import R as ORDER
+
+    ws = [rng.randrange(1 << 128) for _ in range(QUORUM)]
+    mix_ks = [w * H1 for w in ws] + ws + [ORDER] * QUORUM
+    mix = [torch.from_numpy(a).to(dev) for a in m.stage(mix_ks, storm_pts)]
+    mix_got = G.scalar_mult(*mix)
+    mx, my, mz = (c.cpu().numpy() for c in mix_got)
+    check(all(G.projective_to_affine(mx[i], my[i], mz[i]) == p._mul_raw(k)
+              for i, (p, k) in enumerate(zip(storm_pts, mix_ks))),
+          f"g1_scalar_mult_kernel on the storm's scalars vs the oracle, all {G1_STORM_LANES} real lanes")
+    b7_mix_ms = cuda_ms(lambda: G.scalar_mult(*mix), TIMED_LAUNCHES)
+    storm_bytes = storm_batch * (G1_STORM_BITS + 3 * G.NLIMBS * 2) * 4
+    b7_bound = g1_bound(ladder_adds(storm_ks), storm_bytes)
+    b7_171_bound = g1_bound(ladder_adds(ks), G1_LADDER * (128 + 3 * G.NLIMBS * 2) * 4)
+    mix_adds = ladder_adds(mix_ks)
+    b7_mix_bound = g1_bound(mix_adds, storm_bytes)
+    print(f"B7 g1_scalar_mult_kernel: B=171 x 128 bits {b7_171_ms:.3f} ms (earlier "
+          f"{G1_EARLIER_MS['b7_171']} ms; bound {b7_171_bound[0]:.5f} ms, "
+          f"{b7_171_bound[1]}), plain {b7_171_plain_ms:.1f} ms; storm shape B={storm_batch} x {G1_STORM_BITS} "
+          f"bits, random scalars {b7_ms:.3f} ms (earlier "
+          f"{G1_EARLIER_MS['b7_storm']} ms; bound {b7_bound[0]:.5f} ms, {b7_bound[1]}), plain {b7_plain_ms:.1f} ms; "
+          f"the storm's scalars (w h_eff, w, the group order) {b7_mix_ms:.3f} ms "
+          f"(bound {b7_mix_bound[0]:.5f} ms for its {mix_adds} additions); host route "
           f"(G1Point._mul_raw, {G1_STORM_BITS}-bit) {host_lane_ms:.2f} ms a lane; X, Y, Z equal the plain "
           f"version's mod q on every lane, the points the oracle's [{card}]")
     out["g1_scalar_mult_kernel"] = {"ms": b7_ms, "plain_ms": b7_plain_ms, "bound": b7_bound,
                                     "err": max(b7_err, b7_171_err), "ms_171": b7_171_ms,
                                     "plain_ms_171": b7_171_plain_ms, "bound_171": b7_171_bound,
-                                    "host_lane_ms": host_lane_ms}
+                                    "host_lane_ms": host_lane_ms, "mix_ms": b7_mix_ms,
+                                    "mix_bound": b7_mix_bound}
 
     # B4 in the storm's mode: Montgomery rows out of the ladder (the
     # weighted signatures, lanes n..2n), identity-padded to 256, as
@@ -2275,8 +2343,11 @@ def g1_phase(card: str, torch_device=None) -> dict:
     b4["err"] = max(b4["err"], mont_err)
     b4["mont"] = {"ms": mont_ms, "plain_ms": mont_plain_ms}
     print(f"B4 g1_aggregate_kernel B={agg_pad} Montgomery rows ({n} ladder outputs, the storm's sum): {mont_ms:.4f} "
-          f"ms CUDA events (mean of {TIMED_LAUNCHES}), plain {mont_plain_ms:.1f} ms; X, Y, Z equal the plain "
-          f"version's mod q, the point the oracle's; {REPEATED_LAUNCHES} launches equal [{card}]")
+          f"ms CUDA events (mean of {TIMED_LAUNCHES}; earlier {G1_EARLIER_MS['b4']['mont']} ms), plain "
+          f"{mont_plain_ms:.1f} ms; X, Y, Z equal the plain version's mod q, the point the oracle's; "
+          f"{REPEATED_LAUNCHES} launches equal [{card}]")
+    for kernel in ("g1_aggregate_kernel", "g1_scalar_mult_kernel"):
+        print(f"ptxas {kernel}: {'; '.join(ptxas_lines('g1', kernel))}")
     print(f"(k1) G1 kernels vs plain and oracle: launches {dict(G.launches)}; "
           f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     return out

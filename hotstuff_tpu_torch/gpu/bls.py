@@ -28,7 +28,10 @@ addition ~4,600, a running-sum add ~7,000 (on the consensus loop, every
 vote), a 128-bit ladder ~1.3 M.  So each is one hand kernel, one launch
 a call.  What bounds a kernel on an H100 is its chain of dependent point
 additions (see the kernel source): ~3,500 int32 multiply-adds an
-addition (``MADS_PER_ADD``), a few hundred bytes of operands.
+addition (``MADS_PER_ADD``), a few hundred bytes of operands.  The tree
+and the ladder split each addition over a team of six threads, one
+product each (a chain of two products, not twelve); the running sum
+adds on one thread.
 
 The interface is the JAX package's: a coordinate is a row of 30 int32
 limbs of 13 bits in Montgomery form for radix 2^390 (``to_mont_limbs``),
@@ -430,7 +433,8 @@ def aggregate(xs, ys, zs, plain: bool = True):
         raise ValueError(f"batch {batch} is not a power of two")
     _check_rows((xs, ys, zs), batch, xs.device)
     out = torch.empty((3, NLIMBS), dtype=torch.int32, device=xs.device)
-    scratch = torch.empty((max(batch // 2, 1), 36), dtype=torch.int32, device=xs.device)
+    # batch / 2 points, then the kernel's count of finished blocks
+    scratch = torch.empty((batch // 2 + 1, 36), dtype=torch.int32, device=xs.device)
     index, stream = _launch_args(xs.device)
     o = out.unbind(0)
     _raise_on(_build.load("g1").g1_aggregate_launch(

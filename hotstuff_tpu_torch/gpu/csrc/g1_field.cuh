@@ -1,6 +1,7 @@
 // BLS12-381 G1 arithmetic for the port's G1 kernels (g1_kernels.cu): the
-// base field Fq, the complete projective addition law, and the per-thread
-// bodies of the three kernels (tree aggregation, running sum, ladder).
+// base field Fq, the complete projective addition law (one thread, and a
+// team of six threads), and the bodies of the three kernels (tree
+// aggregation, running sum, ladder).
 //
 // Everything here is __host__ __device__, so the same code is the body of
 // the CUDA kernels and of a host build (g1_host_lanes.cpp, compiled with
@@ -20,8 +21,24 @@
 //     no renormalisation;
 //   * points are homogeneous projective (X : Y : Z) with the complete
 //     formulas of Renes-Costello-Batina 2015, Algorithm 7 (a = 0,
-//     b3 = 12), in the JAX package's order of operations, so a sum of
-//     the same inputs in the same tree order gives the same X, Y, Z mod q.
+//     b3 = 12), so a sum of the same inputs in the same tree order gives
+//     the same X, Y, Z mod q.  Every value being canonical, any two
+//     schedules of the same formulas give the same words.
+//
+// The team addition (team_point_add) is the card's: Algorithm 7's twelve
+// products are two stages of six independent ones, so six threads (the
+// members of a team) take one product each, and a point addition is a
+// chain of two products instead of twelve.  A Team gives:
+//   * stage(n, f): f(m) for each member m < n, then the team's barrier
+//     (on the card: f(this thread's member), then __syncwarp over the
+//     team's lanes; on the host: the members one after another, forward
+//     or reversed, which checks that no member reads another's output of
+//     the same stage);
+//   * slots(): the team's TeamSlots, its exchange slots (shared memory
+//     on the card): the two operands, stage 1's outputs and stage 2's.
+// Every member runs the same instructions on operands it selects by
+// index, so the six members of a team (and the teams of a warp) do not
+// diverge.
 //
 // The interface keeps the JAX package's layout: each coordinate a row of
 // 30 int32 limbs of 13 bits, in Montgomery form for radix 2^390 (or
@@ -32,7 +49,8 @@
 // Montgomery reduction (T * 2^-384 mod q) and one product with a constant
 // that lands it in this header's form (x * 2^384): 2^762 mod q for a
 // 2^390-Montgomery row, 2^1152 mod q for a plain row.  Output: one
-// product by 2^390 mod q takes x * 2^384 to x * 2^390.
+// product by 2^390 mod q takes x * 2^384 to x * 2^390.  In the team
+// bodies each member converts one coordinate.
 #pragma once
 
 #include <stdint.h>
@@ -321,43 +339,212 @@ G1_HD G1_NOINLINE Point point_add(const Point& p, const Point& q) {
   return Point{x3, y3, z3};
 }
 
+// ---- the team addition ------------------------------------------------------------
+
+constexpr int kMembers = 6;  // threads of a team: one product each a stage
+
+// A team's exchange slots.  a, b: the operands of the tree's first level
+// (and the ladder's accumulator and point); s1: stage 1's six products t0,
+// t1, t2, t3, t4, m5 (m5 = (X1 + Z1)(X2 + Z2)), then 3 t0, 12 t0, 12 t2,
+// 12 m5 and a zero; s2: stage 2's six products.
+struct TeamSlots {
+  Fe a[3];
+  Fe b[3];
+  Fe s1[11];
+  Fe s2[kMembers];
+};
+
+namespace team_detail {
+
+constexpr int T0 = 0, T1 = 1, T2 = 2, T3 = 3, T4 = 4, M5 = 5;
+constexpr int T0x3 = 6, T0x12 = 7, T2x12 = 8, M5x12 = 9, ZERO = 10;
+
+// Algorithm 7 between its two stages of products, each value as
+// (s1[i] + s1[j]) - (s1[k] + s1[l]) (the x12 scalings are linear, so
+// stage 1 scales the products and nothing scales a difference):
+//   t3' = t3 - (t0 + t1)          t4' = t4 - (t1 + t2)
+//   y3' = 12 m5 - (12 t0 + 12 t2) t0' = 3 t0
+//   t1' = t1 - 12 t2              z3' = t1 + 12 t2
+constexpr int kMid[6][4] = {
+    {T3, ZERO, T0, T1},    {T4, ZERO, T1, T2},       {M5x12, ZERO, T0x12, T2x12},
+    {T0x3, ZERO, ZERO, ZERO}, {T1, ZERO, T2x12, ZERO}, {T1, T2x12, ZERO, ZERO},
+};
+// Stage 2, member m multiplies kMid[kPair[m][0]] by kMid[kPair[m][1]]:
+// x3 = t4' y3', t2 = t3' t1', y3 = y3' t0', t1 = t1' z3', t0 = t0' t3',
+// z3 = z3' t4'; then X3 = t2 - x3, Y3 = t1 + y3, Z3 = z3 + t0.
+constexpr int kPair[kMembers][2] = {{1, 2}, {0, 4}, {2, 3}, {4, 5}, {3, 0}, {5, 1}};
+// Stage 1, member m multiplies (P1[i] + P1[j]) by (P2[i] + P2[j]), i, j =
+// kSum[m] (3: zero): X1 X2, Y1 Y2, Z1 Z2, (X1+Y1)(X2+Y2), (Y1+Z1)(Y2+Z2),
+// (X1+Z1)(X2+Z2).
+constexpr int kSum[kMembers][2] = {{0, 3}, {1, 3}, {2, 3}, {0, 1}, {1, 2}, {0, 2}};
+
+// The tables as nibbles, member m's at bits 4m..4m+3, so a member reads
+// its indices with a shift (a table indexed by the member would be a
+// local array on the card).
+constexpr uint32_t pack_sum(int which) {
+  uint32_t r = 0;
+  for (int m = 0; m < kMembers; ++m) r |= (uint32_t)kSum[m][which] << (4 * m);
+  return r;
+}
+constexpr uint32_t pack_mid(int side, int which) {
+  uint32_t r = 0;
+  for (int m = 0; m < kMembers; ++m) r |= (uint32_t)kMid[kPair[m][side]][which] << (4 * m);
+  return r;
+}
+constexpr uint32_t kSumI = pack_sum(0), kSumJ = pack_sum(1);
+constexpr uint32_t kL0 = pack_mid(0, 0), kL1 = pack_mid(0, 1), kL2 = pack_mid(0, 2), kL3 = pack_mid(0, 3);
+constexpr uint32_t kR0 = pack_mid(1, 0), kR1 = pack_mid(1, 1), kR2 = pack_mid(1, 2), kR3 = pack_mid(1, 3);
+
+G1_HD G1_INLINE int nib(uint32_t packed, int m) { return (int)((packed >> (4 * m)) & 15u); }
+
+// p[i] + p[j], p[3] read as zero
+G1_HD G1_INLINE Fe coord_sum(const Fe* p, int i, int j) {
+  Fe y = p[j % 3];
+  const uint32_t keep = 0u - (uint32_t)(j < 3);
+  for (int w = 0; w < NW; ++w) y.w[w] &= keep;
+  return fe_add(p[i], y);
+}
+
+G1_HD G1_INLINE Fe mid(const Fe* s1, int i, int j, int k, int l) {
+  return fe_sub(fe_add(s1[i], s1[j]), fe_add(s1[k], s1[l]));
+}
+
+}  // namespace team_detail
+
+// out <- p1 + p2 (3 coordinates each), Algorithm 7 over the team: stage 1
+// (six products), stage 2 (six products of sums of stage 1's), then three
+// members combine the pairs; out is written only when `take` (uniform over
+// the team).  p1, p2 and out may alias one another; they may lie in the
+// team's slots or in memory every member reads.  Equal, limb for limb, to
+// point_add(p1, p2).
+template <class Team>
+G1_HD G1_INLINE void team_point_add(const Team& team, const Fe* p1, const Fe* p2,
+                                    Fe* out, bool take) {
+  using namespace team_detail;
+  TeamSlots& sl = team.slots();
+  team.stage(kMembers, [&](int m) {
+    const int i = nib(kSumI, m), j = nib(kSumJ, m);
+    const Fe v = fe_mul(coord_sum(p1, i, j), coord_sum(p2, i, j));
+    const Fe v3 = fe_add(fe_add(v, v), v);
+    const Fe v6 = fe_add(v3, v3);
+    const Fe v12 = fe_add(v6, v6);
+    sl.s1[m] = v;
+    if (m == T0) {
+      sl.s1[T0x3] = v3;
+      sl.s1[T0x12] = v12;
+      sl.s1[ZERO] = fe_zero();
+    }
+    if (m == T2) sl.s1[T2x12] = v12;
+    if (m == M5) sl.s1[M5x12] = v12;
+  });
+  team.stage(kMembers, [&](int m) {
+    const Fe l = mid(sl.s1, nib(kL0, m), nib(kL1, m), nib(kL2, m), nib(kL3, m));
+    const Fe r = mid(sl.s1, nib(kR0, m), nib(kR1, m), nib(kR2, m), nib(kR3, m));
+    sl.s2[m] = fe_mul(l, r);
+  });
+  team.stage(3, [&](int c) {  // X3 = s2[1] - s2[0], Y3 = s2[3] + s2[2], Z3 = s2[5] + s2[4]
+    const Fe hi = sl.s2[2 * c + 1], lo = sl.s2[2 * c];
+    const Fe diff = fe_sub(hi, lo), sum = fe_add(hi, lo);
+    if (take) out[c] = c == 0 ? diff : sum;
+  });
+}
+
+G1_HD G1_INLINE const int32_t* coord_rows(const int32_t* xs, const int32_t* ys,
+                                          const int32_t* zs, int c) {
+  return c == 0 ? xs : c == 1 ? ys : zs;
+}
+
+G1_HD G1_INLINE int32_t* coord_rows(int32_t* xs, int32_t* ys, int32_t* zs, int c) {
+  return c == 0 ? xs : c == 1 ? ys : zs;
+}
+
 // ---- the kernels' bodies ---------------------------------------------------------
 
 // Tree aggregation of `batch` points (a power of two) to one, in the JAX
 // package's order (_tree_reduce: the first half plus the second half,
-// level after level).  `team` runs a level's pairs over its threads
-// (each(n, f) calls f(i) for the i < n it owns) and sync() is the barrier
-// between levels.  `scratch` holds batch / 2 points.  `plain` says the
-// rows are plain (else 2^390-Montgomery).  The sum lands in row 0 of
-// ox, oy, oz, as a canonical 2^390-Montgomery row.
-template <class Team>
-G1_HD void aggregate_tree(const Team& team, const int32_t* xs,
-                          const int32_t* ys, const int32_t* zs, int batch,
-                          int plain, Point* scratch, int32_t* ox, int32_t* oy,
-                          int32_t* oz) {
+// level after level).  Level l pairs index i with i + batch / 2^l, so
+// after log2(L) levels node g holds the sum of the leaves g, g + G,
+// g + 2G, ... (G = batch / L) in that same order: a subtree.  The card
+// sums each subtree in a block of its own (tree_block), then the last
+// block to finish sums the G partials (tree_final).  tree_blocks(batch)
+// is G: one pair a team at the first level, kTreeTeams teams a block.
+// `teams.each(n, f)` calls f(team, i) for the pairs i < n its teams own
+// (a team a pair at a time), and `teams.sync()` is the barrier between
+// levels.  The first level's six row conversions (two points) are one a
+// member.  `plain` says the rows are plain (else 2^390-Montgomery).  The
+// sum lands in row 0 of ox, oy, oz, as a canonical 2^390-Montgomery row.
+constexpr int kTreeTeams = 16;
+
+G1_HD G1_INLINE int tree_blocks(int batch) {
+  return batch > 2 * kTreeTeams ? batch / (2 * kTreeTeams) : 1;
+}
+
+// Block g of G: the leaves g + G t (t < L = batch / G, L >= 2) to one
+// point, in the block's region of `scratch` (L / 2 points from
+// 3 g (L / 2)), whose first point it ends as.
+template <class Teams>
+G1_HD void tree_block(const Teams& teams, int g, int G, const int32_t* xs,
+                      const int32_t* ys, const int32_t* zs, int batch,
+                      int plain, Fe* scratch) {
   const Fe k_mont = {{G1_K_MONT_IN}};
   const Fe k_plain = {{G1_K_PLAIN_IN}};
   const Fe k = plain ? k_plain : k_mont;
-  if (batch == 1) {
-    team.each(1, [&](int) { store_point(load_point(xs, ys, zs, 0, k), ox, oy, oz, 0); });
-    return;
-  }
-  int half = batch / 2;
-  team.each(half, [&](int i) {
-    scratch[i] = point_add(load_point(xs, ys, zs, i, k),
-                           load_point(xs, ys, zs, i + half, k));
+  int half = batch / G / 2;
+  Fe* region = scratch + 3 * g * half;
+  teams.each(half, [&](const auto& team, int t) {
+    TeamSlots& sl = team.slots();
+    team.stage(kMembers, [&](int m) {
+      const int c = m % 3;
+      const int leaf = g + G * (m < 3 ? t : t + half);
+      (m < 3 ? sl.a : sl.b)[c] = row_to_fe(coord_rows(xs, ys, zs, c) + leaf * NLIMBS, k);
+    });
+    team_point_add(team, sl.a, sl.b, region + 3 * t, true);
   });
-  team.sync();
+  teams.sync();
   for (half /= 2; half >= 1; half /= 2) {
-    team.each(half, [&](int i) { scratch[i] = point_add(scratch[i], scratch[i + half]); });
-    team.sync();
+    teams.each(half, [&](const auto& team, int t) {
+      team_point_add(team, region + 3 * t, region + 3 * (t + half), region + 3 * t, true);
+    });
+    teams.sync();
   }
-  team.each(1, [&](int) { store_point(scratch[0], ox, oy, oz, 0); });
+}
+
+// The G partials (each at the start of its block's region, L / 2 points
+// apart) to the sum, stored as canonical rows.
+template <class Teams>
+G1_HD void tree_final(const Teams& teams, int G, int L, Fe* scratch,
+                      int32_t* ox, int32_t* oy, int32_t* oz) {
+  const int stride = 3 * (L / 2);
+  for (int half = G / 2; half >= 1; half /= 2) {
+    teams.each(half, [&](const auto& team, int g) {
+      team_point_add(team, scratch + stride * g, scratch + stride * (g + half),
+                     scratch + stride * g, true);
+    });
+    teams.sync();
+  }
+  teams.each(1, [&](const auto& team, int) {
+    team.stage(3, [&](int c) { fe_to_row(scratch[c], coord_rows(ox, oy, oz, c)); });
+  });
+}
+
+// A batch of one: its row converted and stored.
+template <class Teams>
+G1_HD void tree_one(const Teams& teams, const int32_t* xs, const int32_t* ys,
+                    const int32_t* zs, int plain, int32_t* ox, int32_t* oy,
+                    int32_t* oz) {
+  const Fe k_mont = {{G1_K_MONT_IN}};
+  const Fe k_plain = {{G1_K_PLAIN_IN}};
+  const Fe k = plain ? k_plain : k_mont;
+  teams.each(1, [&](const auto& team, int) {
+    team.stage(3, [&](int c) {
+      fe_to_row(row_to_fe(coord_rows(xs, ys, zs, c), k), coord_rows(ox, oy, oz, c));
+    });
+  });
 }
 
 // acc <- acc + (x : y : 1): acc is three canonical (or loose)
 // 2^390-Montgomery rows (X, Y, Z, 30 limbs each, in place), the point's
-// coordinates plain and canonical.
+// coordinates plain and canonical.  One thread (point_add).
 G1_HD G1_INLINE void running_add(int32_t* acc, const Affine& p) {
   const Fe k_mont = {{G1_K_MONT_IN}};
   const Fe r2 = {{G1_R2}};
@@ -371,23 +558,30 @@ G1_HD G1_INLINE void running_add(int32_t* acc, const Affine& p) {
   store_point(point_add(a, b), acc, acc + NLIMBS, acc + 2 * NLIMBS, 0);
 }
 
-// Lane `lane` of the batched ladder: [k]P by MSB-first double-and-add,
-// the add's result taken where the scalar's bit is set (bits[i * batch +
-// lane], i < nbits), as hotstuff_tpu/tpu/bls.py _scalar_mult_kernel.
-// Points are 2^390-Montgomery rows; the result is a canonical row.
-G1_HD G1_INLINE void scalar_mult_lane(const int32_t* bits, int nbits,
-                                      int batch, int lane, const int32_t* xs,
-                                      const int32_t* ys, const int32_t* zs,
-                                      int32_t* ox, int32_t* oy, int32_t* oz) {
+// Lane `lane` of the batched ladder on one team: [k]P by MSB-first
+// double-and-add, the add's result taken where the scalar's bit is set
+// (bits[i * batch + lane], i < nbits), as hotstuff_tpu/tpu/bls.py
+// _scalar_mult_kernel.  The accumulator and P live in the team's slots
+// (a, b).  Points are 2^390-Montgomery rows; the result is stored as a
+// canonical row.
+template <class Team>
+G1_HD void scalar_mult_lane(const Team& team, const int32_t* bits, int nbits,
+                            int batch, int lane, const int32_t* xs,
+                            const int32_t* ys, const int32_t* zs, int32_t* ox,
+                            int32_t* oy, int32_t* oz) {
   const Fe k_mont = {{G1_K_MONT_IN}};
-  const Point p = load_point(xs, ys, zs, lane, k_mont);
-  Point acc{fe_zero(), fe_one(), fe_zero()};
+  TeamSlots& sl = team.slots();
+  team.stage(kMembers, [&](int m) {
+    if (m < 3)
+      sl.b[m] = row_to_fe(coord_rows(xs, ys, zs, m) + lane * NLIMBS, k_mont);
+    else
+      sl.a[m - 3] = m == 4 ? fe_one() : fe_zero();
+  });
   for (int i = 0; i < nbits; ++i) {
-    acc = point_add(acc, acc);
-    const Point added = point_add(acc, p);
-    if (bits[i * batch + lane] != 0) acc = added;
+    team_point_add(team, sl.a, sl.a, sl.a, true);
+    team_point_add(team, sl.a, sl.b, sl.a, bits[i * batch + lane] != 0);
   }
-  store_point(acc, ox, oy, oz, lane);
+  team.stage(3, [&](int c) { fe_to_row(sl.a[c], coord_rows(ox, oy, oz, c) + lane * NLIMBS); });
 }
 
 }  // namespace g1

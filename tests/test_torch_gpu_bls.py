@@ -296,6 +296,9 @@ def host_g1(tmp_path_factory):
     lib.host_g1_scalar_mult.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp]
     lib.host_g1_fe_mul.argtypes = [vp, vp, vp, ci]
     lib.host_g1_row_roundtrip.argtypes = [vp, ci, ci, vp]
+    lib.host_g1_point_add.argtypes = [vp, vp, ci, ci, ci, vp]
+    lib.host_g1_team_aggregate.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, ci]
+    lib.host_g1_team_scalar_mult.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, ci]
     return lib
 
 
@@ -345,8 +348,9 @@ def test_host_field_matches_python(host_g1):
 
 @pytest.mark.parametrize("n,batch", [(1, 1), (2, 2), (171, 256)])
 def test_host_aggregate_matches_plain_and_oracle(host_g1, n, batch):
-    """B = 1, 2, 171 -> 256: the tree run level by level, forward and in
-    reverse, equal mod q to the plain version's X, Y, Z and to the oracle."""
+    """B = 1, 2, 171 -> 256: the single-thread reference tree run level by
+    level, forward and in reverse, equal mod q to the plain version's X,
+    Y, Z and to the oracle."""
     pts = _pts(n)
     rows = _plain_rows(pts, batch)
     plain = _torch(G._aggregate_plain_impl, *rows)
@@ -362,8 +366,10 @@ def test_host_aggregate_matches_plain_and_oracle(host_g1, n, batch):
 
 
 def test_host_build_where_the_jax_columns_overflow(host_g1):
-    """The kernel body's canonical field at the inputs of the test above:
-    right, and equal mod q to the wide plain versions."""
+    """The single-thread references (the header's canonical field and
+    point_add, on one thread) at the inputs of the test above: right, and
+    equal mod q to the wide plain versions.  The team bodies are held to
+    these references limb for limb at the same inputs below."""
     for n, batch, seed in ((171, 512, SEED), (1024, 1024, 1)):
         pts = _pts(n, seed=seed)
         rows = _plain_rows(pts, batch)
@@ -382,10 +388,14 @@ def test_host_build_where_the_jax_columns_overflow(host_g1):
 
 @pytest.mark.parametrize("pair", ["equal", "opposite", "identity"])
 def test_host_aggregate_complete_cases(host_g1, pair):
+    """The single-thread reference tree and the team tree on P + P,
+    P + (-P) and O + P: the same words, and the oracle's point."""
     p = _pts(1)[0]
     pts = {"equal": [p, p], "opposite": [p, -p], "identity": [G1Point.identity(), p]}[pair]
-    got = _host_aggregate(host_g1, _mont_rows(pts), plain=False, reverse=False)
+    rows = _mont_rows(pts)
+    got = _host_aggregate(host_g1, rows, plain=False, reverse=False)
     assert G.projective_to_affine(*got) == pts[0] + pts[1]
+    assert np.array_equal(_host_team_aggregate(host_g1, rows, plain=False, reverse=False), got)
 
 
 def test_host_running_add_chain_of_512(host_g1):
@@ -403,8 +413,9 @@ def test_host_running_add_chain_of_512(host_g1):
 
 
 def test_host_ladder_full_128_bits(host_g1):
-    """The full 128-bit ladder (256 chained point additions a lane) with
-    scalars 0, 1, 2^127 and random ones, against the oracle."""
+    """The single-thread reference ladder, full 128 bits (256 chained
+    point additions a lane) with scalars 0, 1, 2^127 and random ones,
+    against the oracle; at a few bits, equal mod q to the plain ladder."""
     rng = random.Random(SEED)
     pts = _pts(8)
     ks = [0, 1, (1 << 127) | 1, (1 << 128) - 1] + [rng.randrange(1 << 128) for _ in range(4)]
@@ -423,6 +434,167 @@ def test_host_ladder_full_128_bits(host_g1):
     plain = _torch(G._scalar_mult_impl, bits6, xs6, ys6, zs6, nbits=6)
     for c in range(3):
         assert _mod_q(out6[c]) == _mod_q(plain[c])
+
+
+# ---- the team bodies (the kernels' own), built for the host ------------------------------
+#
+# The kernels split each point addition over a team of six threads; the
+# host build runs each stage's members one after another, forward or
+# reversed.  Every value is canonical, so the team's X, Y, Z equal the
+# single-thread body's limb for limb.
+
+_R384 = 1 << 384
+
+
+def _header_point(p: G1Point, z: int) -> np.ndarray:
+    """(X : Y : Z) = (x z : y z : z) in g1_field.cuh's form (v 2^384 mod q), 36 words."""
+    if p.inf:
+        coords = (0, z, 0)
+    else:
+        coords = (p.x * z % Q, p.y * z % Q, z)
+    return np.concatenate([_words(c * _R384 % Q) for c in coords])
+
+
+def _header_affine(words: np.ndarray) -> G1Point:
+    x, y, z = (int.from_bytes(words[12 * c:12 * c + 12].tobytes(), "little") * pow(_R384, -1, Q) % Q
+               for c in range(3))
+    if z == 0:
+        return G1Point.identity()
+    zi = pow(z, -1, Q)
+    return G1Point(x * zi % Q, y * zi % Q)
+
+
+def _host_point_add(lib, p, q, mode: int, alias: bool = False) -> np.ndarray:
+    p, q = np.ascontiguousarray(p, np.uint32), np.ascontiguousarray(q, np.uint32)
+    out = np.zeros_like(p)
+    lib.host_g1_point_add(_p(p), _p(q), p.shape[0], mode, int(alias), _p(out))
+    return out
+
+
+@pytest.mark.parametrize("case", ["equal", "opposite", "identity_first", "identity_second",
+                                  "identities", "random_64"])
+def test_host_team_point_add_equals_point_add(host_g1, case):
+    """The team addition (members forward and reversed) against point_add
+    on one thread, limb for limb, on projective inputs with random Z, and
+    against the oracle; the complete cases and 64 random pairs."""
+    rng = random.Random(SEED + 11)
+    pts = _pts(64, seed=SEED + 12)
+    p = pts[0]
+    pairs = {
+        "equal": [(p, p)],
+        "opposite": [(p, -p)],
+        "identity_first": [(G1Point.identity(), p)],
+        "identity_second": [(p, G1Point.identity())],
+        "identities": [(G1Point.identity(), G1Point.identity())],
+        "random_64": list(zip(pts, _pts(64, seed=SEED + 13))),
+    }[case]
+    a = np.stack([_header_point(x, rng.randrange(1, Q)) for x, _ in pairs])
+    b = np.stack([_header_point(y, rng.randrange(1, Q)) for _, y in pairs])
+    one = _host_point_add(host_g1, a, b, 0)
+    for mode in (1, 2):
+        assert np.array_equal(_host_point_add(host_g1, a, b, mode), one)
+    assert [_header_affine(w) for w in one] == [x + y for x, y in pairs]
+    # a doubling in place (p1, p2 and out one buffer, as the ladder runs it)
+    twice = _host_point_add(host_g1, a, a, 0)
+    for mode in (1, 2):
+        assert np.array_equal(_host_point_add(host_g1, a, a, mode, alias=True), twice)
+    assert [_header_affine(w) for w in twice] == [x + x for x, _ in pairs]
+
+
+def _host_team_aggregate(lib, rows, plain: bool, reverse: bool):
+    out = np.zeros((3, G.NLIMBS), np.int32)
+    rows = np.ascontiguousarray(rows)
+    lib.host_g1_team_aggregate(_p(rows[0]), _p(rows[1]), _p(rows[2]), rows.shape[1],
+                               int(plain), _p(out[0]), _p(out[1]), _p(out[2]), int(reverse))
+    return out
+
+
+@pytest.mark.parametrize("n,batch,seed", [(1, 1, SEED), (2, 2, SEED), (171, 256, SEED),
+                                          (171, 512, SEED), (1024, 1024, 1)])
+def test_host_team_tree_matches_one_thread_plain_and_oracle(host_g1, n, batch, seed):
+    """The team tree (pairs and members forward and reversed) on plain and
+    Montgomery rows: limb for limb the single-thread tree's, equal mod q
+    to ``aggregate_plain``'s X, Y, Z, and the oracle's point; (171, 512)
+    and (1024, 1024) are the inputs where the JAX int32 columns overflow."""
+    pts = _pts(n, seed=seed)
+    want = G1Point.sum(pts)
+    rows = _plain_rows(pts, batch)
+    one = _host_aggregate(host_g1, rows, plain=True, reverse=False)
+    for reverse in (False, True):
+        assert np.array_equal(_host_team_aggregate(host_g1, rows, plain=True, reverse=reverse), one)
+    assert _mod_q(one) == _mod_q(_torch(G.aggregate_plain, *rows))
+    assert G.projective_to_affine(*one) == want
+    mont = _mont_rows(pts + [G1Point.identity()] * (batch - n))
+    one = _host_aggregate(host_g1, mont, plain=False, reverse=False)
+    for reverse in (False, True):
+        assert np.array_equal(_host_team_aggregate(host_g1, mont, plain=False, reverse=reverse), one)
+    assert G.projective_to_affine(*one) == want
+    assert _mod_q(one) == _mod_q(_torch(G.aggregate_plain, *mont, plain=False))
+
+
+def _host_ladders(lib, bits, xs, ys, zs, team: bool, reverse: bool = False):
+    bits, xs, ys, zs = (np.ascontiguousarray(a) for a in (bits, xs, ys, zs))
+    out = np.zeros((3,) + xs.shape, np.int32)
+    args = (_p(bits), bits.shape[0], xs.shape[0], _p(xs), _p(ys), _p(zs), _p(out[0]), _p(out[1]), _p(out[2]))
+    if team:
+        lib.host_g1_team_scalar_mult(*args, int(reverse))
+    else:
+        lib.host_g1_scalar_mult(*args)
+    return out
+
+
+@pytest.mark.parametrize("lanes", [128, 256, "storm"])
+def test_host_team_ladder_matches_one_thread_and_oracle(host_g1, lanes):
+    """The team ladder (members forward and reversed) against the
+    single-thread body, limb for limb on every lane, and the oracle. At
+    128 and 256 bits: scalars 0, 1, the top bit, all ones, the group
+    order and 2^255 where they fit, and random ones. "storm": the
+    256-bit lanes StormOffload.batch_points stages (w h_eff on hash
+    points, w on signatures, the group order on signatures, which lands
+    on the identity)."""
+    from hotstuff_tpu_torch.crypto.bls.curve import H1
+    from hotstuff_tpu_torch.crypto.bls.fields import R as ORDER
+
+    if lanes == "storm":
+        nbits = 256
+        rng = random.Random(SEED + 15)
+        bases, sigs = _pts(2, seed=SEED + 16), _pts(2, seed=SEED + 17)
+        weights = [rng.randrange(1, 1 << 128) for _ in bases]
+        ks = [w * H1 for w in weights] + weights + [ORDER] * len(sigs)
+        pts = bases + sigs + sigs
+    else:
+        nbits = lanes
+        rng = random.Random(SEED + nbits)
+        top = 1 << (nbits - 1)
+        ks = [0, 1, top, top | 1, (1 << nbits) - 1] + [rng.randrange(1 << nbits) for _ in range(3)]
+        if nbits == 256:
+            ks += [ORDER, 1 << 255]
+        pts = _pts(len(ks), seed=SEED + 14)
+    bits, xs, ys, zs = G.G1ScalarMul(nbits=nbits, device="cpu").stage(ks, pts)
+    one = _host_ladders(host_g1, bits, xs, ys, zs, team=False)
+    for reverse in (False, True):
+        assert np.array_equal(_host_ladders(host_g1, bits, xs, ys, zs, True, reverse), one)
+    for i, (k, p) in enumerate(zip(ks, pts)):
+        assert G.projective_to_affine(one[0][i], one[1][i], one[2][i]) == p._mul_raw(k)
+
+
+def test_host_team_ladder_on_the_overflow_lane(host_g1):
+    """Lane 105 of chip_smoke.py's (k1) ladder data, whose JAX int32
+    columns overflow from its 13th bit: the team ladder at 13 and 128
+    bits equals the single-thread body limb for limb, the wide plain
+    version mod q at 13 bits, and the oracle."""
+    bits, xs, ys, zs, (p, k) = _ladder_lane_105()
+    for nb in (13, 128):
+        head = np.ascontiguousarray(bits[:nb])
+        one = _host_ladders(host_g1, head, xs, ys, zs, team=False)
+        for reverse in (False, True):
+            assert np.array_equal(_host_ladders(host_g1, head, xs, ys, zs, True, reverse), one)
+        assert G.projective_to_affine(one[0][0], one[1][0], one[2][0]) == p._mul_raw(k >> (128 - nb))
+    head = np.ascontiguousarray(bits[:13])
+    team = _host_ladders(host_g1, head, xs, ys, zs, team=True)
+    wide = _torch(G.scalar_mult_plain, head, xs, ys, zs)
+    for c in range(3):
+        assert _mod_q(team[c]) == _mod_q(wide[c])
 
 
 # ---- wrappers, build and devices -----------------------------------------------------------
@@ -458,29 +630,50 @@ def test_g1_library_is_its_own_build_and_nothing_builds_at_import():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["aggregate", "running_add", "scalar_mult"])
-def test_cuda_g1_kernels_match_plain(kernel):
+@pytest.mark.parametrize("kernel,n", [("aggregate", 11), ("aggregate", 171), ("aggregate", 1024),
+                                      ("running_add", 16), ("scalar_mult", 5), ("scalar_mult", 13),
+                                      ("scalar_mult", 171)])
+def test_cuda_g1_kernels_match_plain(kernel, n):
     """Each G1 kernel against its plain version on the card: X, Y, Z equal
-    mod q, the affine point equal to the oracle's, on repeated launches."""
+    mod q, the affine point equal to the oracle's, on repeated launches.
+    The tree at B = 16 (one block), 256 and 1024 (8 and 32 blocks, so the
+    last block's combine runs), on plain and Montgomery rows; the ladder
+    at 5, 13 and 171 lanes (one block; a block with teams past the batch;
+    22 blocks)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernels run only on a card")
     dev = torch.device("cuda")
-    pts = _pts(16)
+    pts = _pts(n, seed=1 if n == 1024 else SEED)
     G.reset_launches()
     if kernel == "aggregate":
-        rows = torch.from_numpy(_plain_rows(pts[:11], 16)).to(dev)
-        plain = [c.cpu().numpy() for c in G._aggregate_plain_impl(*rows.unbind(0))]
-        for _ in range(4):
-            got = [c.cpu().numpy() for c in G.aggregate(*rows.unbind(0), plain=True)]
-            assert _mod_q(got) == _mod_q(plain)
-        assert G.projective_to_affine(*got) == G1Point.sum(pts[:11])
+        batch = 1 << (n - 1).bit_length()
+        want = G1Point.sum(pts)
+        for plain, rows in ((True, _plain_rows(pts, batch)),
+                            (False, _mont_rows(pts + [G1Point.identity()] * (batch - n)))):
+            rows = torch.from_numpy(rows).to(dev)
+            ref = _mod_q([c.cpu().numpy() for c in G.aggregate_plain(*rows.unbind(0), plain=plain)])
+            for _ in range(4):  # a count of finished blocks left from a launch would show
+                got = [c.cpu().numpy() for c in G.aggregate(*rows.unbind(0), plain=plain)]
+                assert _mod_q(got) == ref
+                assert G.projective_to_affine(*got) == want
     elif kernel == "running_add":
         s = G.G1RunningSum(device=dev)
         for p in pts:
             s.add(p)
         assert s.snapshot() == G1Point.sum(pts)
     else:
-        ks = [random.Random(i).randrange(1 << 128) for i in range(5)]
-        m = G.G1ScalarMul(nbits=128, device=dev)
-        assert m.mul(ks, pts[:5]) == [p._mul_raw(k) for p, k in zip(pts, ks)]
+        ks = [random.Random(i).randrange(1 << 128) for i in range(n)]
+        for nbits in (8, 128):
+            staged = G.G1ScalarMul(nbits=nbits, device="cpu").stage([k >> (128 - nbits) for k in ks], pts)
+            bits, xs, ys, zs = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                                for a in (staged[0][:, :n], staged[1][:n], staged[2][:n], staged[3][:n]))
+            ref = None
+            if nbits == 8:  # the plain ladder launches ~10^5 small kernels at 8 bits
+                ref = [_mod_q(c.cpu().numpy()) for c in G.scalar_mult_plain(bits, xs, ys, zs)]
+            for _ in range(2):
+                got = [c.cpu().numpy() for c in G.scalar_mult(bits, xs, ys, zs)]
+                if ref is not None:
+                    assert [_mod_q(c) for c in got] == ref
+                assert [G.projective_to_affine(got[0][i], got[1][i], got[2][i]) for i in range(n)] == [
+                    p._mul_raw(k >> (128 - nbits)) for p, k in zip(pts, ks)]
     assert G.launches["g1_" + kernel] > 0
