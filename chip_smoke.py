@@ -150,16 +150,19 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    on the card and against the oracle (``crypto/bls/curve.py``), X, Y and
    Z as integers mod q, tolerance zero: the tree sum at B = 256 (171
    points), 512 (171, the aggregator's pad) and 1024, the running sum over
-   a 512-vote chain (the first 64 votes beside the plain version), the
+   a 512-vote chain (the first 64 votes beside the plain version), then
+   ``G1RunningSum.snapshot()`` after back-to-back bursts of 43 and 171
+   votes (host clock, each sum against the oracle), the
    ladder at B = 171 with 128-bit scalars and at the storm offload's
    shape (1024 lanes, 256 bits, every lane), and on the storm offload's
    own scalars (w h_eff, w, the group order; every lane against the
    oracle), the tree sum on that ladder's Montgomery rows at B = 256 as
    the storm sums them; 20 back-to-back launches of each equal;
-   CUDA-event times (the tree's and the ladder's beside the earlier
-   one-thread kernels'), plain times, the host route's
+   CUDA-event times (each kernel's beside the earlier one-thread
+   kernel's; the running sum's with the host out of the window, beside
+   an empty launch's timed the same way), plain times, the host route's
    times, the bounds (the additions the data needs) and the ptxas lines
-   of the tree and the ladder;
+   of the three kernels;
    (k2) the storm's BLS rows at N = 256, quorum 171 (``bls-cpu`` and
    ``bls-cuda-storm-offload``, refused unless the offload engages), every
    signature checked against the native pairing, a forged vote, timeout
@@ -193,6 +196,13 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
    over the main-path runs (3, (a)-(j) and (l) for the Ed25519 verify
    kernel, (k2), (k3) and (l3) for the G1 kernels), each counted from 0.
+   A row's ``ms`` is the mean of back-to-back launches between two CUDA
+   events, the host's enqueue inside the window (``cuda_ms``), except
+   B6's (``g1_running_add_kernel``): its launch is shorter than its
+   enqueue, so its ``ms`` is taken with the host out of the window
+   (``covered_cuda_ms``), and its row also gives the back-to-back mean
+   (``b2b_ms``) and an empty launch's time taken the same way as its
+   ``ms`` (``floor_ms``).
 
 Phases (c), (e) and (g) print the wave service's routes (device, cpu and
 probe waves, ``ewma_ms``, the mean wave and the verify kernel's launches
@@ -308,6 +318,48 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def covered_cuda_ms(fn, reps: int) -> tuple:
+    """(ms, covered): the mean device time of ``fn`` over ``reps`` calls
+    with the host out of the window.  A spin kernel (``torch.cuda._sleep``)
+    holds the stream while the host enqueues the start event, the calls
+    and the end event, so the card runs the calls back to back however
+    slowly the host enqueues them: where a call's enqueue takes longer
+    than its kernel, ``cuda_ms`` measures the enqueue.  The spin lasts
+    twice the host's time for the calls (measured first); ``covered``
+    says the start event had not fired when the last call was enqueued
+    (else the spin is doubled and the window taken again, up to 4
+    times)."""
+    import torch
+
+    for _ in range(2):  # warm: the kernel loaded, the clocks up
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    spin = 1 << 20
+    calib = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    calib[0].record()
+    torch.cuda._sleep(spin)
+    calib[1].record()
+    torch.cuda.synchronize()
+    cycles = int(spin / calib[0].elapsed_time(calib[1]) * (2 * host_ms + 1))
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            break
+        cycles *= 2
+    return start.elapsed_time(end) / reps, covered
 
 
 def make_claims():
@@ -2053,7 +2105,9 @@ G1_STORM_BITS = 256  # ... of 256-bit scalars (w * h_eff, and the group order)
 # chip_smoke.py run on an H100 80GB HBM3 at 700 W), printed beside the
 # team kernels' as the earlier ones
 G1_EARLIER_MS = {"b4": {256: 0.428, 512: 0.493, 1024: 0.651, "mont": 0.432},
-                 "b7_171": 11.642, "b7_storm": 24.488}
+                 "b7_171": 11.642, "b7_storm": 24.488, "b6": 0.0748}
+G1_BURSTS = (2 * ((64 - 1) // 3) + 1, QUORUM)  # B6: a quorum's votes at n = 64 (43) and n = 256 (171) ...
+G1_BURST_REPS = 5  # ... each burst this many times, on a fresh running sum
 
 
 def g1_bound(point_adds: int, nbytes: int):
@@ -2107,11 +2161,59 @@ def g1_points(n: int, seed: int):
     return out
 
 
+def b6_times(card: str, dev, acc, chain) -> dict:
+    """B6's device time a launch (``covered_cuda_ms``: the host out of the
+    window) and back to back (``cuda_ms``: the enqueue in it), over
+    ``G1_CHAIN`` launches that add ``chain[0]`` to ``acc``; an empty
+    launch's time taken the same way (``torch.cuda._sleep(0)``), the
+    floor of a launch a vote; and the host clock of
+    ``G1RunningSum.snapshot()`` after back-to-back bursts of ``G1_BURSTS``
+    votes of ``chain`` (a leader draining a quorum's votes, then forming
+    the QC), each sum against the oracle.  Prints the bursts; returns
+    the numbers."""
+    import torch
+
+    from hotstuff_tpu_torch.crypto.bls.curve import G1Point
+    from hotstuff_tpu_torch.gpu import bls as G
+
+    p = chain[0]
+    b6_b2b_ms = cuda_ms(lambda: G.running_add_(acc, p.x, p.y), G1_CHAIN)
+    b6_ms, b6_covered = covered_cuda_ms(lambda: G.running_add_(acc, p.x, p.y), G1_CHAIN)
+    floor_ms, floor_covered = covered_cuda_ms(lambda: torch.cuda._sleep(0), G1_CHAIN)
+    check(b6_covered and floor_covered, "B6's and the empty launch's windows hold no host enqueue")
+    # a leader draining a quorum's votes in one burst, then forming the QC
+    bursts = {}
+    for n_votes in G1_BURSTS:
+        want = G1Point.sum(chain[:n_votes])
+        adds, snaps = [], []
+        for _ in range(G1_BURST_REPS):
+            b = G.G1RunningSum(device=dev)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for q in chain[:n_votes]:
+                b.add(q)
+            t1 = time.perf_counter()
+            got = b.snapshot()
+            t2 = time.perf_counter()
+            check(got == want, f"G1RunningSum.snapshot() after a burst of {n_votes} votes vs the oracle")
+            adds.append((t1 - t0) * 1e3)
+            snaps.append((t2 - t1) * 1e3)
+        bursts[n_votes] = {"adds_ms": sum(adds) / len(adds), "snapshot_ms": sum(snaps) / len(snaps),
+                           "snapshot_min_ms": min(snaps), "snapshot_max_ms": max(snaps)}
+    for n_votes, r in bursts.items():
+        print(f"B6 burst of {n_votes} votes: G1RunningSum.add x {n_votes} {r['adds_ms']:.3f} ms, then snapshot() "
+              f"{r['snapshot_ms']:.3f} ms host clock (mean of {G1_BURST_REPS}, range {r['snapshot_min_ms']:.3f}-"
+              f"{r['snapshot_max_ms']:.3f}); every sum the oracle's [{card}]")
+    return {"ms": b6_ms, "b2b_ms": b6_b2b_ms, "floor_ms": floor_ms, "bursts": bursts}
+
+
 def g1_phase(card: str, torch_device=None) -> dict:
     """(k1) The three G1 kernels against their plain versions on the card
     and against the oracle (``crypto/bls/curve.py``): B4 at B = 256 (171
     points), 512 (171, the aggregator's pad) and 1024; B6 over a 512-vote
-    chain (the first 64 votes beside the plain version); B7 at B = 171
+    chain (the first 64 votes beside the plain version), then the host
+    time of ``G1RunningSum.snapshot()`` after back-to-back bursts of
+    ``G1_BURSTS`` votes, each sum against the oracle; B7 at B = 171
     with 128-bit scalars, and at the storm offload's shape (513 points
     padded to 1024 lanes, 256 bits: every lane against the plain version,
     every real lane against the oracle), and on the storm offload's own
@@ -2120,11 +2222,14 @@ def g1_phase(card: str, torch_device=None) -> dict:
     as integers mod q (the kernels return canonical rows, the plain
     versions loose ones): the tolerance is zero.  20 back-to-back
     launches of each kernel give equal results; CUDA-event times of
-    each kernel (B4 and B7 beside the earlier ones, ``G1_EARLIER_MS``)
-    and plain version, the host route's time for
-    the same sums, the bounds (the additions the data needs: n - 1 for
-    n points, ``ladder_adds`` for the scalars), and the ptxas lines of
-    B4 and B7.  Returns the numbers of the kernels line."""
+    each kernel (beside the earlier ones, ``G1_EARLIER_MS``; B6 with the
+    host out of the window, ``covered_cuda_ms``, beside its back-to-back
+    time, which holds the host's enqueue, and beside an empty launch's
+    time taken the same way, the floor of a launch a vote) and plain
+    version, the host route's time for the same sums, the bounds (the
+    additions the data needs: n - 1 for n points, ``ladder_adds`` for the
+    scalars), and the ptxas lines of the three kernels.  Returns the
+    numbers of the kernels line."""
     import numpy as np
     import torch
 
@@ -2227,7 +2332,7 @@ def g1_phase(card: str, torch_device=None) -> dict:
     check(all(torch.equal(a, reps[0]) for a in reps), f"g1_running_add_kernel: {REPEATED_LAUNCHES} launches equal")
     check(affine(reps[0].unbind(0)) == G1Point.sum(chain) + p, "g1_running_add_kernel: one more vote vs the oracle")
     scratch = base.clone()
-    b6_ms = cuda_ms(lambda: G.running_add_(scratch, p.x, p.y), G1_CHAIN)
+    times = b6_times(card, dev, scratch, chain)
     t0 = time.perf_counter()
     host = G1Point.identity()
     for q in chain:
@@ -2235,12 +2340,14 @@ def g1_phase(card: str, torch_device=None) -> dict:
     host_add_us = (time.perf_counter() - t0) / G1_CHAIN * 1e6
     b6_plain_ms = plain_total / G1_CHAIN_PLAIN
     b6_bound = g1_bound(1, 2 * 3 * G.NLIMBS * 4 + 96)
-    print(f"B6 g1_running_add_kernel: {b6_ms * 1e3:.1f} us a launch CUDA events (mean of {G1_CHAIN} back to back), "
-          f"{host_us:.1f} us host clock a vote (G1RunningSum.add, no synchronisation), plain {b6_plain_ms:.1f} ms "
+    print(f"B6 g1_running_add_kernel: {times['ms'] * 1e3:.2f} us a launch CUDA events with the host out of the "
+          f"window (mean of {G1_CHAIN}; earlier {G1_EARLIER_MS['b6'] * 1e3:.1f} us), {times['b2b_ms'] * 1e3:.2f} us "
+          f"back to back (enqueue included), empty launch {times['floor_ms'] * 1e3:.2f} us (the floor of a launch a "
+          f"vote), {host_us:.1f} us host clock a vote (G1RunningSum.add, no synchronisation), plain {b6_plain_ms:.1f} ms "
           f"an add, bound {b6_bound[0] * 1e3:.4f} us ({b6_bound[1]}), host route (affine add) {host_add_us:.1f} us; "
           f"{G1_CHAIN}-vote chain equals the oracle, the first {G1_CHAIN_PLAIN} the plain chain mod q [{card}]")
-    out["g1_running_add_kernel"] = {"ms": b6_ms, "plain_ms": b6_plain_ms, "bound": b6_bound, "err": b6_err,
-                                    "host_us": host_us, "host_add_us": host_add_us}
+    out["g1_running_add_kernel"] = dict(times, plain_ms=b6_plain_ms, bound=b6_bound, err=b6_err,
+                                        host_us=host_us, host_add_us=host_add_us)
 
     # B7: the ladder
     import random
@@ -2346,7 +2453,7 @@ def g1_phase(card: str, torch_device=None) -> dict:
           f"ms CUDA events (mean of {TIMED_LAUNCHES}; earlier {G1_EARLIER_MS['b4']['mont']} ms), plain "
           f"{mont_plain_ms:.1f} ms; X, Y, Z equal the plain version's mod q, the point the oracle's; "
           f"{REPEATED_LAUNCHES} launches equal [{card}]")
-    for kernel in ("g1_aggregate_kernel", "g1_scalar_mult_kernel"):
+    for kernel in ("g1_aggregate_kernel", "g1_running_add_kernel", "g1_scalar_mult_kernel"):
         print(f"ptxas {kernel}: {'; '.join(ptxas_lines('g1', kernel))}")
     print(f"(k1) G1 kernels vs plain and oracle: launches {dict(G.launches)}; "
           f"{time.perf_counter() - t_phase:.1f} s [{card}]")
@@ -3045,6 +3152,8 @@ def main() -> int:
             "bound_ms": b6["bound"][0],
             "bound_by": b6["bound"][1],
             "library_ms": None,
+            "b2b_ms": b6["b2b_ms"],
+            "floor_ms": b6["floor_ms"],
         },
         {
             "name": "g1_scalar_mult_kernel",

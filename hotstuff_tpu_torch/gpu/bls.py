@@ -28,10 +28,9 @@ addition ~4,600, a running-sum add ~7,000 (on the consensus loop, every
 vote), a 128-bit ladder ~1.3 M.  So each is one hand kernel, one launch
 a call.  What bounds a kernel on an H100 is its chain of dependent point
 additions (see the kernel source): ~3,500 int32 multiply-adds an
-addition (``MADS_PER_ADD``), a few hundred bytes of operands.  The tree
-and the ladder split each addition over a team of six threads, one
-product each (a chain of two products, not twelve); the running sum
-adds on one thread.
+addition (``MADS_PER_ADD``), a few hundred bytes of operands.  The tree,
+the ladder and the running sum split each addition over a team of six
+threads, one product each (a chain of two products, not twelve).
 
 The interface is the JAX package's: a coordinate is a row of 30 int32
 limbs of 13 bits in Montgomery form for radix 2^390 (``to_mont_limbs``),

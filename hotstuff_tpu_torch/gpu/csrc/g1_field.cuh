@@ -256,12 +256,9 @@ G1_HD G1_INLINE Fe redc_wide(const uint32_t T[NW + 1]) {
   return r;
 }
 
-// A row (signed-loose limbs) -> this header's form: (row value) * k *
-// 2^-768 mod q.  k = K_MONT_IN for 2^390-Montgomery rows, K_PLAIN_IN for
-// plain rows.
-G1_HD G1_INLINE Fe row_to_fe(const int32_t* row, const Fe& k) {
-  uint32_t wide[NW + 1];
-  row_to_wide(row, wide);
+// A 13-word two's complement integer T -> this header's form: T * k *
+// 2^-768 mod q (wide is overwritten).
+G1_HD G1_INLINE Fe wide_to_fe(uint32_t wide[NW + 1], const Fe& k) {
   const bool negative = (wide[NW] >> 31) != 0;
   if (negative) {  // |T|: two's complement negation over 13 words
     uint64_t c = 1;
@@ -273,6 +270,15 @@ G1_HD G1_INLINE Fe row_to_fe(const int32_t* row, const Fe& k) {
   }
   const Fe r = fe_mul(redc_wide(wide), k);
   return negative ? fe_sub(fe_zero(), r) : r;
+}
+
+// A row (signed-loose limbs) -> this header's form: (row value) * k *
+// 2^-768 mod q.  k = K_MONT_IN for 2^390-Montgomery rows, K_PLAIN_IN for
+// plain rows.
+G1_HD G1_INLINE Fe row_to_fe(const int32_t* row, const Fe& k) {
+  uint32_t wide[NW + 1];
+  row_to_wide(row, wide);
+  return wide_to_fe(wide, k);
 }
 
 // This header's form -> a canonical 2^390-Montgomery row.
@@ -287,22 +293,6 @@ G1_HD G1_INLINE void fe_to_row(const Fe& a, int32_t* row) {
     if (w + 1 < NW) lo |= (uint64_t)v.w[w + 1] << (32 - off);
     row[i] = (int32_t)(lo & LIMB_MASK);
   }
-}
-
-G1_HD G1_INLINE Point load_point(const int32_t* xs, const int32_t* ys,
-                                 const int32_t* zs, int i, const Fe& k) {
-  Point p;
-  p.x = row_to_fe(xs + i * NLIMBS, k);
-  p.y = row_to_fe(ys + i * NLIMBS, k);
-  p.z = row_to_fe(zs + i * NLIMBS, k);
-  return p;
-}
-
-G1_HD G1_INLINE void store_point(const Point& p, int32_t* ox, int32_t* oy,
-                                 int32_t* oz, int i) {
-  fe_to_row(p.x, ox + i * NLIMBS);
-  fe_to_row(p.y, oy + i * NLIMBS);
-  fe_to_row(p.z, oz + i * NLIMBS);
 }
 
 // ---- the complete addition law ------------------------------------------------
@@ -344,9 +334,10 @@ G1_HD G1_NOINLINE Point point_add(const Point& p, const Point& q) {
 constexpr int kMembers = 6;  // threads of a team: one product each a stage
 
 // A team's exchange slots.  a, b: the operands of the tree's first level
-// (and the ladder's accumulator and point); s1: stage 1's six products t0,
-// t1, t2, t3, t4, m5 (m5 = (X1 + Z1)(X2 + Z2)), then 3 t0, 12 t0, 12 t2,
-// 12 m5 and a zero; s2: stage 2's six products.
+// (and the ladder's and the running sum's accumulator and point); s1:
+// stage 1's six products t0, t1, t2, t3, t4, m5 (m5 = (X1 + Z1)(X2 +
+// Z2)), then 3 t0, 12 t0, 12 t2, 12 m5 and a zero; s2: stage 2's six
+// products.
 struct TeamSlots {
   Fe a[3];
   Fe b[3];
@@ -542,20 +533,36 @@ G1_HD void tree_one(const Teams& teams, const int32_t* xs, const int32_t* ys,
   });
 }
 
-// acc <- acc + (x : y : 1): acc is three canonical (or loose)
+// acc <- acc + (x : y : 1) on a team: acc is three canonical (or loose)
 // 2^390-Montgomery rows (X, Y, Z, 30 limbs each, in place), the point's
-// coordinates plain and canonical.  One thread (point_add).
-G1_HD G1_INLINE void running_add(int32_t* acc, const Affine& p) {
+// coordinates plain and canonical.  One stage converts the six
+// coordinates, one a member, into the slots (members 0-2 the
+// accumulator's rows into a, members 3-5 the point's x, y and 1 into b),
+// team_point_add sums them into a, and members 0-2 store a's
+// coordinates back as rows.  Every member of the load stage runs one
+// instruction stream: only the fill of its 13-word integer differs (a
+// row's limbs, or a plain value's 12 words), then the same reduction and
+// product, by K_MONT_IN for a row and K_PLAIN_IN for a plain value
+// (v * 2^1152 * 2^-768 = v * 2^384, what fe_mul(v, R2) gives, and
+// 1 -> fe_one()).  Equal, limb for limb, to the one-thread running sum
+// of g1_host_lanes.cpp.
+template <class Team>
+G1_HD G1_INLINE void team_running_add(const Team& team, int32_t* acc, const Affine& p) {
   const Fe k_mont = {{G1_K_MONT_IN}};
-  const Fe r2 = {{G1_R2}};
-  const Point a = load_point(acc, acc + NLIMBS, acc + 2 * NLIMBS, 0, k_mont);
-  Fe px, py;
-  for (int j = 0; j < NW; ++j) {
-    px.w[j] = p.x[j];
-    py.w[j] = p.y[j];
-  }
-  const Point b{fe_mul(px, r2), fe_mul(py, r2), fe_one()};
-  store_point(point_add(a, b), acc, acc + NLIMBS, acc + 2 * NLIMBS, 0);
+  const Fe k_plain = {{G1_K_PLAIN_IN}};
+  TeamSlots& sl = team.slots();
+  team.stage(kMembers, [&](int m) {
+    uint32_t wide[NW + 1];
+    if (m < 3) {
+      row_to_wide(acc + m * NLIMBS, wide);
+    } else {
+      for (int j = 0; j < NW; ++j) wide[j] = m == 3 ? p.x[j] : m == 4 ? p.y[j] : (uint32_t)(j == 0);
+      wide[NW] = 0;
+    }
+    (m < 3 ? sl.a : sl.b)[m % 3] = wide_to_fe(wide, m < 3 ? k_mont : k_plain);
+  });
+  team_point_add(team, sl.a, sl.b, sl.a, true);
+  team.stage(3, [&](int c) { fe_to_row(sl.a[c], acc + c * NLIMBS); });
 }
 
 // Lane `lane` of the batched ladder on one team: [k]P by MSB-first

@@ -4,12 +4,14 @@
 // oracle, so the kernels' arithmetic is checked without a card.
 //
 // Two kinds of body:
-//   * the kernels' own (host_g1_team_*): the team addition, tree and
-//     ladder of g1_field.cuh, with a HostTeam that runs the six members
-//     of each stage one after another, forward or reversed;
-//   * the single-thread references (host_g1_aggregate, host_g1_scalar_mult):
-//     the same formulas with point_add on one thread, the bodies the
-//     kernels had before they were split over teams.
+//   * the kernels' own (host_g1_team_*): the team addition, tree,
+//     running sum and ladder of g1_field.cuh, with a HostTeam that runs
+//     the six members of each stage one after another, forward or
+//     reversed;
+//   * the single-thread references (host_g1_aggregate, host_g1_running_add,
+//     host_g1_scalar_mult): the same formulas with point_add on one
+//     thread, the bodies the kernels had before they were split over
+//     teams.
 
 #include <stdint.h>
 #include <string.h>
@@ -51,6 +53,22 @@ g1::TeamSlots dirty_slots() {
 
 // ---- the single-thread references --------------------------------------------
 
+g1::Point load_point(const int32_t* xs, const int32_t* ys, const int32_t* zs,
+                     int i, const g1::Fe& k) {
+  g1::Point p;
+  p.x = g1::row_to_fe(xs + i * g1::NLIMBS, k);
+  p.y = g1::row_to_fe(ys + i * g1::NLIMBS, k);
+  p.z = g1::row_to_fe(zs + i * g1::NLIMBS, k);
+  return p;
+}
+
+void store_point(const g1::Point& p, int32_t* ox, int32_t* oy, int32_t* oz,
+                 int i) {
+  g1::fe_to_row(p.x, ox + i * g1::NLIMBS);
+  g1::fe_to_row(p.y, oy + i * g1::NLIMBS);
+  g1::fe_to_row(p.z, oz + i * g1::NLIMBS);
+}
+
 void aggregate_one_thread(const int32_t* xs, const int32_t* ys,
                           const int32_t* zs, int batch, int plain,
                           int32_t* ox, int32_t* oy, int32_t* oz, bool reverse) {
@@ -61,18 +79,18 @@ void aggregate_one_thread(const int32_t* xs, const int32_t* ys,
     for (int i = 0; i < n; ++i) f(reverse ? n - 1 - i : i);
   };
   if (batch == 1) {
-    g1::store_point(g1::load_point(xs, ys, zs, 0, k), ox, oy, oz, 0);
+    store_point(load_point(xs, ys, zs, 0, k), ox, oy, oz, 0);
     return;
   }
   int half = batch / 2;
   std::vector<g1::Point> scratch(half);
   each(half, [&](int i) {
-    scratch[i] = g1::point_add(g1::load_point(xs, ys, zs, i, k),
-                               g1::load_point(xs, ys, zs, i + half, k));
+    scratch[i] = g1::point_add(load_point(xs, ys, zs, i, k),
+                               load_point(xs, ys, zs, i + half, k));
   });
   for (half /= 2; half >= 1; half /= 2)
     each(half, [&](int i) { scratch[i] = g1::point_add(scratch[i], scratch[i + half]); });
-  g1::store_point(scratch[0], ox, oy, oz, 0);
+  store_point(scratch[0], ox, oy, oz, 0);
 }
 
 void scalar_mult_one_thread(const int32_t* bits, int nbits, int batch, int lane,
@@ -80,14 +98,29 @@ void scalar_mult_one_thread(const int32_t* bits, int nbits, int batch, int lane,
                             const int32_t* zs, int32_t* ox, int32_t* oy,
                             int32_t* oz) {
   const g1::Fe k_mont = {{G1_K_MONT_IN}};
-  const g1::Point p = g1::load_point(xs, ys, zs, lane, k_mont);
+  const g1::Point p = load_point(xs, ys, zs, lane, k_mont);
   g1::Point acc{g1::fe_zero(), g1::fe_one(), g1::fe_zero()};
   for (int i = 0; i < nbits; ++i) {
     acc = g1::point_add(acc, acc);
     const g1::Point added = g1::point_add(acc, p);
     if (bits[i * batch + lane] != 0) acc = added;
   }
-  g1::store_point(acc, ox, oy, oz, lane);
+  store_point(acc, ox, oy, oz, lane);
+}
+
+// acc <- acc + (x : y : 1) on one thread (point_add): acc three canonical
+// (or loose) 2^390-Montgomery rows, in place; the point plain and canonical.
+void running_add_one_thread(int32_t* acc, const g1::Affine& p) {
+  const g1::Fe k_mont = {{G1_K_MONT_IN}};
+  const g1::Fe r2 = {{G1_R2}};
+  const g1::Point a = load_point(acc, acc + g1::NLIMBS, acc + 2 * g1::NLIMBS, 0, k_mont);
+  g1::Fe px, py;
+  for (int j = 0; j < g1::NW; ++j) {
+    px.w[j] = p.x[j];
+    py.w[j] = p.y[j];
+  }
+  const g1::Point b{g1::fe_mul(px, r2), g1::fe_mul(py, r2), g1::fe_one()};
+  store_point(g1::point_add(a, b), acc, acc + g1::NLIMBS, acc + 2 * g1::NLIMBS, 0);
 }
 
 }  // namespace
@@ -106,7 +139,18 @@ extern "C" void host_g1_running_add(int32_t* acc, const uint32_t* px,
   g1::Affine p;
   memcpy(p.x, px, sizeof p.x);
   memcpy(p.y, py, sizeof p.y);
-  g1::running_add(acc, p);
+  running_add_one_thread(acc, p);
+}
+
+// The kernel's running sum on one team (members forward or reversed):
+// acc: 3 x 30 int32 rows, in place; px, py: 12 words each.
+extern "C" void host_g1_team_running_add(int32_t* acc, const uint32_t* px,
+                                         const uint32_t* py, int reverse) {
+  g1::Affine p;
+  memcpy(p.x, px, sizeof p.x);
+  memcpy(p.y, py, sizeof p.y);
+  g1::TeamSlots sl = dirty_slots();
+  g1::team_running_add(HostTeam{reverse != 0, &sl}, acc, p);
 }
 
 // The single-thread ladder, lane after lane.

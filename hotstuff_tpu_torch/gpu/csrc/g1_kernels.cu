@@ -50,9 +50,13 @@
 //            bound by the latency of one team addition, not by one SM's
 //            issue rate: B = 1024 is 32 blocks and 10 rounds of a team
 //            addition.
-//   running  one thread (point_add, unchanged); the new point comes by
-//   sum      value in the launch's parameters, so a vote costs no
-//            host-to-device copy.
+//   running  one team in an 8-thread block (team_running_add): a stage
+//   sum      of six conversions (the accumulator's three rows, the
+//            point's x, y and 1, one a member), the team addition's two
+//            stages, a stage of three row stores; a chain of about five
+//            products where one thread ran about twenty.  The new point
+//            comes by value in the launch's parameters, so a vote costs
+//            no host-to-device copy.
 //   ladder   one team a lane, 8 teams a block, so the storm's 1024 lanes
 //            are 128 blocks, one on each of 128 SMs; the accumulator and
 //            P live in the team's slots, and the teams past the batch
@@ -144,9 +148,11 @@ __global__ void __launch_bounds__(kTreeThreads)
   g1::tree_final(teams, blocks, batch / blocks, scratch, ox, oy, oz);
 }
 
-__global__ void __launch_bounds__(32)
-    g1_running_add_kernel(int32_t* acc, g1::Affine p) {
-  if (threadIdx.x == 0) g1::running_add(acc, p);
+// One team: lanes 0-5 its members (mask 0x3f), 6-7 idle.
+__global__ void __launch_bounds__(kTeamLanes)
+    g1_running_add_kernel(int32_t* acc, const __grid_constant__ g1::Affine p) {
+  __shared__ g1::TeamSlots slots;
+  g1::team_running_add(this_team(&slots), acc, p);
 }
 
 __global__ void __launch_bounds__(kLadderThreads)
@@ -210,7 +216,7 @@ extern "C" int g1_aggregate_launch(void* xs, void* ys, void* zs, int batch,
 extern "C" int g1_running_add_launch(void* acc, g1::Affine p, int device,
                                      void* stream) {
   return on_device(device, [&] {
-    g1_running_add_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+    g1_running_add_kernel<<<1, kTeamLanes, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<int32_t*>(acc), p);
     return cudaGetLastError();
   });

@@ -299,6 +299,7 @@ def host_g1(tmp_path_factory):
     lib.host_g1_point_add.argtypes = [vp, vp, ci, ci, ci, vp]
     lib.host_g1_team_aggregate.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, ci]
     lib.host_g1_team_scalar_mult.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp, ci]
+    lib.host_g1_team_running_add.argtypes = [vp, vp, vp, ci]
     return lib
 
 
@@ -597,6 +598,64 @@ def test_host_team_ladder_on_the_overflow_lane(host_g1):
         assert _mod_q(team[c]) == _mod_q(wide[c])
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+def test_host_team_running_add_chain_of_512(host_g1, reverse):
+    """The running-sum kernel's body (one team, members forward or
+    reversed) over a 512-vote chain from the identity: limb for limb the
+    single-thread body's after every vote, equal mod q to the JAX
+    ``_running_add_impl`` for the first votes and to the plain version
+    at the first (the identity plus a point), and the oracle's sum at
+    the end."""
+    pts = _pts(512, seed=SEED + 3)
+    team = np.ascontiguousarray(_mont_rows([G1Point.identity()])[:, 0, :])
+    one = team.copy()
+    acc_j = tuple(jnp.asarray(c) for c in _mont_rows([G1Point.identity()]))
+    plain = G.running_add_plain(*(torch.from_numpy(r[None].copy()) for r in team),
+                                *(torch.from_numpy(c) for c in _plain_rows(pts[:1], 1)))
+    for i, p in enumerate(pts):
+        x, y = _words(p.x), _words(p.y)
+        host_g1.host_g1_running_add(_p(one), _p(x), _p(y))
+        host_g1.host_g1_team_running_add(_p(team), _p(x), _p(y), int(reverse))
+        assert np.array_equal(team, one), f"vote {i}"
+        if i == 0:
+            assert _mod_q(team) == _mod_q([c.numpy()[0] for c in plain])
+        if i < 3:
+            acc_j = J._running_add_impl(*acc_j, *(jnp.asarray(c) for c in _plain_rows([p], 1)))
+            assert _mod_q(team) == _mod_q([np.asarray(c)[0] for c in acc_j])
+    assert G.projective_to_affine(*team) == G1Point.sum(pts)
+
+
+@pytest.mark.parametrize("case", ["point_plus_itself", "sum_to_infinity"])
+def test_host_team_running_add_complete_cases(host_g1, case):
+    """The complete formula's cases through the running sum's team body
+    (members forward and reversed), on an accumulator with Z != 1: plus
+    its own point (a doubling), and plus its negation (the identity);
+    limb for limb the single-thread body's, equal mod q to the plain
+    version's X, Y, Z, and the oracle's point.  (The identity
+    accumulator plus a point is the chain test's first vote.)"""
+    pts = _pts(3, seed=SEED + 4)
+    acc = np.ascontiguousarray(_mont_rows([G1Point.identity()])[:, 0, :])
+    total = G1Point.sum(pts)
+    for p in pts:
+        host_g1.host_g1_running_add(_p(acc), _p(_words(p.x)), _p(_words(p.y)))
+    assert G.from_mont_int(acc[2]) % Q != 1
+    add, want = {
+        "point_plus_itself": (total, total + total),
+        "sum_to_infinity": (-total, G1Point.identity()),
+    }[case]
+    x, y = _words(add.x), _words(add.y)
+    one = acc.copy()
+    host_g1.host_g1_running_add(_p(one), _p(x), _p(y))
+    for reverse in (0, 1):
+        team = acc.copy()
+        host_g1.host_g1_team_running_add(_p(team), _p(x), _p(y), reverse)
+        assert np.array_equal(team, one)
+    plain = G.running_add_plain(*(torch.from_numpy(r[None]) for r in acc),
+                                *(torch.from_numpy(c) for c in _plain_rows([add], 1)))
+    assert _mod_q(one) == _mod_q([c.numpy()[0] for c in plain])
+    assert G.projective_to_affine(*one) == want
+    assert (G.from_mont_int(one[2]) % Q == 0) == want.inf
+
 # ---- wrappers, build and devices -----------------------------------------------------------
 
 
@@ -631,15 +690,18 @@ def test_g1_library_is_its_own_build_and_nothing_builds_at_import():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,n", [("aggregate", 11), ("aggregate", 171), ("aggregate", 1024),
-                                      ("running_add", 16), ("scalar_mult", 5), ("scalar_mult", 13),
+                                      ("running_add", 16), ("running_add", 171), ("scalar_mult", 5),
+                                      ("scalar_mult", 13),
                                       ("scalar_mult", 171)])
 def test_cuda_g1_kernels_match_plain(kernel, n):
     """Each G1 kernel against its plain version on the card: X, Y, Z equal
     mod q, the affine point equal to the oracle's, on repeated launches.
     The tree at B = 16 (one block), 256 and 1024 (8 and 32 blocks, so the
-    last block's combine runs), on plain and Montgomery rows; the ladder
-    at 5, 13 and 171 lanes (one block; a block with teams past the batch;
-    22 blocks)."""
+    last block's combine runs), on plain and Montgomery rows; the running
+    sum over 16 and 171 votes (a QC's quorum at n = 256), then repeated
+    launches from one accumulator and the sum plus its negation (the
+    identity); the ladder at 5, 13 and 171 lanes (one block; a block with
+    teams past the batch; 22 blocks)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernels run only on a card")
     dev = torch.device("cuda")
@@ -660,7 +722,23 @@ def test_cuda_g1_kernels_match_plain(kernel, n):
         s = G.G1RunningSum(device=dev)
         for p in pts:
             s.add(p)
-        assert s.snapshot() == G1Point.sum(pts)
+        want = G1Point.sum(pts)
+        assert s.snapshot() == want
+        base, p = s._acc.clone(), pts[0]
+        pz = torch.zeros((1, G.NLIMBS), dtype=torch.int32, device=dev)
+        pz[0, 0] = 1
+        row = [torch.from_numpy(G.ints_to_limbs_batch([v])).to(dev) for v in (p.x, p.y)]
+        ref = _mod_q([c.cpu().numpy()[0] for c in G.running_add_plain(*base.split(1), *row, pz)])
+        reps = []
+        for _ in range(4):
+            acc = base.clone()
+            G.running_add_(acc, p.x, p.y)
+            reps.append(acc.cpu().numpy())
+        assert all(np.array_equal(a, reps[0]) for a in reps)
+        assert _mod_q(reps[0]) == ref
+        assert G.projective_to_affine(*reps[0]) == want + p
+        s.add(-want)
+        assert s.snapshot().inf
     else:
         ks = [random.Random(i).randrange(1 << 128) for i in range(n)]
         for nbits in (8, 128):
