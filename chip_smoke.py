@@ -119,9 +119,15 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    counts at most the final stats line's, device wall seconds wherever
    device or probe waves ran, 64 snapshot documents each a superset of
    the ``Work stats:`` one, a ``/delta`` frame decoding against the one
-   before; after the SIGTERM stop every node's journal, its commit
-   records the rounds of its ``Committed`` lines, and every node's
-   ``Telemetry snapshot:`` and ``Work stats:`` lines.  It prints the
+   before; in the final scrape every node's ``flows`` section on with
+   tx and rx bytes, its classes covering every byte, its ``propose``
+   amplification at most 63 and exactly 63 on some leader, the three
+   ``net_*_bytes`` gauges of 64 nodes, and no node-to-node class
+   received more than was sent (``flow_checks``); after the SIGTERM stop
+   every node's journal, its commit records the rounds of its
+   ``Committed`` lines, and every node's ``Telemetry snapshot:`` and
+   ``Work stats:`` lines.  It prints the wire bytes a committed block by
+   class, the proposals' trips (leader to node, from the journals), the
    committee's trace edges, the split of the loop's time (the wave
    service's host and device wall, the nodes' inline verify wall, the
    loop lag), the scrapes' sizes and times, and (i)'s rounds beside
@@ -145,7 +151,22 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    of nodes in each regime, the time from each (j2) monitor's start to
    its first incident, and (j1)'s rounds beside (i)'s (logs in
    ``chiprun_out/health_phase/``);
-16. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
+16. (m) the WAN committee (``wan_phase``): (e)'s committee with
+   ``HOTSTUFF_WAN_SPEC`` naming a spec written by the port's
+   ``network/wan.build_spec`` over its 64 addresses (the reference's five
+   regions, 12 or 13 members each) and ``--metrics-port 0``, scraped
+   once after the load: every node logs its region, commits at least 5
+   blocks, the chains agree, K1 launches after boot, the mean commit
+   latency is at or above the spec's floor (two one-way hops to the
+   43rd-nearest member from the best leader region, less 3 sd of
+   jitter), no proposal reaches a node of another region sooner than
+   0.6 of the spec's one-way delay (the journals' ``propose`` and
+   ``recv.propose`` records), and the flows show node-to-node bytes in
+   each class of a round that (i) shows; prints rounds, latency,
+   timeouts (by leader region), payloads/s and bytes a block beside
+   (e)'s, and each region pair's proposal trips (logs in
+   ``chiprun_out/wan_phase/``);
+17. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
    G1 kernels (``gpu/csrc/g1_kernels.cu``) against their plain versions
    on the card and against the oracle (``crypto/bls/curve.py``), X, Y and
    Z as integers mod q, tolerance zero: the tree sum at B = 256 (171
@@ -173,7 +194,7 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    agree, compact QCs were emitted, and the running-sum kernel launched
    at least once for every vote those QCs summed (logs in
    ``chiprun_out/bls_phase/``);
-17. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
+18. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
    card (``default_mesh()``, one card here) and on four shards of card 0
    (``Mesh([cuda:0] * 4)``, the port's counterpart of XLA's forced host
    device count): (l1) ``ShardedBatchVerifier`` after ``precompute`` and
@@ -192,9 +213,9 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    --mesh-devices 1`` (logs in ``chiprun_out/mesh_phase/``): the checks
    of (e) and ``mesh=`` > 0 and equal to ``device=`` in the last stats
    line.  Prints a ``mesh {json}`` line;
-18. a ``{"kernels": [...]}`` line, then the last line
+19. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the main-path runs (3, (a)-(j) and (l) for the Ed25519 verify
+   over the main-path runs (3, (a)-(j), (m) and (l) for the Ed25519 verify
    kernel, (k2), (k3) and (l3) for the G1 kernels), each counted from 0.
    A row's ``ms`` is the mean of back-to-back launches between two CUDA
    events, the host's enqueue inside the window (``cuda_ms``), except
@@ -227,6 +248,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -1633,13 +1655,75 @@ def read_journals(jdir: str) -> dict:
 
 def keys_match(state: dict, snapshot_flat: dict) -> bool:
     """A ``/delta`` state decoded after a ``/snapshot`` scrape holds the
-    snapshot's keys, plus the ``metrics`` blocks and the percentiles of
-    histograms that were empty at the snapshot (keys only appear)."""
-    mine = {k for k in state if ".metrics." not in k}
-    if not set(snapshot_flat) <= mine:
+    snapshot's keys, plus the ``metrics`` blocks, the percentiles of
+    histograms that were empty at the snapshot and the ``flows`` keys of
+    a class first charged between the two scrapes (keys only appear).
+    The ``flows.peers`` block is each node's top 8 peers by bytes, whose
+    members change from one scrape to the next, so it is left out."""
+    def ranked(k: str) -> bool:
+        return ".flows.peers." in k
+
+    mine = {k for k in state if ".metrics." not in k and not ranked(k)}
+    theirs = {k for k in snapshot_flat if not ranked(k)}
+    if not theirs <= mine:
         return False
-    return all(snapshot_flat.get(k.rsplit(".", 1)[0] + ".count") == 0
-               for k in mine - set(snapshot_flat))
+    return all(snapshot_flat.get(k.rsplit(".", 1)[0] + ".count") == 0 or ".flows." in k
+               for k in mine - theirs)
+
+
+#: the classes of frames one node sends another in a round or a view
+#: change (the client's producer frames and the ACKs are not among them)
+NODE_CLASSES = ("propose", "vote", "timeout", "tc")
+NET_GAUGES = ("hotstuff_net_tx_bytes", "hotstuff_net_rx_bytes", "hotstuff_net_retx_bytes")
+
+
+def flow_checks(phase: str, card: str, docs: dict, samples: dict, nodes: int, rounds: int) -> dict:
+    """The flows sections of one ``/snapshot`` scrape (``docs``, node ->
+    document) and the byte gauges of the ``/metrics`` scrape beside it
+    (``samples``): every node's section is on with tx and rx bytes, its
+    classes cover every accounted byte, its ``propose`` amplification
+    (wire over logical bytes) is at most n - 1 (more only by its
+    retransmits' share), and exactly n - 1 on at least one leader that
+    answered no sync request (a sync reply is a single-peer ``propose``
+    frame) and retransmitted nothing; summed over the nodes, no
+    node-to-node class received more bytes than were sent.  Returns the
+    bytes a committed block by class (``rounds`` committed rounds)."""
+    check(len(docs) == nodes, f"{phase}: {nodes} snapshot documents for the flows ({len(docs)})")
+    for gauge in NET_GAUGES:
+        check(len(by_label(samples, gauge, "node")) == nodes, f"{phase}: /metrics has {gauge} for {nodes} nodes")
+    totals: dict = collections.defaultdict(lambda: [0, 0])
+    amps, exact = [], 0
+    for n, doc in docs.items():
+        f = doc.get("flows") or {}
+        check(f.get("enabled") is True and f["tx_bytes"] > 0 and f["rx_bytes"] > 0,
+              f"{phase}: node {n}'s flows section is on, with tx and rx bytes ({f})")
+        classes = f["classes"]
+        for d in ("tx", "rx"):
+            check(sum(c[f"{d}_bytes"] for c in classes.values()) == f[f"{d}_bytes"],
+                  f"{phase}: node {n}'s classes cover its {d} bytes")
+        for cls, c in classes.items():
+            totals[cls][0] += c["tx_bytes"]
+            totals[cls][1] += c["rx_bytes"]
+        amp = f["amp"].get("propose")
+        if amp is None:
+            continue  # sent no propose frame
+        p = classes.get("propose", {"tx_bytes": 0, "retx_bytes": 0, "retx_frames": 0})
+        ceiling = (nodes - 1) * p["tx_bytes"] / max(1, p["tx_bytes"] - p["retx_bytes"])
+        check(0 < amp <= ceiling + 1e-3, f"{phase}: node {n}'s propose amplification {amp} in (0, {ceiling:.3f}]")
+        amps.append(amp)
+        if classes.get("sync-req", {}).get("rx_frames", 0) == 0 and p["retx_frames"] == 0 and amp == nodes - 1:
+            exact += 1
+    check(exact > 0, f"{phase}: some leader's propose amplification is exactly {nodes - 1} ({sorted(amps)[-5:]})")
+    for cls in NODE_CLASSES:
+        tx, rx = totals.get(cls, (0, 0))
+        check(rx <= tx, f"{phase}: {cls} bytes received ({rx}) at most those sent ({tx}), over all nodes")
+    per_block = {cls: round(tx / max(rounds, 1)) for cls, (tx, _) in sorted(totals.items())}
+    print(f"{phase} flows: tx/rx bytes by class over {nodes} nodes "
+          f"{ {cls: tuple(v) for cls, v in sorted(totals.items())} }; propose amplification "
+          f"{min(amps, default=None)}-{max(amps, default=None)} on {len(amps)} nodes, exactly {nodes - 1} on {exact}; "
+          f"wire bytes a committed block ({rounds} rounds) by class {per_block} [{card}]")
+    return {"classes": {cls: tuple(v) for cls, v in totals.items()}, "per_block": per_block,
+            "amp_exact": exact, "amp_range": (min(amps, default=None), max(amps, default=None))}
 
 
 def endpoint_and_load_start(phase: str, nodes: int, node_log_path, client_log_path, client) -> tuple:
@@ -1757,6 +1841,9 @@ def telemetry_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
               f"{phase}: the second /delta frame decodes against the first")
         check(keys_match(state, flatten(snap)), f"{phase}: the decoded /delta state is the /snapshot document")
 
+    # flows: the final scrape's sections and byte gauges
+    r["flows"] = flow_checks(phase, card, snapshots[-1], last, nodes, r["committed_rounds"])
+
     # journals: every node's, its commit records the rounds of its Committed lines
     journals = read_journals(jdir)
     check(len(journals) == nodes, f"{phase}: {nodes} nodes' journals after the stop ({len(journals)})")
@@ -1767,6 +1854,11 @@ def telemetry_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
                   if [x["r"] for x in recs if x["e"] == "commit"] != logged.get(n)]
     check(not mismatched, f"{phase}: each node's commit records are its Committed lines' rounds "
                           f"({len(mismatched)} differ)")
+    trips = sorted(secs for _, _, secs in proposal_delays(jdir))
+    if trips:
+        r["proposal_trip_ms"] = [round(trips[0] * 1e3, 3), round(statistics.median(trips) * 1e3, 3), len(trips)]
+        print(f"{phase}: proposal trips, leader to node, no WAN: min {r['proposal_trip_ms'][0]} ms, median "
+              f"{r['proposal_trip_ms'][1]} ms over {len(trips)} [{card}]")
     snap_nodes = set()
     for line in node_text.splitlines():
         who, doc = RE_NODE_TELEMETRY.search(line), RE_TELEMETRY.search(line)
@@ -2092,6 +2184,165 @@ def health_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float =
     r["health"] = {"regimes": dict(by_regime), "opened": opened, "fleet": fleet, "j2_launches": k1_j2}
     print(f"{phase} result: " + json.dumps(r["health"]))
     return launches + k1_j2, r
+
+# ---- (m) the WAN committee ---------------------------------------------------
+
+RE_REGION = re.compile(r"WAN emulation active: region (\S+)")
+
+
+def wan_floor_s(spec: dict, quorum: int) -> tuple:
+    """The least mean commit latency the spec allows: for a leader in each
+    region, two one-way hops to the ``quorum``-th nearest member (itself
+    at 0 ms), the spec's base delays less three standard deviations of
+    its jitter; the smallest over the regions, and that region."""
+    matrix = {}
+    for key, ms in spec["matrix_one_way_ms"].items():
+        a, b = key.split("|")
+        matrix[(a, b)] = matrix[(b, a)] = float(ms)
+    members = list(spec["regions"].values())
+    shrink = 1.0 - 3.0 * float(spec["jitter_pct"]) / 100.0
+    best = None
+    for region in sorted(set(members)):
+        hops = sorted(float(spec["intra_region_ms"]) if m == region else matrix[(region, m)]
+                      for m in members)
+        hops[0] = 0.0  # the leader itself
+        floor = 2.0 * hops[quorum - 1] * shrink / 1e3
+        if best is None or floor < best[0]:
+            best = (floor, region)
+    return best
+
+
+def proposal_delays(jdir: str) -> list:
+    """(leader, receiver, seconds) for every proposal a node's journal
+    received (``recv.propose``), from its leader's ``propose`` record:
+    the nodes share one process and one monotonic clock, so the
+    difference is the proposal's trip, link delay and loop lag."""
+    journals = read_journals(jdir)
+    proposed = {r["d"]: (node, r["m"]) for node, recs in journals.items() for r in recs
+                if r["e"] == "propose"}
+    return [(proposed[r["d"]][0], node, (r["m"] - proposed[r["d"]][1]) / 1e9)
+            for node, recs in journals.items() for r in recs
+            if r["e"] == "recv.propose" and r["d"] in proposed and proposed[r["d"]][0] != node]
+
+
+#: the least share of a link's base delay a proposal's trip may take:
+#: the jitter is normal with a 10% standard deviation, so 4 of them
+WAN_MIN_SHARE = 0.6
+
+
+def wan_phase(card: str, base: dict, i_classes: dict, nodes: int = 64, rate: int = 1000,
+              duration: float = 20, verifier: str = "cuda"):
+    """(m) The committee of (e) on the reference's five-region WAN: a
+    spec written by the port's ``network/wan.build_spec`` over the
+    committee's 64 addresses (12 or 13 members a region, the default
+    one-way matrix of 30-140 ms between regions, 0.5 ms within one, 10%
+    jitter), handed to ``run-many --verifier cuda --metrics-port 0``
+    through ``HOTSTUFF_WAN_SPEC``, and the client's 1,000 tx/s of 512 B
+    for ``duration`` s; ``/snapshot`` and ``/metrics`` scraped once after
+    the load; every node's journal (``--journal-dir``) read after the
+    stop.  Every node logs its region and commits at least 5 blocks, the
+    chains agree, K1 launches after boot, the mean commit latency is at
+    or above the spec's floor (``wan_floor_s``), every proposal reached
+    a node of another region no sooner than ``WAN_MIN_SHARE`` of the
+    spec's one-way delay between the two regions (``proposal_delays``,
+    the journals' ``propose`` and ``recv.propose`` records on the one
+    clock of the process), and the flows show node-to-node bytes in each
+    class of a round without a view change that (i) shows
+    (``i_classes``).  The mean commit latency is printed beside (e)'s
+    (``base``, the same call); it is not held above it: at 64 nodes the
+    one loop takes ~1 s a round, far more than the WAN's round trips,
+    and a payload's latency is the backlog of an offered load the
+    committee does not keep up with.  Returns the verify kernel's
+    launches in the node process and what the logs say."""
+    import tempfile
+
+    from hotstuff_tpu_torch.consensus.leader import LeaderElector
+    from hotstuff_tpu_torch.network.wan import DEFAULT_REGIONS, build_spec
+    from hotstuff_tpu_torch.node.config import read_committee
+
+    phase = "wan phase"
+    scraped: dict = {}
+
+    def during(node_log_path, client_log_path, client):
+        port, _ = endpoint_and_load_start(phase, nodes, node_log_path, client_log_path, client)
+        client.wait(timeout=3.0 * nodes + duration + 120)
+        scraped["snapshot"] = json.loads(scrape(port, "/snapshot")["body"])
+        scraped["metrics"] = parse_metrics(scrape(port, "/metrics")["body"])[1]
+
+    with tempfile.TemporaryDirectory(prefix="wan-phase-") as tmp, contextlib.ExitStack() as ports:
+        held: list = []
+        files = committee_files(tmp, nodes, phase, held=held)
+        for sock in held:  # the member ports stay reserved through the run
+            ports.enter_context(sock)
+        committee = read_committee(files[1])
+        keys = committee.sorted_keys()
+        spec = build_spec([committee.address(k) for k in keys])
+        spec_path = os.path.join(tmp, "wan.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        quorum = committee.quorum_threshold()
+        floor_s, floor_region = wan_floor_s(spec, quorum)
+        jdir = os.path.join(tmp, "journals")
+        launches, r = node_phase(card, nodes, rate, duration, verifier, label=phase,
+                                 extra_args=("--metrics-port", "0", "--journal-dir", jdir),
+                                 extra_env={"HOTSTUFF_WAN_SPEC": spec_path}, during=during, files=files)
+        delays = proposal_delays(jdir)
+    region_of = {str(k)[:8]: spec["regions"]["%s:%d" % committee.address(k)] for k in keys}
+    one_way = {}
+    for key, ms in spec["matrix_one_way_ms"].items():
+        a, b = key.split("|")
+        one_way[(a, b)] = one_way[(b, a)] = ms / 1e3
+    trips = collections.defaultdict(list)
+    for leader, node, secs in delays:
+        trips[(region_of[leader], region_of[node])].append(secs)
+    crossing = {pair: ts for pair, ts in trips.items() if pair[0] != pair[1]}
+    check(len(crossing) >= 4, f"{phase}: proposals crossed at least 4 region pairs ({sorted(crossing)})")
+    early = {pair: min(ts) for pair, ts in crossing.items() if min(ts) < WAN_MIN_SHARE * one_way[pair]}
+    check(not early, f"{phase}: no proposal reached another region sooner than {WAN_MIN_SHARE} of the link's "
+                     f"one-way delay ({early})")
+    trip_ms = {f"{a}>{b}": [round(min(ts) * 1e3, 1), round(statistics.median(ts) * 1e3, 1),
+                            one_way.get((a, b), 0.0) * 1e3, len(ts)]
+               for (a, b), ts in sorted(trips.items())}
+    with open(os.path.join(ROOT, "chiprun_out", "wan_phase", "nodes.log")) as f:
+        node_text = f.read()
+    regions = collections.Counter(RE_REGION.findall(node_text))
+    check(regions == collections.Counter(spec["regions"].values())
+          and set(regions) == set(DEFAULT_REGIONS[:nodes])
+          and max(regions.values()) - min(regions.values()) <= 1,
+          f"{phase}: every node logs its spec's region, {nodes // 5} or {-(-nodes // 5)} a region "
+          f"({dict(regions)})")
+    per_node = collections.Counter(node for node, rnd in RE_CORE_COMMIT.findall(node_text) if int(rnd) > 0)
+    check(len(per_node) == nodes and min(per_node.values()) >= 5,
+          f"{phase}: every node commits at least 5 blocks ({sorted(per_node.values())[:3]})")
+    lat = r["latency_mean_s"]
+    check(lat is not None and lat >= floor_s,
+          f"{phase}: mean commit latency {lat} s at or above the spec's floor {floor_s:.4f} s "
+          f"(a leader in {floor_region})")
+    check("snapshot" in scraped, f"{phase}: the scrape after the load")
+    flows = flow_checks(phase, card, scraped["snapshot"], scraped["metrics"], nodes, r["committed_rounds"])
+    # timeout and tc frames flow only where a view change happened
+    want = {cls for cls in ("propose", "vote") if i_classes.get(cls, (0, 0))[0] > 0}
+    missing = [cls for cls in want if flows["classes"].get(cls, (0, 0))[0] == 0]
+    check(not missing, f"{phase}: node-to-node bytes in every class (i) shows ({missing} missing)")
+    elector = LeaderElector(committee)
+    by_region = collections.Counter(
+        spec["regions"]["%s:%d" % committee.address(elector.get_leader(int(rnd)))]
+        for rnd in RE_TIMEOUT.findall(node_text))
+    r.update(regions=dict(regions), floor_s=floor_s, floor_region=floor_region, flows=flows,
+             timeouts_by_leader_region=dict(by_region), proposal_trip_ms=trip_ms)
+    keys_ = ("committed_rounds", "latency_p50_s", "latency_mean_s", "timeouts", "consensus_payloads_per_s")
+    print(f"{phase}: regions {dict(sorted(regions.items()))}; latency floor {floor_s * 1e3:.1f} ms "
+          f"(a leader in {floor_region}, quorum {quorum}); timeouts by leader region {dict(by_region)}; "
+          f"(m) " + ", ".join(f"{k} {r[k]}" for k in keys_) + "; (e) "
+          + ", ".join(f"{k} {base[k]}" for k in keys_)
+          + f"; wire bytes a committed block by class {flows['per_block']} [{card}]")
+    print(f"{phase}: proposal trips, leader region > node region: [min ms, median ms, the spec's one-way ms, "
+          f"trips] {trip_ms} [{card}]")
+    print(f"{phase} result: " + json.dumps({k: r[k] for k in (*keys_, "regions", "floor_s", "floor_region",
+                                                               "timeouts_by_leader_region", "flows",
+                                                               "proposal_trip_ms")}))
+    return launches, r
+
 
 # ---- (k) BLS at BASELINE config 5's size ------------------------------------
 
@@ -3071,6 +3322,9 @@ def main() -> int:
     health_launches, health_r = health_phase(card)
     print(f"phase (j) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    wan_launches, wan_r = wan_phase(card, node_r, telemetry_r["flows"]["classes"])
+    print(f"phase (m) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     g1, g1_launches, bls_r = bls_phase(card)
     print(f"phase (k) took {time.perf_counter() - t0:.1f} s")
     for name, count in g1_launches.items():
@@ -3087,8 +3341,11 @@ def main() -> int:
     print(f"health plane beside telemetry, same call: (i) {telemetry_r['committed_rounds']} rounds, "
           f"{telemetry_r['consensus_payloads_per_s']:.1f} payloads/s; (j1) {health_r['committed_rounds']} "
           f"rounds, {health_r['consensus_payloads_per_s']:.1f} payloads/s [{card}]")
+    print(f"flow accounting beside (e), same call: (e) {node_r['committed_rounds']} rounds, (i) "
+          f"{telemetry_r['committed_rounds']} rounds, ratio "
+          f"{telemetry_r['committed_rounds'] / max(node_r['committed_rounds'], 1):.3f} [{card}]")
     for label, r in (("(e) asyncio", node_r), ("(g) native", native_r), ("(i) telemetry", telemetry_r),
-                     ("(j1) health", health_r)):
+                     ("(j1) health", health_r), ("(m) wan", wan_r)):
         print(f"node CLI {label}: " + ", ".join(f"{k} {r[k]}" for k in keys) + f", stats {r['stats']} [{card}]")
 
     B = WAVE
@@ -3102,7 +3359,8 @@ def main() -> int:
             "launches": (main_launches["verify_compressed"] + storm_launches + wave_launches
                          + committee_launches + restart_launches + node_launches
                          + ingest_launches + native_launches + bench_launches
-                         + telemetry_launches + health_launches + mesh["k1_launches"]),
+                         + telemetry_launches + health_launches + wan_launches
+                         + mesh["k1_launches"]),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

@@ -33,11 +33,20 @@ before it enters the protocol:
 
     result = run_committee(nodes=64, rate=1000, duration=60, restart={
         "node": 1, "down_at_s": 5.0, "behind_rounds": 16, "deadline_s": 30.0})
+
+With ``wan=True`` the nodes' links carry the reference's five-region
+WAN delays (a ``network/wan.build_spec`` over the committee's addresses,
+handed to every ``Consensus.spawn`` through ``HOTSTUFF_WAN_SPEC``, as
+the node CLI's environment does); with ``telemetry=True`` every stack
+gets its node's telemetry handle, flow accounting included, as a node
+started with ``--metrics-port`` does.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
+import json
 import logging
 import os
 import random
@@ -290,7 +299,7 @@ async def _drained(service, limit_s: float = 10.0) -> None:
 
 async def _committee(
     nodes, rate, duration, size, verifier, device, timeout_delay, sync_retry_delay,
-    seed, restart, transport, scheme="ed25519",
+    seed, restart, transport, scheme="ed25519", wan=False, telemetry=False,
 ) -> dict:
     loop = asyncio.get_running_loop()
     t_boot = time.perf_counter()
@@ -313,6 +322,7 @@ async def _committee(
     logs = None
     outage = None
     result: dict = {}
+    wan_before = os.environ.get("HOTSTUFF_WAN_SPEC")
     try:
         if set_cap:
             os.environ["HOTSTUFF_MAX_PEER_CONNS"] = cap
@@ -333,6 +343,26 @@ async def _committee(
             pops=pops,
         )
         quorum = committee.quorum_threshold()
+        wan_regions = None
+        if wan:
+            from ..network.wan import build_spec
+
+            spec = build_spec([committee.address(pk) for pk, _ in keys])
+            spec_path = os.path.join(tmp.name, "wan.json")
+            with open(spec_path, "w") as f:
+                json.dump(spec, f)
+            os.environ["HOTSTUFF_WAN_SPEC"] = spec_path
+            wan_regions = dict(
+                collections.Counter(spec["regions"].values())
+            )
+        tels = None
+        if telemetry:
+            from .. import telemetry as telemetry_module
+
+            telemetry_module.enable()
+            tels = [
+                telemetry_module.for_node(str(pk)[:8]) for pk, _ in keys
+            ]
         backend = make_verifier(verifier, scheme, device=device)
         backend.precompute([pk.to_bytes() for pk in committee.authorities])
         service = AsyncVerifyService.for_backend(backend)
@@ -370,6 +400,7 @@ async def _committee(
                     verifier=backend,
                     bind_host="127.0.0.1",
                     transport=transport,
+                    telemetry=tels[i] if tels is not None else None,
                 )
             except BaseException:
                 store.close()
@@ -488,6 +519,9 @@ async def _committee(
             conns, rate, duration, size, random.Random(seed), sent_at
         )
         t_end = loop.time()
+        snapshots = (
+            {t.node: t.snapshot() for t in tels} if tels is not None else None
+        )
         if outage is not None:
             await outage  # raises when the restart failed
         window = t_end - t_start
@@ -536,6 +570,8 @@ async def _committee(
             "roots_agree": _roots_agree(logs.roots, logs.conflicts),
             "state_sync": None,
             "ledger_reads": None,
+            "wan_regions": wan_regions,
+            "snapshots": snapshots,
         }
         if restart is not None:
             k = sync["node"]
@@ -602,6 +638,10 @@ async def _committee(
             undo_gc()
         if set_cap:
             del os.environ["HOTSTUFF_MAX_PEER_CONNS"]
+        if wan_before is None:
+            os.environ.pop("HOTSTUFF_WAN_SPEC", None)
+        else:
+            os.environ["HOTSTUFF_WAN_SPEC"] = wan_before
         tmp.cleanup()
         result["shutdown_s"] = time.perf_counter() - t_shut
     return result
@@ -654,6 +694,8 @@ def run_committee(
     sync_retry_delay: int = 10_000,
     transport: str = "asyncio",
     scheme: str = "ed25519",
+    wan: bool = False,
+    telemetry: bool = False,
 ) -> dict:
     """Boot ``nodes`` co-located consensus stacks of a ``scheme``
     committee (``"bls"``: BLS12-381 keys with their proofs of possession,
@@ -713,10 +755,18 @@ def run_committee(
       from a live node after the window: ``reads``, ``found`` at the
       restarted node, and ``matched`` (found, with the same round and
       position as the live node's answer).
+
+    ``wan=True``: ``HOTSTUFF_WAN_SPEC`` names a ``build_spec`` over the
+    committee's addresses for the run (``transport="asyncio"`` only, as
+    in the reference; ``wan_regions`` counts the nodes a region).
+    ``telemetry=True``: turns telemetry on for the process
+    (``telemetry.enable()``, as ``--metrics-port`` does) and spawns every
+    stack with ``telemetry.for_node``; ``snapshots`` holds each node's
+    snapshot document taken at the end of the load window.
     """
     return asyncio.run(
         _committee(
             nodes, rate, duration, size, verifier, device, timeout_delay,
-            sync_retry_delay, seed, restart, transport, scheme,
+            sync_retry_delay, seed, restart, transport, scheme, wan, telemetry,
         )
     )

@@ -21,12 +21,14 @@ sync), and the receiver's native producer-v2 fast path
 (``dispatch_producer_v2``), and the telemetry seams: the handler's
 per-tag counters, drop counter and journaled receive edges, the
 execution layer's, payload store's and admission's gauges, and every
-actor's telemetry handle.  Not ported, so cut: WAN emulation, the fault
-and adversary planes, flow accounting and the sim transport.  Where the
-reference's ``spawn`` would switch one of the cut planes on from the
-environment (``HOTSTUFF_FAULTS``, ``HOTSTUFF_ADVERSARY``, or
-``HOTSTUFF_WAN_SPEC`` on the asyncio transport), this ``spawn`` raises
-instead of running without it (:func:`unported_env_plane`).
+actor's telemetry handle, WAN emulation (``HOTSTUFF_WAN_SPEC`` on the
+asyncio transport, ``network/wan.py``) and wire-level flow accounting
+(on with telemetry unless ``HOTSTUFF_NET=0``, ``telemetry/flows.py``).
+Not ported, so cut: the fault and adversary planes and the sim
+transport.  Where the reference's ``spawn`` would switch one of the cut
+planes on from the environment (``HOTSTUFF_FAULTS`` or
+``HOTSTUFF_ADVERSARY``), this ``spawn`` raises instead of running
+without it (:func:`unported_env_plane`).
 """
 
 from __future__ import annotations
@@ -77,21 +79,17 @@ log = logging.getLogger(__name__)
 CHANNEL_CAPACITY = 1_000
 
 #: env knobs whose plane the reference's ``Consensus.spawn`` switches on
-#: from the environment and the port has not ported yet; the WAN knob
-#: acts on the asyncio transport only, as in the reference
+#: from the environment and the port has not ported yet
 _UNPORTED_ENV_PLANES = ("HOTSTUFF_FAULTS", "HOTSTUFF_ADVERSARY")
 
 
 def unported_env_plane(transport: str = "asyncio") -> str | None:
     """The env knob that would switch on a plane the port does not have
-    yet, under exactly the reference's conditions (a non-empty value;
-    ``HOTSTUFF_WAN_SPEC`` only off the native transport); None when no
-    such knob is set."""
+    yet, under exactly the reference's conditions (a non-empty value, on
+    either transport); None when no such knob is set."""
     for knob in _UNPORTED_ENV_PLANES:
         if os.environ.get(knob):
             return knob
-    if os.environ.get("HOTSTUFF_WAN_SPEC") and transport != "native":
-        return "HOTSTUFF_WAN_SPEC"
     return None
 
 
@@ -643,6 +641,40 @@ class Consensus:
                 address[0],
                 address[1],
             )
+        # WAN emulation (HOTSTUFF_WAN_SPEC, network/wan.py): per-link
+        # propagation delay on every node->node sender — the committee
+        # experiences the reference's 5-region topology on localhost.
+        # asyncio transport only (the native reactor does its own I/O).
+        # An unreadable or malformed spec raises here.
+        link_delay = None
+        wan_spec = os.environ.get("HOTSTUFF_WAN_SPEC")
+        if wan_spec and transport != "native":
+            from ..network.wan import WanModel
+
+            model = WanModel.load(wan_spec, address)
+            log.info(
+                "WAN emulation active: region %s", model.self_region
+            )
+
+            def link_delay(dst, _model=model):  # noqa: E731 — closure
+                return lambda: _model.delay(dst)
+
+        # Wire-level flow accounting (telemetry/flows.py): one
+        # accountant per node, threaded through every sender and the
+        # receiver — each frame charged to a (peer, direction, class)
+        # flow at its transmit/receive site, surfaced as the snapshot's
+        # ``flows`` section.
+        flows = None
+        if telemetry is not None:
+            from ..telemetry.flows import FlowAccounting
+
+            flows = FlowAccounting(node=str(name))
+            flows.label_peers(
+                (str(peer)[:8], addr)
+                for peer, addr in committee.broadcast_addresses(name)
+            )
+            telemetry.attach_flows(flows)
+
         if transport == "native":
             from ..network.native import (
                 NativeReceiver,
@@ -651,8 +683,12 @@ class Consensus:
             )
 
             receiver_cls = NativeReceiver
-            make_sender = NativeSimpleSender
-            make_reliable = NativeReliableSender
+
+            def make_sender():
+                return NativeSimpleSender(flows=flows)
+
+            def make_reliable():
+                return NativeReliableSender(flows=flows)
         else:
             receiver_cls = NetworkReceiver
             # Bounded per-sender connection pools for big co-located
@@ -663,10 +699,18 @@ class Consensus:
             )
 
             def make_sender():
-                return SimpleSender(max_conns=max_conns)
+                return SimpleSender(
+                    link_delay=link_delay,
+                    max_conns=max_conns,
+                    flows=flows,
+                )
 
             def make_reliable():
-                return ReliableSender(max_conns=max_conns)
+                return ReliableSender(
+                    link_delay=link_delay,
+                    max_conns=max_conns,
+                    flows=flows,
+                )
 
         # Bind on all interfaces, listen on our committee port
         # (consensus.rs:61-73 rewrites the IP to 0.0.0.0).
@@ -685,6 +729,7 @@ class Consensus:
                 state=state_machine,
                 committee=committee,
             ),
+            flows=flows,
         )
         await self.receiver.spawn()
         log.info(

@@ -1,22 +1,24 @@
 """ctypes bridge to the native C++ transport reactor (native/transport.cpp).
 
-A copy of ``hotstuff_tpu.network.native`` without the fault plane, flow
-accounting and ``lucky_broadcast``.  The reference's network layer is
+A copy of ``hotstuff_tpu.network.native`` without the fault plane; flow
+accounting (``flows=``, ``telemetry/flows.py``) and the simple sender's
+``lucky_broadcast`` are the reference's, and, as there, no link of the
+native transport is WAN-delayed.  The reference's network layer is
 native (tokio TCP); this is its native equivalent — an epoll reactor
 thread owning every socket, bridged into asyncio through a notify pipe:
 the loop registers the pipe fd with ``add_reader`` and drains the
 reactor's event queue without ever blocking.  API mirrors of the
 asyncio classes:
 
-- ``NativeReceiver(host, port, handler)`` — like ``receiver.Receiver``:
+- ``NativeReceiver(host, port, handler, flows=)`` — like ``receiver.Receiver``:
   every inbound frame goes through ``dispatch_ingest`` to
   ``handler.dispatch(writer, bytes)``, where the writer replies (ACKs)
   on the same connection;
-- ``NativeSimpleSender()`` — like ``simple_sender.SimpleSender``:
+- ``NativeSimpleSender(flows=)`` — like ``simple_sender.SimpleSender``:
   persistent best-effort per-peer connections, frames dropped while the
   peer is down, reconnect attempted on the next send; peer ACK frames
   are read and discarded;
-- ``NativeReliableSender()`` — like ``reliable_sender.ReliableSender``:
+- ``NativeReliableSender(flows=)`` — like ``reliable_sender.ReliableSender``:
   per-frame ACK futures, retransmission after a reconnect.
 
 The library is the port's own build of ``native/transport.cpp`` and
@@ -160,17 +162,21 @@ class Reactor:
 class NativeWriter:
     """Reply channel handed to MessageHandler.dispatch."""
 
-    def __init__(self, reactor: Reactor, conn_id: int):
+    def __init__(self, reactor: Reactor, conn_id: int, flows=None):
         self._reactor = reactor
         self._conn = conn_id
+        self._flows = flows
 
     async def send(self, payload: bytes) -> None:
         # a refused reply (outbox full -> connection closed) never hits
-        # the wire, as a reply to a vanished asyncio peer
+        # the wire, as a reply to a vanished asyncio peer; replies leave
+        # on the accepted connection and are charged only when accepted
         if self._reactor.handle:
-            self._reactor.lib.ht_reply(
+            rc = self._reactor.lib.ht_reply(
                 self._reactor.handle, self._conn, payload, len(payload)
             )
+            if rc == 0 and self._flows is not None:
+                self._flows.tx(self.peer, payload)
 
     @property
     def peer(self):
@@ -196,10 +202,11 @@ class NativeReceiver:
     HIGH_WATER = 256
     LOW_WATER = 64
 
-    def __init__(self, host: str, port: int, handler):
+    def __init__(self, host: str, port: int, handler, flows=None):
         self.host = host
         self.port = port
         self.handler = handler
+        self._flows = flows
         self.reactor = Reactor.shared()
         self._listener = -1
         self._queues: dict[int, asyncio.Queue] = {}
@@ -235,6 +242,10 @@ class NativeReceiver:
             return
         if kind != KIND_FRAME_ACCEPTED:
             return
+        # charge receive flows at delivery from the reactor (accepted
+        # conns carry no committee identity: attributed to "native")
+        if self._flows is not None:
+            self._flows.rx(("native", conn_id), payload)
         q = self._queues.get(conn_id)
         if q is None:
             q = asyncio.Queue()
@@ -250,7 +261,7 @@ class NativeReceiver:
             )
 
     async def _worker(self, conn_id: int, q: asyncio.Queue) -> None:
-        writer = NativeWriter(self.reactor, conn_id)
+        writer = NativeWriter(self.reactor, conn_id, flows=self._flows)
         while True:
             payload = await q.get()
             if payload is None:
@@ -347,10 +358,13 @@ def _resolve(host: str) -> str | None:
 class NativeSimpleSender:
     """Native drop-in for ``simple_sender.SimpleSender``: best-effort,
     frames to a peer that is down are dropped and the next send
-    reconnects."""
+    reconnects.  ``flows`` is charged for each frame the reactor
+    accepts (``ht_send`` returned 0) and once per ``send``/``broadcast``
+    call on the logical ledger."""
 
-    def __init__(self):
+    def __init__(self, flows=None):
         self.reactor = Reactor.shared()
+        self._flows = flows
         self._peers: dict[Address, int] = {}
 
     def _peer(self, address: Address) -> int | None:
@@ -366,18 +380,41 @@ class NativeSimpleSender:
         return peer
 
     async def send(self, address: Address, payload: bytes) -> None:
+        if self._flows is not None:
+            self._flows.logical(payload)
+        await self._dispatch(address, payload)
+
+    async def _dispatch(self, address: Address, payload: bytes) -> None:
         if not self.reactor.handle:
             return  # the reactor stopped (interpreter exit)
         self.reactor.ensure_reader()
         peer = self._peer(address)
-        if peer is not None:
-            self.reactor.lib.ht_send(
-                self.reactor.handle, peer, payload, len(payload)
-            )
+        if peer is None:
+            return
+        rc = self.reactor.lib.ht_send(
+            self.reactor.handle, peer, payload, len(payload)
+        )
+        if rc == 0 and self._flows is not None:
+            self._flows.tx(address, payload)
 
     async def broadcast(self, addresses: list[Address], payload: bytes) -> None:
+        # ONE logical charge per broadcast call regardless of fan-out
+        # (wire/logical per class == amplification factor)
+        if self._flows is not None and addresses:
+            self._flows.logical(payload)
         for address in addresses:
-            await self.send(address, payload)
+            await self._dispatch(address, payload)
+
+    async def lucky_broadcast(
+        self, addresses: list[Address], payload: bytes, nodes: int
+    ) -> None:
+        """Send to ``nodes`` randomly-picked peers (the module-level
+        ``random``, as the reference's native sender draws them)."""
+        picks = random.sample(addresses, min(nodes, len(addresses)))
+        if self._flows is not None and picks:
+            self._flows.logical(payload)
+        for address in picks:
+            await self._dispatch(address, payload)
 
     def close(self) -> None:
         if self.reactor.handle:
@@ -405,15 +442,26 @@ class NativeReliableSender:
     later frame queues behind it, so transmission order always equals
     queue order.  On disconnect ``sent`` resets to zero: stale ACKs died
     with the socket, and the whole queue is retransmitted (at least once
-    until ACKed, like the reference)."""
+    until ACKed, like the reference).
+
+    ``flows``: each frame handed to the reactor is charged on the wire
+    ledger when ``ht_send`` accepts it — a second hand-over after a
+    disconnect as a retransmit — and each ``send``/``broadcast`` call
+    once on the logical ledger."""
 
     RETRY_DELAY_S = 0.2
     RETRY_CAP_S = 60.0
 
-    def __init__(self):
+    def __init__(self, flows=None):
         self.reactor = Reactor.shared()
+        self._flows = flows
         self._peers: dict[Address, int] = {}
-        self._queue: dict[int, deque] = {}  # pid -> deque[[payload, fut]]
+        self._addrs: dict[int, Address] = {}  # pid -> address (flow peer)
+        # pid -> deque[[payload, fut, transmitted]]: the third slot
+        # flips once the frame first reaches the reactor, so a
+        # post-disconnect re-send is charged as a RETRANSMIT at the
+        # actual re-send time (sent resets to 0 on KIND_PEER_CLOSED)
+        self._queue: dict[int, deque] = {}
         self._sent: dict[int, int] = {}  # pid -> sent prefix length
         self._delay: dict[int, float] = {}
         self._retry_handle: dict[int, object] = {}
@@ -431,6 +479,7 @@ class NativeReliableSender:
                 self.reactor.handle, host.encode(), address[1]
             )
             self._peers[address] = pid
+            self._addrs[pid] = address
             self._queue[pid] = deque()
             self._sent[pid] = 0
             self.reactor._peer_handlers[pid] = (
@@ -441,6 +490,11 @@ class NativeReliableSender:
         return pid
 
     async def send(self, address: Address, payload: bytes) -> asyncio.Future:
+        if self._flows is not None:
+            self._flows.logical(payload)
+        return await self._enqueue(address, payload)
+
+    async def _enqueue(self, address: Address, payload: bytes) -> asyncio.Future:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         pid = None
         if self.reactor.handle:  # else the reactor stopped (exit)
@@ -452,14 +506,17 @@ class NativeReliableSender:
             # orphan list lets close() cancel it if nobody does
             self._orphans.append(fut)
             return fut
-        self._queue[pid].append([payload, fut])
+        self._queue[pid].append([payload, fut, False])
         self._flush(pid)
         return fut
 
     async def broadcast(
         self, addresses: list[Address], payload: bytes
     ) -> list[asyncio.Future]:
-        return [await self.send(a, payload) for a in addresses]
+        # ONE logical charge per broadcast call regardless of fan-out
+        if self._flows is not None and addresses:
+            self._flows.logical(payload)
+        return [await self._enqueue(a, payload) for a in addresses]
 
     def _flush(self, pid: int) -> None:
         """Hand the unsent queue suffix to the reactor, in order,
@@ -467,7 +524,8 @@ class NativeReliableSender:
         keeps order without busy-waiting."""
         q = self._queue[pid]
         while self._sent[pid] < len(q):
-            payload, fut = q[self._sent[pid]]
+            entry = q[self._sent[pid]]
+            payload, fut = entry[0], entry[1]
             if fut.cancelled():
                 # only a frame already sent occupies an ACK slot;
                 # unsent cancelled frames can simply be dropped
@@ -484,6 +542,15 @@ class NativeReliableSender:
                         )
                     )
                 return
+            if self._flows is not None:
+                # a frame handed to the reactor a second time (sent
+                # reset by a disconnect) is a retransmit, charged NOW
+                self._flows.tx(
+                    self._addrs.get(pid, ("native", pid)),
+                    payload,
+                    retx=entry[2],
+                )
+            entry[2] = True
             self._sent[pid] += 1
 
     def _retry_flush(self, pid: int) -> None:
@@ -529,14 +596,15 @@ class NativeReliableSender:
             if self.reactor.handle:
                 self.reactor.lib.ht_close_conn(self.reactor.handle, pid)
         for q in self._queue.values():
-            for _, fut in q:
-                if not fut.done():
-                    fut.cancel()  # no caller may hang on a dead sender
+            for entry in q:
+                if not entry[1].done():
+                    entry[1].cancel()  # no caller may hang on a dead sender
         for fut in self._orphans:
             if not fut.done():
                 fut.cancel()
         self._orphans.clear()
         self._peers.clear()
+        self._addrs.clear()
         self._queue.clear()
         self._sent.clear()
 

@@ -1,7 +1,8 @@
 """Network receiver: TCP listener dispatching frames to a handler.
 
-A copy of ``hotstuff_tpu.network.receiver`` without the fault plane and
-flow accounting: every frame goes through ``dispatch_ingest`` (the
+A copy of ``hotstuff_tpu.network.receiver`` without the fault plane:
+every frame read is charged to the node's flow accountant (``flows=``,
+``telemetry/flows.py``), then goes through ``dispatch_ingest`` (the
 zero-copy ingest taps, shared with the native receiver) to
 ``handler.dispatch(writer, bytes)``.  Parity target:
 reference ``Receiver<Handler>`` (network/src/receiver.rs:18-89): bind a
@@ -63,10 +64,15 @@ async def dispatch_ingest(handler, writer, frame: bytes) -> None:
 class Writer:
     """Reply-channel handed to MessageHandler.dispatch."""
 
-    def __init__(self, stream_writer: asyncio.StreamWriter):
+    def __init__(self, stream_writer: asyncio.StreamWriter, flows=None):
         self._writer = stream_writer
+        self._flows = flows
 
     async def send(self, payload: bytes) -> None:
+        # replies (ACKs, state-read values) leave on the accepted
+        # socket, not through a sender — charge their egress here
+        if self._flows is not None:
+            self._flows.tx(self.peer, payload)
         await send_frame(self._writer, payload)
 
     @property
@@ -79,12 +85,17 @@ class MessageHandler(Protocol):
 
 
 class Receiver:
-    """Listens on ``address`` and dispatches every frame to ``handler``."""
+    """Listens on ``address`` and dispatches every frame to ``handler``;
+    ``flows`` (telemetry/flows.py) is charged for every frame read and
+    every reply written."""
 
-    def __init__(self, host: str, port: int, handler: MessageHandler):
+    def __init__(
+        self, host: str, port: int, handler: MessageHandler, flows=None
+    ):
         self.host = host
         self.port = port
         self.handler = handler
+        self._flows = flows
         self._server: asyncio.AbstractServer | None = None
         self._closing = False
         # insertion-ordered (dict-as-set): shutdown closes connections
@@ -119,10 +130,12 @@ class Receiver:
         set_nodelay(stream_writer)
         log.debug("Incoming connection from %s", peer)
         self._writers[stream_writer] = None
-        writer = Writer(stream_writer)
+        writer = Writer(stream_writer, flows=self._flows)
         try:
             while True:
                 frame = await read_frame(reader)
+                if self._flows is not None:
+                    self._flows.rx(peer, frame)
                 await dispatch_ingest(self.handler, writer, frame)
         except (
             asyncio.IncompleteReadError,

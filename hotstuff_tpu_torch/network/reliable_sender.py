@@ -1,8 +1,10 @@
 """Reliable sender: per-message ACK futures, reconnect with backoff,
 retransmission of un-ACKed messages.
 
-A copy of ``hotstuff_tpu.network.reliable_sender`` without the WAN link
-scheduler, the fault plane and flow accounting.  Parity target:
+A copy of ``hotstuff_tpu.network.reliable_sender`` without the fault
+plane: the WAN link scheduler (``link_delay=``, ``network/wan.py``) and
+flow accounting (``flows=``, ``telemetry/flows.py``) are the
+reference's.  Parity target:
 reference ``ReliableSender`` (network/src/reliable_sender.rs:25-248),
 semantics reproduced exactly (the proposer's 2f+1-ACK back-pressure
 depends on them):
@@ -19,6 +21,10 @@ depends on them):
 - messages whose future was cancelled by the caller are dropped instead of
   retransmitted (the reference drops messages whose CancelHandler receiver
   was dropped).
+
+Under WAN emulation every outbound frame waits for its deliver-at time
+and its ACK future resolves one return leg later, so the proposer's
+quorum-ACK back-pressure sees full round trips.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..utils.clock import default_clock, default_connector, default_rng
 from .errors import UnexpectedAckError, classify
 from .framing import FramingError, read_frame, send_frame, set_nodelay
 from .pool import BoundedPoolMixin, abort_writer
+from .wan import LinkScheduler
 
 log = logging.getLogger(__name__)
 
@@ -43,8 +50,9 @@ CancelHandler = asyncio.Future  # resolves to the ACK payload (bytes)
 
 
 class _Connection:
-    def __init__(self, address: Address):
+    def __init__(self, address: Address, delay_fn=None, flows=None):
         self.address = address
+        self._flows = flows
         #: retries whose backoff sleep was jittered (stampede-avoided
         #: reconnect attempts)
         self.jittered_retries = 0
@@ -54,9 +62,19 @@ class _Connection:
         self._waiting = False  # writer_loop parked on an empty queue
         self._writer: asyncio.StreamWriter | None = None
         self.connect_failures = 0
+        # WAN emulation (network/wan.py): outbound frames wait for their
+        # deliver-at time; ACK futures resolve one return-leg later, so
+        # the proposer's quorum-ACK back-pressure sees full RTTs.
+        self._delay_fn = delay_fn
+        self._scheduler = (
+            None if delay_fn is None else LinkScheduler(delay_fn)
+        )
         self.task = asyncio.get_running_loop().create_task(
             self._run(), name=f"reliable-conn-{address}"
         )
+
+    def deliver_at(self) -> float:
+        return 0.0 if self._scheduler is None else self._scheduler.deliver_at()
 
     @property
     def idle(self) -> bool:
@@ -121,22 +139,39 @@ class _Connection:
             (d, f) for d, f in self.pending if not f.cancelled()
         )
         for data, _ in self.pending:
+            # charged as a RETRANSMIT at the actual re-send instant —
+            # never at enqueue time — so net_retx_bytes counts bytes
+            # that really crossed the link a second time
+            if self._flows is not None:
+                self._flows.tx(self.address, data, retx=True)
             await send_frame(writer, data)
 
         async def writer_loop():
             while True:
                 self._waiting = True
                 try:
-                    data, fut = await self.queue.get()
+                    at, data, fut = await self.queue.get()
                 finally:
                     self._waiting = False
                 if fut.cancelled():
                     continue
-                # join `pending` BEFORE the write: a connection drop
-                # mid-write must leave the message where the reconnect
-                # path retransmits it (and close() cancels its future)
+                # join `pending` BEFORE any await: a connection drop
+                # during the WAN wait must leave the message where the
+                # reconnect path retransmits it (and close() cancels
+                # its future) — never in limbo with a forever-pending
+                # ACK future.  Retransmits after a reconnect skip the
+                # emulated delay; the reconnect backoff (>= 200 ms)
+                # already exceeds any link delay.
                 self.pending.append((data, fut))
+                if at:
+                    await LinkScheduler.wait_until(at)
+                if self._flows is not None:
+                    self._flows.tx(self.address, data)
                 await send_frame(writer, data)
+
+        def _resolve(fut, ack):
+            if not fut.cancelled():
+                fut.set_result(ack)
 
         async def reader_loop():
             while True:
@@ -145,7 +180,12 @@ class _Connection:
                 # whose caller cancelled still consumed this ACK slot
                 if self.pending:
                     _, fut = self.pending.popleft()
-                    if not fut.cancelled():
+                    if self._delay_fn is not None:
+                        # the ACK's return leg crosses the same link
+                        asyncio.get_running_loop().call_later(
+                            self._delay_fn(), _resolve, fut, ack
+                        )
+                    elif not fut.cancelled():
                         fut.set_result(ack)
                 else:
                     # protocol desync the reference surfaces as
@@ -181,7 +221,7 @@ class _Connection:
         self._writer = None
         # fail every outstanding ACK future so no caller hangs
         while not self.queue.empty():
-            _, fut = self.queue.get_nowait()
+            _, _, fut = self.queue.get_nowait()
             if not fut.done():
                 fut.cancel()
         for _, fut in self.pending:
@@ -196,36 +236,60 @@ class ReliableSender(BoundedPoolMixin):
     evicted, so reliability semantics (retransmit, ACK futures) are
     untouched; a proposer's broadcast may transiently exceed the cap
     and the pool shrinks back as ACKs drain.  Pool machinery shared
-    with SimpleSender (network/pool.py)."""
+    with SimpleSender (network/pool.py).
 
-    def __init__(self, max_conns: int | None = None):
+    ``link_delay`` and ``flows`` as on ``SimpleSender``."""
+
+    def __init__(
+        self,
+        link_delay=None,
+        max_conns: int | None = None,
+        flows=None,
+    ):
         self._connections: dict[Address, _Connection] = {}
+        self._link_delay = link_delay
         self._max_conns = max_conns
+        self._flows = flows
         self._sweeper: asyncio.Task | None = None
 
     def _connection(self, address: Address) -> _Connection:
         conn = self._lru_hit(address)
         if conn is not None:
             return conn
-        conn = _Connection(address)
+        delay_fn = self._link_delay(address) if self._link_delay else None
+        conn = _Connection(address, delay_fn=delay_fn, flows=self._flows)
         self._admit(address, conn)
         return conn
 
     async def _enqueue(self, address: Address, data: bytes) -> CancelHandler:
         fut: CancelHandler = asyncio.get_running_loop().create_future()
         conn = self._connection(address)
-        await conn.queue.put((data, fut))
+        await conn.queue.put((conn.deliver_at(), data, fut))
         return fut
 
     async def send(self, address: Address, data: bytes) -> CancelHandler:
         """Queue ``data`` for reliable delivery; the returned future resolves
         with the peer's ACK payload."""
+        if self._flows is not None:
+            self._flows.logical(data)
         return await self._enqueue(address, data)
 
     async def broadcast(
         self, addresses: list[Address], data: bytes
     ) -> list[CancelHandler]:
+        # ONE logical charge per broadcast call regardless of fan-out —
+        # the wire/logical ratio per class is the amplification factor
+        if self._flows is not None and addresses:
+            self._flows.logical(data)
         return [await self._enqueue(addr, data) for addr in addresses]
+
+    async def lucky_broadcast(
+        self, addresses: list[Address], data: bytes, nodes: int
+    ) -> list[CancelHandler]:
+        """Send to ``nodes`` randomly-picked peers (reference
+        reliable_sender.rs lucky_broadcast)."""
+        picks = default_rng().sample(addresses, min(nodes, len(addresses)))
+        return await self.broadcast(picks, data)
 
     def close(self) -> None:
         self._close_pool()

@@ -1,7 +1,9 @@
 """Best-effort sender with persistent per-peer connections.
 
-A copy of ``hotstuff_tpu.network.simple_sender`` without the WAN link
-scheduler, the fault plane and flow accounting.  Parity target:
+A copy of ``hotstuff_tpu.network.simple_sender`` without the fault
+plane: the WAN link scheduler (``link_delay=``, ``network/wan.py``) and
+flow accounting (``flows=``, ``telemetry/flows.py``) are the
+reference's.  Parity target:
 reference ``SimpleSender`` (network/src/simple_sender.rs:22-143): one
 long-lived connection task per peer address holding a persistent TCP
 connection and a bounded queue (capacity 1000); sending is pushing onto
@@ -14,10 +16,11 @@ from __future__ import annotations
 import asyncio
 import logging
 
-from ..utils.clock import default_clock, default_connector
+from ..utils.clock import default_clock, default_connector, default_rng
 from .errors import classify
 from .framing import read_frame, send_frame, set_nodelay
 from .pool import BoundedPoolMixin, abort_writer
+from .wan import LinkScheduler
 
 log = logging.getLogger(__name__)
 
@@ -27,14 +30,26 @@ Address = tuple[str, int]
 
 
 class _Connection:
-    """Owns one persistent best-effort TCP connection."""
+    """Owns one persistent best-effort TCP connection.
 
-    def __init__(self, address: Address):
+    ``delay_fn`` (WAN emulation, network/wan.py): each queued message
+    carries a deliver-at time; the send loop waits until then before
+    writing — per-message propagation delay, pipelined (never a
+    head-of-line rate limit).
+
+    ``flows`` (telemetry/flows.py): every frame written is charged to
+    this link's tx flow at the write site."""
+
+    def __init__(self, address: Address, delay_fn=None, flows=None):
         self.address = address
+        self._flows = flows
         self.queue: asyncio.Queue = asyncio.Queue(maxsize=CHANNEL_CAPACITY)
         self._waiting = False  # parked on an empty queue (see idle)
         self._writer: asyncio.StreamWriter | None = None
         self.connect_failures = 0
+        self._scheduler = (
+            None if delay_fn is None else LinkScheduler(delay_fn)
+        )
         self.task = asyncio.get_running_loop().create_task(
             self._run(), name=f"simple-conn-{address}"
         )
@@ -57,18 +72,23 @@ class _Connection:
             return True  # transport already closed/closing
 
     def put_nowait(self, data: bytes) -> None:
-        self.queue.put_nowait(data)
+        at = 0.0 if self._scheduler is None else self._scheduler.deliver_at()
+        self.queue.put_nowait((at, data))
 
-    async def _next(self) -> bytes:
+    async def _next(self):
         self._waiting = True
         try:
             return await self.queue.get()
         finally:
             self._waiting = False
 
+    async def _wait(self, at: float) -> None:
+        if at:
+            await LinkScheduler.wait_until(at)
+
     async def _run(self) -> None:
         while True:
-            data = await self._next()
+            at, data = await self._next()
             try:
                 reader, writer = await default_connector()(*self.address)
             except OSError as e:
@@ -81,14 +101,22 @@ class _Connection:
             sink = asyncio.get_running_loop().create_task(self._sink_acks(reader))
             try:
                 while True:
-                    await send_frame(writer, data)
-                    data = await self._next()
+                    await self._wait(at)
+                    await self._transmit(writer, data)
+                    at, data = await self._next()
             except (ConnectionError, OSError) as e:
                 log.warning("%s", classify(e, "send", self.address))
             finally:
                 sink.cancel()
                 writer.close()
                 self._writer = None  # disconnected: back to retry state
+
+    async def _transmit(self, writer: asyncio.StreamWriter, data: bytes) -> None:
+        # flow accounting charges at THIS site, so accounted bytes ==
+        # bytes written
+        if self._flows is not None:
+            self._flows.tx(self.address, data)
+        await send_frame(writer, data)
 
     @staticmethod
     async def _sink_acks(reader: asyncio.StreamReader) -> None:
@@ -109,6 +137,14 @@ class _Connection:
 class SimpleSender(BoundedPoolMixin):
     """Fire-and-forget sends; keeps one connection per peer.
 
+    ``link_delay``: optional WAN-emulation hook — a callable
+    ``(address) -> (() -> float)`` returning the per-link delay sampler
+    (None for an undelayed link).
+
+    ``flows``: optional flow accountant (telemetry/flows.py): wire
+    bytes charged at each link's write site, one logical charge per
+    ``send``/``broadcast`` call.
+
     ``max_conns``: bounded connection pool (None = reference parity:
     one persistent connection per peer forever).  Big co-located
     committees need the bound — at 256 nodes every (sender, peer) pair
@@ -120,16 +156,24 @@ class SimpleSender(BoundedPoolMixin):
     #: unpaced senders pay no per-instance slot)
     pacing_stalls = 0
 
-    def __init__(self, max_conns: int | None = None):
+    def __init__(
+        self,
+        link_delay=None,
+        max_conns: int | None = None,
+        flows=None,
+    ):
         self._connections: dict[Address, _Connection] = {}
+        self._link_delay = link_delay
         self._max_conns = max_conns
+        self._flows = flows
         self._sweeper: asyncio.Task | None = None
 
     def _connection(self, address: Address) -> _Connection:
         conn = self._lru_hit(address)
         if conn is not None:
             return conn
-        conn = _Connection(address)
+        delay_fn = self._link_delay(address) if self._link_delay else None
+        conn = _Connection(address, delay_fn=delay_fn, flows=self._flows)
         self._admit(address, conn)
         return conn
 
@@ -141,9 +185,15 @@ class SimpleSender(BoundedPoolMixin):
             log.warning("Dropping message to %s: channel full", address)
 
     async def send(self, address: Address, data: bytes) -> None:
+        if self._flows is not None:
+            self._flows.logical(data)
         self._enqueue(address, data)
 
     async def broadcast(self, addresses: list[Address], data: bytes) -> None:
+        # ONE logical charge per broadcast call regardless of fan-out —
+        # the wire/logical ratio per class is the amplification factor
+        if self._flows is not None and addresses:
+            self._flows.logical(data)
         if self._max_conns is None or len(addresses) <= self._max_conns:
             for addr in addresses:
                 self._enqueue(addr, data)
@@ -178,6 +228,14 @@ class SimpleSender(BoundedPoolMixin):
                 await default_clock().sleep(0.002)
             if stalled:
                 self.pacing_stalls += 1
+
+    async def lucky_broadcast(
+        self, addresses: list[Address], data: bytes, nodes: int
+    ) -> None:
+        """Send to ``nodes`` randomly-picked peers (reference
+        simple_sender.rs lucky_broadcast)."""
+        picks = default_rng().sample(addresses, min(nodes, len(addresses)))
+        await self.broadcast(picks, data)
 
     def close(self) -> None:
         self._close_pool()

@@ -46,8 +46,11 @@ Flags of planes the port does not have yet — ``--fault-plane`` and
 ``--adversary`` — are accepted by the parser and refused before boot
 with exit code 2.  So are ``run``,
 ``run-many`` and ``deploy`` when an env knob would switch such a plane
-on (``HOTSTUFF_FAULTS``, ``HOTSTUFF_ADVERSARY``, or ``HOTSTUFF_WAN_SPEC``
-on the asyncio transport; ``consensus.unported_env_plane``).
+on (``HOTSTUFF_FAULTS`` or ``HOTSTUFF_ADVERSARY``;
+``consensus.unported_env_plane``).  ``HOTSTUFF_WAN_SPEC=<spec file>``
+(``network/wan.py`` ``build_spec``) delays every node-to-node link on
+the asyncio transport, as in the reference, and does nothing on the
+native one.
 
 ``run`` and ``run-many`` stop cleanly on SIGTERM or SIGINT: every node
 shuts down, and the process logs the wave service's last stats line and,

@@ -1,11 +1,10 @@
 """hotstuff_tpu_torch.telemetry — the permanent attribution layer.
 
-A copy of ``hotstuff_tpu.telemetry`` less one plane the port does not
-have yet: flow accounting (``attach_flows``; ``NodeTelemetry.flows``
-stays ``None``, as on a JAX node without flows).  Everything else — the
-registry and its switches, the node handles, the snapshot, export and
-trace documents, the flight-recorder directory, the health switch and
-the network, store and work-stats wiring — is the reference's.
+A copy of ``hotstuff_tpu.telemetry``: the registry and its switches,
+the node handles, the snapshot, export and trace documents, the
+flight-recorder directory, the health switch, the network, store and
+work-stats wiring, and the wire-level flow accounting
+(``attach_flows``, ``telemetry/flows.py``).
 
 Three pieces:
 
@@ -62,8 +61,9 @@ _JOURNAL_DIR: str | None = None  # forced via --journal-dir
 #: per-PEER network gauges (``net_peer_*``) are registered for at most
 #: this many peers per sender role — label cardinality stays bounded at
 #: any committee size.  Peers beyond the cap are NEVER silently dropped
-#: (no silent caps): a ``net_peers_elided`` gauge counts them and the
-#: snapshot's ``net.peer`` block shows the first K in registration order.
+#: (no silent caps): a ``net_peers_elided`` gauge counts them, the
+#: snapshot's ``net.peer`` block ranks ALL peers by flow bytes and shows
+#: the top-K, and byte totals always cover everyone.
 PEER_GAUGE_MAX_COMMITTEE = 8
 
 
@@ -219,7 +219,7 @@ class NodeTelemetry:
         self.trace = TraceRecorder(self.registry, self.labels)
         self.workstats = None  # utils.workstats.WorkStats, attached by Node
         self.journal = None  # telemetry.journal.Journal, attached by Node
-        self.flows = None  # flow accounting is not ported: always None
+        self.flows = None  # telemetry.flows.FlowAccounting, attached by Consensus.spawn
         self._sections: dict[str, Callable[[], dict]] = {}
         self._senders: list[tuple[str, object]] = []
         # peer short-name -> [(sender, address)]: feeds the per-peer
@@ -254,6 +254,31 @@ class NodeTelemetry:
         consensus actors pick it up as ``telemetry.journal`` at boot."""
         self.journal = journal
         self.add_section("journal", journal.stats)
+
+    def attach_flows(self, flows) -> None:
+        """Attach the node's wire-level flow accountant
+        (telemetry/flows.py): snapshot section, /metrics byte gauges,
+        and the sampled ``net.tx``/``net.rx`` journal records."""
+        self.flows = flows
+        flows.bind_journal(lambda: self.journal)
+        self.add_section("flows", flows.snapshot)
+        if not flows.enabled:
+            return
+        self.gauge(
+            "net_tx_bytes",
+            "Wire bytes written across all links (frames + prefixes)",
+            fn=flows.tx_bytes,
+        )
+        self.gauge(
+            "net_rx_bytes",
+            "Wire bytes read across all links (frames + prefixes)",
+            fn=flows.rx_bytes,
+        )
+        self.gauge(
+            "net_retx_bytes",
+            "Wire bytes retransmitted by reliable links (subset of tx)",
+            fn=flows.retx_bytes,
+        )
 
     def add_section(self, name: str, fn: Callable[[], dict]) -> None:
         self._sections[name] = fn
@@ -438,10 +463,16 @@ class NodeTelemetry:
                 entry["pacing_stalls"] = s.pacing_stalls
             out[role] = entry
         if self._peer_conns:
-            # without flow bytes to rank by, the first K peers in
-            # registration order; the rest are an explicit count, never
-            # a silent drop
+            # rank by flow bytes when the accountant is attached so the
+            # top-K block shows the peers that actually matter; the
+            # rest are an explicit count, never a silent drop
             shorts = list(self._peer_conns)
+            flow_bytes: dict[str, int] = {}
+            if self.flows is not None and self.flows.enabled:
+                flow_bytes = {
+                    p: tx + rx for p, tx, rx in self.flows.peer_totals()
+                }
+                shorts.sort(key=lambda s: (-flow_bytes.get(s, 0), s))
             shown = shorts[:PEER_GAUGE_MAX_COMMITTEE]
             peer_out = {}
             for short in shown:
@@ -461,6 +492,8 @@ class NodeTelemetry:
                     "retrying": retrying,
                     "connect_failures": failures,
                 }
+                if short in flow_bytes:
+                    peer_out[short]["bytes"] = flow_bytes[short]
             out["peer"] = peer_out
             out["peers_elided"] = len(shorts) - len(shown)
         return out

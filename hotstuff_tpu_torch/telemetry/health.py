@@ -29,11 +29,10 @@ Fleet-level detectors (straggler, state-root divergence, epoch skew)
 need cross-node visibility and run in a scraper over the same pure
 functions.
 
-One plane the port does not have yet: the wire-level flow accountant.
-A port node's snapshot has no ``flows`` section, so the monitor never
-pushes an egress sample and :func:`bandwidth_storm` never fires — the
-JAX node's behaviour with flows off.  The detector itself is the
-reference's.
+The monitor reads a node's wire egress from the snapshot's ``flows``
+section (``telemetry/flows.py``, on with telemetry unless
+``HOTSTUFF_NET=0``) and feeds it to :func:`bandwidth_storm`, as the
+reference's monitor does.
 
 This module is a stdlib-only leaf — no imports from the rest of the
 package.

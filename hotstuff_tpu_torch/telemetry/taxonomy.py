@@ -155,7 +155,7 @@ JOURNAL_EDGE_PREFIXES: tuple = (
 #: every message class the flow accounting plane charges a frame to —
 #: derived from the wire-tag taxonomy (consensus/wire.py first byte;
 #: ``telemetry/flows.py`` owns the byte->class map, and
-#: ``tests/test_flows.py`` cross-checks it against the live wire
+#: ``tests/test_torch_flows.py`` cross-checks it against the live wire
 #: constants so tag drift is a test failure, not a silently-mislabelled
 #: flow).  ``qc-compact`` wire cost rides inside ``propose`` frames and
 #: is reported from the aggregator telemetry next to these classes.

@@ -7,15 +7,18 @@ regex and the JAX package's line; a ``run-many`` committee fed by the
 client, whose logs ``benchmark.logs.LogParser`` reads; ``deploy``; and
 a port node joining a committee of JAX nodes through a reconfiguration
 submitted with the port's ``reconfig`` command; the client's
-digest-only mode (``--size 0``) against a port committee; and the env
+digest-only mode (``--size 0``) against a port committee; the env
 knobs of planes the port does not have (``HOTSTUFF_FAULTS``,
-``HOTSTUFF_ADVERSARY``, ``HOTSTUFF_WAN_SPEC`` on asyncio) refused before
-boot by the CLI, ``Consensus.spawn`` and ``run_committee``.
+``HOTSTUFF_ADVERSARY``) refused before boot by the CLI,
+``Consensus.spawn`` and ``run_committee``; and ``HOTSTUFF_WAN_SPEC``
+accepted by ``run``, ``run-many`` and ``deploy`` (the WAN model on
+asyncio, nothing on native) and by ``Consensus.spawn``.
 
 Every listener port comes from the OS; every wait has a deadline;
 every process is stopped in ``finally``."""
 
 import asyncio
+import json
 import logging
 import os
 import re
@@ -543,7 +546,10 @@ def test_client_at_size_0_runs_against_a_port_committee(tmp_path):
     assert "End-to-end BPS: n/a (digest-only payloads)" in parser.result()
 
 
-ENV_PLANES = ("HOTSTUFF_FAULTS", "HOTSTUFF_ADVERSARY", "HOTSTUFF_WAN_SPEC")
+ENV_PLANES = ("HOTSTUFF_FAULTS", "HOTSTUFF_ADVERSARY")
+WAN = "HOTSTUFF_WAN_SPEC"
+RE_COMMITTED = re.compile(r"Committed block (\d+) ->")
+RE_REGION = re.compile(r"WAN emulation active: region (\S+)")
 
 
 @pytest.mark.parametrize("command", ["run", "run-many", "deploy"])
@@ -555,7 +561,7 @@ def test_env_knobs_of_unported_planes_are_refused_before_boot(tmp_path, monkeypa
     boots; it used to boot and run without the plane."""
     from hotstuff_tpu_torch.node.main import main
 
-    for other in ENV_PLANES:
+    for other in ENV_PLANES + (WAN,):
         monkeypatch.delenv(other, raising=False)
     monkeypatch.setenv(knob, '{"seed": 1}')
     monkeypatch.chdir(tmp_path)
@@ -577,7 +583,7 @@ def test_env_knobs_of_unported_planes_are_refused_before_boot(tmp_path, monkeypa
     ({"HOTSTUFF_ADVERSARY": ""}, "native", None),
     ({"HOTSTUFF_FAULTS": "x"}, "native", "HOTSTUFF_FAULTS"),
     ({"HOTSTUFF_ADVERSARY": "x"}, "native", "HOTSTUFF_ADVERSARY"),
-    ({"HOTSTUFF_WAN_SPEC": "x"}, "asyncio", "HOTSTUFF_WAN_SPEC"),
+    ({"HOTSTUFF_WAN_SPEC": "x"}, "asyncio", None),
     ({"HOTSTUFF_WAN_SPEC": "x"}, "native", None),
     ({"HOTSTUFF_WAN_SPEC": "x", "HOTSTUFF_ADVERSARY": "y"}, "asyncio", "HOTSTUFF_ADVERSARY"),
     ({"HOTSTUFF_MESH_DEVICES": "2"}, "asyncio", None),
@@ -585,12 +591,12 @@ def test_env_knobs_of_unported_planes_are_refused_before_boot(tmp_path, monkeypa
 def test_unported_env_plane_follows_the_references_conditions(monkeypatch, env, transport, want):
     """The knobs are refused exactly where ``hotstuff_tpu.consensus``'s
     ``Consensus.spawn`` would switch their plane on: a non-empty value,
-    and the WAN spec only off the native transport.  The mesh size is
-    read only where the mesh verifier is built, so it is no plane's
-    knob, as in the reference."""
+    on either transport.  The WAN spec's plane is ported, so it is
+    refused nowhere.  The mesh size is read only where the mesh verifier
+    is built, so it is no plane's knob, as in the reference."""
     from hotstuff_tpu_torch.consensus.consensus import unported_env_plane
 
-    for knob in ENV_PLANES + ("HOTSTUFF_MESH_DEVICES",):
+    for knob in ENV_PLANES + (WAN, "HOTSTUFF_MESH_DEVICES"):
         monkeypatch.delenv(knob, raising=False)
     for knob, value in env.items():
         monkeypatch.setenv(knob, value)
@@ -629,7 +635,7 @@ def test_consensus_spawn_and_run_committee_raise_on_the_knobs(tmp_path, monkeypa
 
     from .test_torch_core import PORT as S
 
-    for other in ENV_PLANES:
+    for other in ENV_PLANES + (WAN,):
         monkeypatch.delenv(other, raising=False)
     monkeypatch.setenv(knob, "spec.json")
 
@@ -648,3 +654,109 @@ def test_consensus_spawn_and_run_committee_raise_on_the_knobs(tmp_path, monkeypa
     asyncio.run(body())
     with pytest.raises(NotImplementedError, match=knob):
         run_committee(nodes=4, rate=10, duration=1, verifier="cpu")
+
+
+def _wan_spec(tmp_path, addresses) -> str:
+    """A spec of the port's ``build_spec`` over ``addresses``, written as
+    an operator writes one."""
+    from hotstuff_tpu_torch.network.wan import build_spec
+
+    path = tmp_path / "wan.json"
+    path.write_text(json.dumps(build_spec(addresses)))
+    return str(path)
+
+
+@pytest.mark.parametrize("command", ["run", "run-many", "deploy"])
+def test_wan_spec_on_asyncio_runs(tmp_path, command):
+    """``HOTSTUFF_WAN_SPEC`` on the asyncio transport (the default) is
+    accepted: every node logs its region from a spec written by the
+    port's ``build_spec`` over the committee's addresses and boots.  A
+    ``run-many`` committee fed by the client commits over the delayed
+    links; one ``run`` node boots alone; ``deploy`` boots its testbed
+    on its base ports.  The WAN's round trips (60-280 ms between
+    regions) are far inside the 1,000 ms timeout delay."""
+    log_path = tmp_path / "nodes.log"
+    log = open(log_path, "w")
+    proc = client = None
+    regions = {
+        "run": ["us-east-1"],
+        "run-many": ["us-east-1", "eu-north-1", "ap-southeast-2", "us-west-1"],
+        "deploy": ["us-east-1", "eu-north-1", "ap-southeast-2", "us-west-1"],
+    }[command]
+    try:
+        if command == "deploy":
+            base = _free_run(4)
+            spec = _wan_spec(tmp_path, [("127.0.0.1", base + i) for i in range(4)])
+            argv = ["deploy", "--nodes", "4", "--base-port", str(base), "--verifier", "cpu"]
+            done = "Deployed 4-node local testbed"
+        else:
+            committee = write_port_committee(tmp_path, timeout_delay=1_000, sync_retry_delay=1_000)
+            spec = _wan_spec(tmp_path, [committee.address(n) for n in committee.authorities])
+            common = ["--verifier", "cpu", "--committee", str(tmp_path / "committee.json"),
+                      "--parameters", str(tmp_path / "parameters.json")]
+            if command == "run":
+                argv = ["run", "--keys", str(tmp_path / "key_0.json"), "--store", str(tmp_path / "db_0"),
+                        *common]
+            else:
+                keys = ",".join(str(tmp_path / f"key_{i}.json") for i in range(4))
+                argv = ["run-many", "--keys", keys, "--store-prefix", str(tmp_path / "db_"), *common]
+            done = "successfully booted"
+        proc = subprocess.Popen(CLI + ["-vv", *argv], stdout=log, stderr=subprocess.STDOUT,
+                                env={**ENV, WAN: spec}, cwd=tmp_path)
+        assert wait_for(lambda: log_path.read_text().count(done) >= (1 if command == "deploy" else len(regions)),
+                        60)
+        if command == "run-many":
+            client = spawn_client(tmp_path, rate=200, duration=3)
+            assert client.wait(timeout=60) == 0
+            assert wait_for(lambda: len(RE_COMMITTED.findall(log_path.read_text())) >= 4 * 3, 30)
+        assert proc.poll() is None
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        stop_all([client, proc])
+        log.close()
+    text = log_path.read_text()
+    assert "Traceback" not in text and "not ported yet" not in text
+    assert sorted(RE_REGION.findall(text)) == sorted(regions)
+    if command == "run-many":
+        rounds = [int(r) for r in RE_COMMITTED.findall(text)]
+        assert len(rounds) >= 4 * 3 and max(rounds) > 0
+
+
+def test_consensus_spawn_runs_with_a_wan_spec(tmp_path, monkeypatch, caplog):
+    """``Consensus.spawn`` with ``HOTSTUFF_WAN_SPEC`` set boots the stack
+    and logs the node's region, as the JAX package's does."""
+    from hotstuff_tpu_torch.bench.committee import reserve_ports
+
+    from .test_torch_core import PORT as S
+
+    for other in ENV_PLANES:
+        monkeypatch.delenv(other, raising=False)
+    socks = reserve_ports(4)
+    ports = [sk.getsockname()[1] for sk in socks]
+    committee = S.committee(ports)
+    monkeypatch.setenv(WAN, _wan_spec(tmp_path, [committee.address(n) for n in committee.authorities]))
+
+    async def body():
+        store = S.store.Store(str(tmp_path / "db"))
+        name, secret = S.keys()[0]
+        stack = None
+        try:
+            socks[0].close()
+            stack = await S.consensus.Consensus.spawn(
+                name, committee, S.consensus.Parameters(), S.crypto.SignatureService(secret), store,
+                asyncio.Queue(), bind_host="127.0.0.1",
+            )
+        finally:
+            if stack is not None:
+                await stack.shutdown()
+            store.close()
+            for sk in socks:
+                sk.close()
+
+    with caplog.at_level(logging.INFO, logger="hotstuff_tpu_torch.consensus.consensus"):
+        asyncio.run(body())
+    host, port = committee.address(S.keys()[0][0])
+    with open(os.environ[WAN]) as f:
+        region = json.load(f)["regions"][f"{host}:{port}"]
+    assert RE_REGION.findall(caplog.text) == [region]

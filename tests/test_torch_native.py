@@ -306,7 +306,11 @@ async def listen_error_on_a_port_in_use(port, closers):
 async def read_pause_flow_control(port, closers):
     """A sender blasting ~3.5x HIGH_WATER frames at a slow handler:
     reads pause past the high-water mark and resume at the low one;
-    nothing is lost or reordered."""
+    nothing is lost or reordered.  The pauses are counted where the
+    receiver makes them (its reactor's ``ht_set_read_paused`` calls,
+    seen through a wrapper on this receiver alone): a sampled
+    ``_paused`` flag can miss a pause that a fast drain ends between
+    two samples."""
     total = 900
 
     class Slow:
@@ -319,25 +323,38 @@ async def read_pause_flow_control(port, closers):
 
     handler = Slow()
     recv = native.NativeReceiver("127.0.0.1", port, handler)
+    transitions: list = []  # (conn, 1 = paused / 0 = resumed), in call order
+    real = recv.reactor
+
+    class CountingLib:
+        def __getattr__(self, name):
+            return getattr(real.lib, name)
+
+        def ht_set_read_paused(self, handle, conn, paused):
+            transitions.append((conn, paused))
+            return real.lib.ht_set_read_paused(handle, conn, paused)
+
+    class CountingReactor:
+        lib = CountingLib()
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+    recv.reactor = CountingReactor()
     closers.append(recv.shutdown)
     await recv.spawn()
     _, writer = await asyncio.wait_for(asyncio.open_connection("127.0.0.1", port), TIMEOUT_S)
     closers.append(writer.close)
-    paused = False
     for i in range(total):
         await send_frame(writer, i.to_bytes(4, "big") + b"x" * 200)
         if i % 64 == 0:
             await asyncio.sleep(0)
-            paused = paused or bool(recv._paused)
 
-    def done():
-        nonlocal paused
-        paused = paused or bool(recv._paused)
-        return len(handler.frames) >= total
-
-    await _until(done, f"{total} frames")
+    await _until(lambda: len(handler.frames) >= total, f"{total} frames")
     assert [int.from_bytes(f[:4], "big") for f in handler.frames] == list(range(total))
-    assert paused and not recv._paused
+    pauses = [t for t in transitions if t[1] == 1]
+    assert pauses, "the receiver never paused a connection's reads"
+    assert not recv._paused
 
 
 @pytest.mark.parametrize("case", [
