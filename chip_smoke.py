@@ -166,7 +166,26 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    timeouts (by leader region), payloads/s and bytes a block beside
    (e)'s, and each region pair's proposal trips (logs in
    ``chiprun_out/wan_phase/``);
-17. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
+17. (n) the chaos plane (``faults/plane.py``) on the node CLI, each a
+   spec of the port's ``faults.scenarios`` over the committee file's 64
+   addresses, its window opening 15 s after the boot (e) (or (g))
+   measured: (n1) ``split_brain_phase``: (e) with ``--fault-plane <spec>
+   --metrics-port 0 --journal-dir <dir>``, the members cut 32 against 32
+   (quorum 43) for 10 s: every node logs ``Fault plane active`` with its
+   index, some round commits before the window, no new round from its
+   open + 5 s to the heal, a new round within the scenario's 20 s of the
+   heal, one digest a committed round, every node's ``fault_plane``
+   section with drops and no inbound drop, ``fault.open`` /
+   ``fault.close`` journaled by every node at the spec's times within the
+   loop's worst lag, K1 after boot; prints the window against the first
+   commit, the rounds and the loop's lag before and inside it and the
+   time to resume (logs in ``chiprun_out/split-brain_phase/``); (n2)
+   ``flapping_phase``: (g) with the flapping link between two members
+   whose turns to lead fall in the window (down 1.5 s of every 3 for
+   12 s): rounds commit through it, one digest a round, the pair
+   consults the plane on its link both ways and nobody else drops a
+   frame (logs in ``chiprun_out/flapping_phase/``);
+18. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
    G1 kernels (``gpu/csrc/g1_kernels.cu``) against their plain versions
    on the card and against the oracle (``crypto/bls/curve.py``), X, Y and
    Z as integers mod q, tolerance zero: the tree sum at B = 256 (171
@@ -187,14 +206,16 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    (k2) the storm's BLS rows at N = 256, quorum 171 (``bls-cpu`` and
    ``bls-cuda-storm-offload``, refused unless the offload engages), every
    signature checked against the native pairing, a forged vote, timeout
-   and TC entry rejected, then ``bench_agg_qc`` at n = 64, 256 and 512;
+   and TC entry rejected, then ``bench_agg_qc`` at n = 64, 256 and 512,
+   its Handel columns held to the round-3 tree (6, 8 and 9 levels, the
+   leader merging at most once a level);
    (k3) 64 BLS key files (``keys --scheme bls`` and ``Secret.new("bls")``)
    through ``run-many --verifier cuda --metrics-port 0`` and
    the client for 30 s: every node commits at least 3 blocks, the chains
    agree, compact QCs were emitted, and the running-sum kernel launched
    at least once for every vote those QCs summed (logs in
    ``chiprun_out/bls_phase/``);
-18. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
+19. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
    card (``default_mesh()``, one card here) and on four shards of card 0
    (``Mesh([cuda:0] * 4)``, the port's counterpart of XLA's forced host
    device count): (l1) ``ShardedBatchVerifier`` after ``precompute`` and
@@ -213,9 +234,9 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    --mesh-devices 1`` (logs in ``chiprun_out/mesh_phase/``): the checks
    of (e) and ``mesh=`` > 0 and equal to ``device=`` in the last stats
    line.  Prints a ``mesh {json}`` line;
-19. a ``{"kernels": [...]}`` line, then the last line
+20. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the main-path runs (3, (a)-(j), (m) and (l) for the Ed25519 verify
+   over the main-path runs (3, (a)-(j), (m), (n) and (l) for the Ed25519 verify
    kernel, (k2), (k3) and (l3) for the G1 kernels), each counted from 0.
    A row's ``ms`` is the mean of back-to-back launches between two CUDA
    events, the host's enqueue inside the window (``cuda_ms``), except
@@ -264,7 +285,7 @@ TIMED_LAUNCHES = 10
 REPEATED_LAUNCHES = 20
 QC_CALLS = 20
 SPLIT_TRIALS = 3  # more fresh wave services through the verify split in (h)
-WATCHDOG_S = 900
+WATCHDOG_S = 1080
 
 # Peak rates of one H100 SXM used for the bound (at its 700 W limit):
 # HBM 3.35 TB/s (data sheet); int32 multiply-adds at 64 lanes per SM per
@@ -1653,22 +1674,35 @@ def read_journals(jdir: str) -> dict:
     return {n: sorted(rs, key=lambda r: r["s"]) for n, rs in out.items()}
 
 
-def keys_match(state: dict, snapshot_flat: dict) -> bool:
-    """A ``/delta`` state decoded after a ``/snapshot`` scrape holds the
-    snapshot's keys, plus the ``metrics`` blocks, the percentiles of
-    histograms that were empty at the snapshot and the ``flows`` keys of
-    a class first charged between the two scrapes (keys only appear).
-    The ``flows.peers`` block is each node's top 8 peers by bytes, whose
-    members change from one scrape to the next, so it is left out."""
-    def ranked(k: str) -> bool:
-        return ".flows.peers." in k
+def keys_mismatch(state: dict, snapshot_flat: dict) -> list:
+    """The keys by which a ``/delta`` state decoded after a
+    ``/snapshot`` scrape is not the snapshot document (none when it
+    is).  The state may hold more than the snapshot: the ``metrics``
+    blocks, the percentiles of histograms that were empty at the
+    snapshot and the ``flows`` keys of a class first charged between
+    the two scrapes (keys only appear).  Two blocks are ranked by flow
+    bytes, each node's top 8 peers (``flows.peers`` and ``net.peer``),
+    and their members change from one scrape to the next, so their
+    keys are left out; each block may only grow (a peer first charged
+    in between), which is held instead."""
+    def ranked(k: str) -> str | None:
+        for block in (".flows.peers.", ".net.peer."):
+            if block in k:
+                return k[:k.index(block) + len(block)]
+        return None
+
+    def members(flat: dict) -> collections.Counter:
+        return collections.Counter(ranked(k) for k in {k.rsplit(".", 1)[0] for k in flat if ranked(k)})
 
     mine = {k for k in state if ".metrics." not in k and not ranked(k)}
     theirs = {k for k in snapshot_flat if not ranked(k)}
-    if not theirs <= mine:
-        return False
-    return all(snapshot_flat.get(k.rsplit(".", 1)[0] + ".count") == 0 or ".flows." in k
-               for k in mine - theirs)
+    out = sorted(theirs - mine)
+    out += sorted(k for k in mine - theirs
+                  if snapshot_flat.get(k.rsplit(".", 1)[0] + ".count") != 0 and ".flows." not in k)
+    sizes, their_sizes = members(state), members(snapshot_flat)
+    out += sorted(f"{block} holds {sizes[block]} peers, fewer than {n}"
+                  for block, n in their_sizes.items() if sizes[block] < n)
+    return out
 
 
 #: the classes of frames one node sends another in a round or a view
@@ -1839,7 +1873,9 @@ def telemetry_phase(card: str, nodes: int = 64, rate: int = 1000, duration: floa
         state = decoder.apply(f1)
         check(state is not None and f1.get("base") == f0["seq"] and decoder.seq == f1["seq"],
               f"{phase}: the second /delta frame decodes against the first")
-        check(keys_match(state, flatten(snap)), f"{phase}: the decoded /delta state is the /snapshot document")
+        off = keys_mismatch(state, flatten(snap))
+        check(not off, f"{phase}: the decoded /delta state is the /snapshot document ({len(off)} keys "
+                       f"differ: {off[:8]})")
 
     # flows: the final scrape's sections and byte gauges
     r["flows"] = flow_checks(phase, card, snapshots[-1], last, nodes, r["committed_rounds"])
@@ -2344,6 +2380,292 @@ def wan_phase(card: str, base: dict, i_classes: dict, nodes: int = 64, rate: int
     return launches, r
 
 
+# ---- (n) the chaos plane ----------------------------------------------------
+
+RE_FAULT_ACTIVE = re.compile(r"Fault plane active: scenario '([^']+)' seed (\d+) \(node index (\d+), (\d+) link rules\)")
+RE_SNAPSHOT_AT = re.compile(_TS + r" \[INFO\] telemetry\.(\S+) Telemetry snapshot: (\{.*\})")
+FAULT_SEED = 17
+FAULT_DRAIN_S = 5.0  # commits of rounds certified before a window opens may still land in it
+FAULT_LEAD_S = 15.0  # from the committee's boot to a window's open: the client starts, commits begin
+
+
+def fault_spec(tmp: str, committee, build, first: int = 0, **kw) -> tuple:
+    """A spec of the port's ``faults.scenarios`` builder ``build`` over
+    the committee file's addresses, scenario index i the member of
+    sorted-key (leader) position ``first + i`` (mod n), its t=0
+    (``epoch_unix``) now, written where ``--fault-plane`` reads it;
+    returns (spec, path)."""
+    keys = committee.sorted_keys()
+    spec = build(nodes=len(keys), seed=FAULT_SEED, **kw)
+    spec["nodes"] = {"%s:%d" % committee.address(keys[(first + i) % len(keys)]): i for i in range(len(keys))}
+    spec["epoch_unix"] = time.time()
+    path = os.path.join(tmp, "faults.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return spec, path
+
+
+def commits_at(node_text: str) -> list:
+    """(unix time, round) of every non-genesis ``Committed`` line."""
+    return sorted((_ts(ts), int(rnd)) for ts, rnd, _ in RE_COMMITTED.findall(node_text) if int(rnd) > 0)
+
+
+def loop_lag_ms(node_text: str, t0: float | None, t1: float) -> float | None:
+    """The loop's mean lag between unix times ``t0`` (None: each node's
+    first snapshot line) and ``t1``, from the
+    nodes' ``Telemetry snapshot`` lines (every 5 s a node): each carries
+    its 50 ms probe's cumulative mean and the seconds since it started,
+    so a probe's samples are about elapsed / (0.05 s + mean) and the
+    lag summed over them mean x samples; the window's mean is the
+    difference of two such sums over the difference of their samples,
+    averaged over the nodes (one loop, 64 probes)."""
+    lines = collections.defaultdict(list)
+    for ts, node, doc in RE_SNAPSHOT_AT.findall(node_text):
+        d = json.loads(doc)
+        if "loop_lag_mean_ms" in d:
+            lines[node].append((_ts(ts), d["elapsed_s"], d["loop_lag_mean_ms"] / 1e3))
+    means = []
+    for rows in lines.values():
+        before = rows[:1] if t0 is None else [r for r in rows if r[0] <= t0]
+        upto = [r for r in rows if r[0] <= t1]
+        if not before or not upto or upto[-1][0] <= before[-1][0]:
+            continue
+        (_, e0, m0), (_, e1, m1) = before[-1], upto[-1]
+        n0, n1 = e0 / (0.05 + m0), e1 / (0.05 + m1)
+        if n1 > n0:
+            means.append((m1 * n1 - m0 * n0) / (n1 - n0) * 1e3)
+    return sum(means) / len(means) if means else None
+
+
+def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, window_s: float = 10.0,
+                      verifier: str = "cuda"):
+    """(n1) (e)'s committee under the port's ``faults.scenarios.split_brain``:
+    the committee file's 64 members cut 32 against 32 (quorum 43, so
+    neither half has one) for ``window_s`` seconds, the window opening
+    ``FAULT_LEAD_S`` after the boot (e) measured (``base``), handed to
+    ``run-many --fault-plane <spec> --metrics-port 0 --journal-dir D``
+    with the client's 1,000 tx/s of 512 B.  Every node logs ``Fault plane
+    active`` with its index; some round commits before the window; no
+    new round commits from its open plus ``FAULT_DRAIN_S`` to the heal; a
+    new round commits within the scenario's ``liveness.resume_within_s``
+    (20 s) of the heal; every committed round names one digest; every
+    node's ``fault_plane`` section (``/snapshot`` after the resumption)
+    has ``dropped > 0`` and ``inbound_dropped == 0``; every node journals
+    ``fault.open`` and ``fault.close`` at the spec's times, within the
+    loop's worst lag; K1 launches after boot.  Prints where the window
+    fell against the first commit, the rounds and the loop's lag inside
+    the window and before it, and the time to resume.  Returns the
+    verify kernel's launches in the node process and what the logs
+    say."""
+    import tempfile
+
+    from hotstuff_tpu_torch.faults import scenarios
+    from hotstuff_tpu_torch.node.config import read_committee
+
+    phase = "split-brain phase"
+    at = base["boot_s"] + FAULT_LEAD_S
+    until = at + window_s
+    scraped: dict = {}
+    with tempfile.TemporaryDirectory(prefix="split-brain-") as tmp, contextlib.ExitStack() as ports:
+        held: list = []
+        files = committee_files(tmp, nodes, phase, held=held)
+        for sock in held:  # the member ports stay reserved through the run
+            ports.enter_context(sock)
+        committee = read_committee(files[1])
+        spec, spec_path = fault_spec(tmp, committee, scenarios.split_brain, at=at, until=until)
+        epoch, resume_within = spec["epoch_unix"], spec["liveness"]["resume_within_s"]
+        open_at, heal_at = epoch + at, epoch + until
+        node_log = os.path.join(ROOT, "chiprun_out", "split-brain_phase", "nodes.log")
+
+        def during(node_log_path, client_log_path, client):
+            port, _ = endpoint_and_load_start(phase, nodes, node_log_path, client_log_path, client)
+            # wait for a round past every round committed before the
+            # heal, committed after it, or the scenario's deadline
+            deadline = heal_at + resume_within + 2.0
+            while time.time() < deadline:
+                with open(node_log_path) as f:
+                    seen = commits_at(f.read())
+                before = max((rnd for t, rnd in seen if t <= heal_at), default=0)
+                if any(t > heal_at and rnd > before for t, rnd in seen):
+                    break
+                time.sleep(0.5)
+            scraped["snapshot"] = json.loads(scrape(port, "/snapshot")["body"])
+
+        jdir = os.path.join(tmp, "journals")
+        # the load runs through the window and past the heal
+        duration = max(20.0, until - base["boot_s"] + 5.0)
+        launches, r = node_phase(card, nodes, rate, duration, verifier, label=phase, files=files,
+                                 extra_args=("--fault-plane", spec_path, "--metrics-port", "0",
+                                             "--journal-dir", jdir), during=during)
+        journals = read_journals(jdir)
+    with open(node_log) as f:
+        node_text = f.read()
+    active = RE_FAULT_ACTIVE.findall(node_text)
+    check(sorted(int(i) for *_, i, _ in active) == list(range(nodes))
+          and all(name == "split-brain" and int(seed) == FAULT_SEED for name, seed, _, _ in active),
+          f"{phase}: every node logs 'Fault plane active' with its index ({len(active)} lines)")
+    seen = commits_at(node_text)
+    first = seen[0][0] if seen else None
+    stall_from = open_at + FAULT_DRAIN_S
+    pre = [rnd for t, rnd in seen if t <= open_at]
+    pre_stall = [rnd for t, rnd in seen if t <= stall_from]
+    inside = [rnd for t, rnd in seen if stall_from < t <= heal_at]
+    before_heal = max((rnd for t, rnd in seen if t <= heal_at), default=0)
+    resumed = [(t, rnd) for t, rnd in seen if t > heal_at and rnd > before_heal]
+    resume_s = resumed[0][0] - heal_at if resumed else None
+    check(bool(pre), f"{phase}: some round commits before the window opens (first commit at "
+                     f"{None if first is None else round(first - epoch, 2)} s, window at {at:.2f} s)")
+    check(not inside or max(inside) <= max(pre_stall),
+          f"{phase}: no new round commits from the window's open + {FAULT_DRAIN_S} s to the heal "
+          f"(last before {max(pre_stall, default=None)}, inside {sorted(set(inside))[:5]})")
+    check(resume_s is not None and resume_s <= resume_within,
+          f"{phase}: a new round commits within {resume_within} s of the heal ({resume_s})")
+    check(r["rounds_agree"], f"{phase}: every committed round names one digest on every node")
+    sections = [doc.get("fault_plane") for doc in scraped.get("snapshot", {}).values()]
+    check(len(sections) == nodes and all(s is not None for s in sections),
+          f"{phase}: a fault_plane section in every node's snapshot ({len(sections)})")
+    check(all(s["dropped"] > 0 and s["inbound_dropped"] == 0 for s in sections),
+          f"{phase}: every node dropped frames across the cut and swallowed none inbound "
+          f"(dropped {min(s['dropped'] for s in sections)}-{max(s['dropped'] for s in sections)})")
+    lag_max_s = max((json.loads(doc).get("loop_lag_max_ms", 0.0) for _, _, doc in RE_SNAPSHOT_AT.findall(node_text)),
+                    default=0.0) / 1e3
+    edges = collections.defaultdict(list)
+    for recs in journals.values():
+        for rec in recs:
+            if rec["e"] in ("fault.open", "fault.close"):
+                edges[rec["e"]].append((rec["p"], rec["w"] / 1e9 - epoch))
+    for kind, want in (("fault.open", at), ("fault.close", until)):
+        got = edges[kind]
+        late = max((t - want for _, t in got), default=None)
+        check(len(got) == nodes and all(p == "split-brain" and -0.05 <= t - want <= lag_max_s + 0.5
+                                        for p, t in got),
+              f"{phase}: every node journals {kind} at {want:.2f} s within the loop's worst lag "
+              f"{lag_max_s:.3f} s ({len(got)} records, latest {late})")
+    check(verifier == "cpu" or r["launches_after_boot"] > 0, f"{phase}: the verify kernel launched after boot")
+    boot_at = r["boot_at"] - epoch if r["boot_at"] is not None else None
+    rounds_in = len({rnd for t, rnd in seen if open_at < t <= heal_at})
+    rounds_pre = len({rnd for t, rnd in seen if t <= open_at})
+    lag_in = loop_lag_ms(node_text, open_at, heal_at)
+    lag_pre = loop_lag_ms(node_text, None, open_at)
+    out = {"at_s": at, "until_s": until, "boot_at_s": boot_at,
+           "first_commit_s": None if first is None else first - epoch, "rounds_before": rounds_pre,
+           "rounds_in_window": rounds_in, "last_round_before": max(pre_stall, default=None),
+           "resume_s": resume_s, "resumed_round": resumed[0][1] if resumed else None,
+           "loop_lag_before_ms": lag_pre, "loop_lag_in_window_ms": lag_in, "loop_lag_max_ms": lag_max_s * 1e3,
+           "dropped": [min(s["dropped"] for s in sections), max(s["dropped"] for s in sections)],
+           "edges_late_s": {k: max(t - (at if k == "fault.open" else until) for _, t in v)
+                            for k, v in edges.items()}}
+    r.update(split_brain=out)
+    print(f"{phase}: window {at:.2f}-{until:.2f} s after the spec's t=0; boot at {boot_at} s, first commit at "
+          f"{out['first_commit_s']} s; {rounds_pre} rounds committed before the window, {rounds_in} inside it "
+          f"(last before the drain margin {out['last_round_before']}), round {out['resumed_round']} committed "
+          f"{resume_s} s after the heal; loop lag mean {lag_pre} ms before the window, {lag_in} ms inside it "
+          f"(worst {lag_max_s * 1e3:.1f} ms); fault edges late by {out['edges_late_s']} s [{card}]")
+    print(f"{phase} result: " + json.dumps(out))
+    return launches, r
+
+
+def flapping_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, window_s: float = 12.0,
+                   verifier: str = "cuda"):
+    """(n2) (e)'s committee on the native transport under the port's
+    ``faults.scenarios.flapping_link``: the link between the committee
+    file's members 0 and 1 hard-drops for 1.5 s of every 3 s for
+    ``window_s`` seconds (``run-many --transport native --fault-plane
+    <spec> --metrics-port 0``).  At 64 nodes two members talk on their
+    own link only around their turns to lead: a leader's proposal goes
+    over the reliable sender, which holds it through a hard cut and
+    draws no decision (the reference's contract), and a vote goes to the
+    next round's leader over the best-effort sender, which drops it in a
+    cut.  So scenario members 0 and 1 are the committee's leaders of two
+    consecutive rounds that (e)'s round rate puts just inside the window:
+    1 votes to 0 a round before 0 leads, 0 to 1 as 0 leads.  Quorum is
+    never lost: rounds commit inside the window, every committed round
+    names one digest, members 0 and 1 consult the plane on their link to
+    each other, the only drops in the committee are theirs on that link
+    (``/snapshot`` after the window), and K1 launches after boot.
+    Returns the verify kernel's launches in the node process and what
+    the logs say."""
+    import tempfile
+
+    from hotstuff_tpu_torch.faults import scenarios
+    from hotstuff_tpu_torch.node.config import read_committee
+
+    phase = "flapping phase"
+    at = base["boot_s"] + FAULT_LEAD_S
+    until = at + window_s
+    scraped: dict = {}
+    with tempfile.TemporaryDirectory(prefix="flapping-") as tmp, contextlib.ExitStack() as ports:
+        held: list = []
+        files = committee_files(tmp, nodes, phase, held=held)
+        for sock in held:
+            ports.enter_context(sock)
+        committee = read_committee(files[1])
+        # (e)'s rounds a second from its first commits, ~2 s after boot
+        first = min(max(2, int(base["committed_rounds"] / 20.0 * (FAULT_LEAD_S - 2.0)) + 2), nodes - 2)
+        spec, spec_path = fault_spec(tmp, committee, scenarios.flapping_link, first=first, at=at, until=until)
+        epoch = spec["epoch_unix"]
+        addr = {i: a for a, i in spec["nodes"].items()}
+
+        def during(node_log_path, client_log_path, client):
+            port, _ = endpoint_and_load_start(phase, nodes, node_log_path, client_log_path, client)
+            time.sleep(max(0.0, epoch + until + 1.0 - time.time()))
+            # and the pair's turns to lead are past (a slow run gets there late)
+            deadline = epoch + until + 30.0
+            while time.time() < deadline:
+                with open(node_log_path) as f:
+                    if any(rnd >= first + 2 for _, rnd in commits_at(f.read())):
+                        break
+                time.sleep(0.5)
+            scraped["snapshot"] = json.loads(scrape(port, "/snapshot")["body"])
+
+        duration = max(20.0, until - base["boot_s"] + 3.0)
+        launches, r = node_phase(card, nodes, rate, duration, verifier, transport="native", label=phase,
+                                 files=files, extra_args=("--fault-plane", spec_path, "--metrics-port", "0"),
+                                 during=during)
+    with open(os.path.join(ROOT, "chiprun_out", "flapping_phase", "nodes.log")) as f:
+        node_text = f.read()
+    active = RE_FAULT_ACTIVE.findall(node_text)
+    check(sorted(int(i) for *_, i, _ in active) == list(range(nodes)),
+          f"{phase}: every node logs 'Fault plane active' with its index ({len(active)} lines)")
+    seen = commits_at(node_text)
+    open_at, close_at = epoch + at, epoch + until
+    inside = sorted({rnd for t, rnd in seen if open_at < t <= close_at})
+    before = max((rnd for t, rnd in seen if t <= open_at), default=0)
+    check(len(inside) >= 2 and inside[-1] > before,
+          f"{phase}: rounds commit through the window ({len(inside)} rounds inside, last before it {before})")
+    check(r["rounds_agree"], f"{phase}: every committed round names one digest on every node")
+    sections = {s["node"]: s for s in (doc.get("fault_plane") for doc in scraped.get("snapshot", {}).values())
+                if s is not None}
+    check(sorted(sections) == list(range(nodes)), f"{phase}: a fault_plane section from every node")
+    link01 = sections[0]["links"].get(addr[1], {"seq": 0, "dropped": 0})
+    link10 = sections[1]["links"].get(addr[0], {"seq": 0, "dropped": 0})
+    others = {i: (s["dropped"], s["links"]) for i, s in sections.items()
+              if i not in (0, 1) and (s["dropped"] or s["links"])}
+    check(link01["seq"] > 0 and link10["seq"] > 0,
+          f"{phase}: members 0 and 1 consult the plane on their link to each other "
+          f"(decisions 0->1 {link01['seq']}, 1->0 {link10['seq']})")
+    check(sections[0]["dropped"] == link01["dropped"] and sections[1]["dropped"] == link10["dropped"]
+          and set(sections[0]["links"]) <= {addr[1]} and set(sections[1]["links"]) <= {addr[0]},
+          f"{phase}: members 0 and 1 drop only on their link to each other")
+    check(not others, f"{phase}: no other member has a fault view or drops a frame ({others})")
+    check(verifier == "cpu" or r["launches_after_boot"] > 0, f"{phase}: the verify kernel launched after boot")
+    out = {"at_s": at, "until_s": until, "members_0_1_at_leader_positions": [first, first + 1],
+           "rounds_before": len({rnd for t, rnd in seen if t <= open_at}), "rounds_in_window": len(inside),
+           "first_round_in_window": inside[0] if inside else None, "last_round_in_window": inside[-1] if inside
+           else None, "link_0_to_1": link01, "link_1_to_0": link10,
+           "loop_lag_in_window_ms": loop_lag_ms(node_text, open_at, close_at),
+           "loop_lag_before_ms": loop_lag_ms(node_text, None, open_at)}
+    r.update(flapping=out)
+    print(f"{phase}: window {at:.2f}-{until:.2f} s, link 0<->1 (the leaders of rounds {first} and {first + 1} "
+          f"mod {nodes}) down 1.5 s of every 3; {out['rounds_before']} rounds before it, {len(inside)} inside it "
+          f"({out['first_round_in_window']}-{out['last_round_in_window']}); 0->1 {link01}, 1->0 {link10} "
+          f"(decisions, drops), elsewhere none; "
+          f"loop lag mean {out['loop_lag_before_ms']} ms before, {out['loop_lag_in_window_ms']} ms inside; "
+          f"(e) committed {base['committed_rounds']} rounds in 20 s [{card}]")
+    print(f"{phase} result: " + json.dumps(out))
+    return launches, r
+
+
 # ---- (k) BLS at BASELINE config 5's size ------------------------------------
 
 G1_B4_SHAPES = ((171, 256), (171, 512), (1024, 1024))  # (points, B); 171 -> 512 is the aggregator's pad
@@ -2812,6 +3134,8 @@ def bls_storm_phase(card: str, nodes: int = COMMITTEE, torch_device=None) -> dic
           f"G1 launches in the storm {storm_launches}; every verdict equals the native pairing's; forged vote, "
           f"timeout and TC entry rejected [{card}]")
 
+    from hotstuff_tpu_torch.consensus.handel import HandelTopology
+
     t0 = time.perf_counter()
     agg = bench.bench_agg_qc(device=torch_device or "cuda")
     print("bench_agg_qc result: " + json.dumps(agg))
@@ -2820,7 +3144,13 @@ def bls_storm_phase(card: str, nodes: int = COMMITTEE, torch_device=None) -> dic
         print(f"bench_agg_qc n={n}: QC bytes compact {row['qc_bytes_compact']} vs vote-list "
               f"{row['qc_bytes_votelist']}; form p50 {row['form_p50_ms']} vs {row['form_votelist_p50_ms']} ms; "
               f"verify p50 {row['verify_p50_ms']} ms (cold {row['verify_cold_ms']}) vs vote-list "
-              f"{row['verify_votelist_p50_ms']} ms [{card}]")
+              f"{row['verify_votelist_p50_ms']} ms; Handel levels {row['handel_levels']}, leader merges "
+              f"{row['handel_leader_merges']} [{card}]")
+        levels = HandelTopology.for_round(int(n), 3).levels
+        check(row["handel_levels"] == levels,
+              f"bench_agg_qc n={n}: Handel levels {row['handel_levels']} (the round-3 tree's {levels})")
+        check(0 < row["handel_leader_merges"] <= levels,
+              f"bench_agg_qc n={n}: the leader merges at most once a level ({row['handel_leader_merges']})")
     print(f"bench_agg_qc: flat_ratio {agg['flat_ratio']}, {time.perf_counter() - t0:.1f} s; card "
           f"{agg['device']['name']}, {agg['device']['power_limit']} [{card}]")
     check(agg["device"]["platform"] == ("gpu" if torch_device in (None, "cuda") else "cpu"),
@@ -3325,6 +3655,12 @@ def main() -> int:
     wan_launches, wan_r = wan_phase(card, node_r, telemetry_r["flows"]["classes"])
     print(f"phase (m) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    split_launches, split_r = split_brain_phase(card, node_r)
+    print(f"phase (n1) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flap_launches, flap_r = flapping_phase(card, native_r)
+    print(f"phase (n2) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     g1, g1_launches, bls_r = bls_phase(card)
     print(f"phase (k) took {time.perf_counter() - t0:.1f} s")
     for name, count in g1_launches.items():
@@ -3345,7 +3681,8 @@ def main() -> int:
           f"{telemetry_r['committed_rounds']} rounds, ratio "
           f"{telemetry_r['committed_rounds'] / max(node_r['committed_rounds'], 1):.3f} [{card}]")
     for label, r in (("(e) asyncio", node_r), ("(g) native", native_r), ("(i) telemetry", telemetry_r),
-                     ("(j1) health", health_r), ("(m) wan", wan_r)):
+                     ("(j1) health", health_r), ("(m) wan", wan_r), ("(n1) split brain", split_r),
+                     ("(n2) flapping link", flap_r)):
         print(f"node CLI {label}: " + ", ".join(f"{k} {r[k]}" for k in keys) + f", stats {r['stats']} [{card}]")
 
     B = WAVE
@@ -3360,7 +3697,7 @@ def main() -> int:
                          + committee_launches + restart_launches + node_launches
                          + ingest_launches + native_launches + bench_launches
                          + telemetry_launches + health_launches + wan_launches
-                         + mesh["k1_launches"]),
+                         + split_launches + flap_launches + mesh["k1_launches"]),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],

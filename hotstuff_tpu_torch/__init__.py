@@ -9,7 +9,10 @@ nothing from it: what it needs is copied and trimmed.  Layers, top down:
 - ``consensus/``: the protocol engine — core, proposer, synchronizer,
   helper, leader election, timer and ``Consensus.spawn`` — over the
   certificate layer: messages, wire, committee configuration,
-  reconfiguration ops and the vote/timeout aggregators;
+  reconfiguration ops, the vote/timeout aggregators and the Handel
+  plane;
+- ``faults/``: the chaos plane (seeded network fault injection on every
+  sender and receiver) and its canned scenarios;
 - ``network/``, ``store/``, ``ingest/``: the asyncio and native
   (C++ reactor) transports, the write-ahead-log store and producer
   admission;

@@ -44,8 +44,9 @@ it on the mesh of every card and on four shards of one card.
 ``bench_agg_qc`` (``bench.py:472``, run with ``--agg-qc``) is the BLS
 block: the compact (aggregated) QC against the vote-list QC at n = 64,
 256 and 512, its G1 sums on the card's kernels (``--device cpu``: their
-plain versions).  Its Handel columns wait on ``consensus/handel.py``,
-which is not ported.
+plain versions), and the Handel columns (``consensus/handel.py``: the
+tree's levels and the leader's merges, host G1 additions as in the
+reference).
 """
 
 from __future__ import annotations
@@ -426,8 +427,11 @@ def bench_agg_qc(sizes=(64, 256, 512), reps: int = 5, device: str = "cuda") -> d
     ``G1RunningSum.add`` a vote on ``device``, and checked against the
     host sum.  Committee secrets are small scalars so fixture generation
     is O(n) cheap point multiplies.  ``flat_ratio`` = compact verify p50
-    at the largest size over the smallest.  The reference's Handel
-    columns are left out (``consensus/handel.py`` is not ported)."""
+    at the largest size over the smallest.  ``handel_levels`` and
+    ``handel_leader_merges``: the round-3 Handel tree over the signers
+    (``consensus/handel.py`` ``simulate``), whose final partial must
+    carry exactly the quorum's weight."""
+    from ..consensus.handel import HandelTopology, simulate
     from ..consensus.messages import QC, make_signer_bitmap
     from ..crypto import Digest, PublicKey, Signature
     from ..crypto.bls import BlsSecretKey
@@ -503,6 +507,13 @@ def bench_agg_qc(sizes=(64, 256, 512), reps: int = 5, device: str = "cuda") -> d
         cold = (time.perf_counter() - t0) * 1e3
         verify_c = timed(lambda: verifier.verify_aggregate_msg(digest, pk_bytes, agg_bytes))
         verify_v = timed(lambda: verifier.verify_shared_msg(digest, votes))
+
+        # -- Handel plane: leader-side merge count at this size --------
+        topo = HandelTopology.for_round(n, round_=3)
+        sigs_by_index = {pks.index(pk): sig.to_bytes() for pk, sig in votes}
+        final, top_merges, _ = simulate(topo, sigs_by_index)
+        assert final.weight == quorum
+
         p50s[n] = verify_c[len(verify_c) // 2]
         out[str(n)] = {
             "qc_bytes_compact": compact_bytes,
@@ -512,6 +523,8 @@ def bench_agg_qc(sizes=(64, 256, 512), reps: int = 5, device: str = "cuda") -> d
             "verify_p50_ms": round(verify_c[len(verify_c) // 2], 3),
             "verify_cold_ms": round(cold, 3),
             "verify_votelist_p50_ms": round(verify_v[len(verify_v) // 2], 3),
+            "handel_levels": topo.levels,
+            "handel_leader_merges": top_merges,
         }
     lo, hi = min(sizes), max(sizes)
     out["verify_p50_ms"] = round(p50s[hi], 3)

@@ -5,7 +5,7 @@ Parity map (SURVEY.md §2.4): messages (Block/Vote/QC/Timeout/TC), config
 (Committee/Parameters), aggregator (QCMaker/TCMaker), leader elector,
 timer, core state machine, proposer, synchronizer, helper, and the
 Consensus wiring — reference crate ``consensus/`` — and state sync
-(``statesync``).  Handel aggregation is not ported.
+(``statesync``), and Handel aggregation (``handel``).
 """
 
 from .aggregator import Aggregator, QCMaker, TCMaker

@@ -22,13 +22,16 @@ sync), and the receiver's native producer-v2 fast path
 per-tag counters, drop counter and journaled receive edges, the
 execution layer's, payload store's and admission's gauges, and every
 actor's telemetry handle, WAN emulation (``HOTSTUFF_WAN_SPEC`` on the
-asyncio transport, ``network/wan.py``) and wire-level flow accounting
+asyncio transport, ``network/wan.py``), the chaos plane
+(``HOTSTUFF_FAULTS`` on both transports, ``faults/plane.py``: every
+sender and the receiver get the plane, a ``fault-clock`` task walks its
+windows, and with telemetry on the ``fault_*`` gauges and the
+``fault_plane`` snapshot section) and wire-level flow accounting
 (on with telemetry unless ``HOTSTUFF_NET=0``, ``telemetry/flows.py``).
-Not ported, so cut: the fault and adversary planes and the sim
-transport.  Where the reference's ``spawn`` would switch one of the cut
-planes on from the environment (``HOTSTUFF_FAULTS`` or
-``HOTSTUFF_ADVERSARY``), this ``spawn`` raises instead of running
-without it (:func:`unported_env_plane`).
+Not ported, so cut: the adversary plane and the sim transport.  Where
+the reference's ``spawn`` would switch the adversary plane on from the
+environment (``HOTSTUFF_ADVERSARY``), this ``spawn`` raises instead of
+running without it (:func:`unported_env_plane`).
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ CHANNEL_CAPACITY = 1_000
 
 #: env knobs whose plane the reference's ``Consensus.spawn`` switches on
 #: from the environment and the port has not ported yet
-_UNPORTED_ENV_PLANES = ("HOTSTUFF_FAULTS", "HOTSTUFF_ADVERSARY")
+_UNPORTED_ENV_PLANES = ("HOTSTUFF_ADVERSARY",)
 
 
 def unported_env_plane(transport: str = "asyncio") -> str | None:
@@ -659,6 +662,19 @@ class Consensus:
             def link_delay(dst, _model=model):  # noqa: E731 — closure
                 return lambda: _model.delay(dst)
 
+        # Chaos plane (HOTSTUFF_FAULTS, faults/plane.py): seeded
+        # deterministic fault injection, threaded through every sender
+        # the same way link_delay is.  Works on both transports.  An
+        # unreadable spec raises here; a spec that does not name this
+        # node leaves the plane inert.
+        fault_plane = None
+        faults_spec = os.environ.get("HOTSTUFF_FAULTS")
+        if faults_spec:
+            from ..faults import FaultPlane
+
+            fault_plane = FaultPlane.load(faults_spec, address)
+            log.info("Fault plane active: %s", fault_plane.describe())
+
         # Wire-level flow accounting (telemetry/flows.py): one
         # accountant per node, threaded through every sender and the
         # receiver — each frame charged to a (peer, direction, class)
@@ -685,10 +701,12 @@ class Consensus:
             receiver_cls = NativeReceiver
 
             def make_sender():
-                return NativeSimpleSender(flows=flows)
+                return NativeSimpleSender(fault_plane=fault_plane, flows=flows)
 
             def make_reliable():
-                return NativeReliableSender(flows=flows)
+                return NativeReliableSender(
+                    fault_plane=fault_plane, flows=flows
+                )
         else:
             receiver_cls = NetworkReceiver
             # Bounded per-sender connection pools for big co-located
@@ -702,6 +720,7 @@ class Consensus:
                 return SimpleSender(
                     link_delay=link_delay,
                     max_conns=max_conns,
+                    fault_plane=fault_plane,
                     flows=flows,
                 )
 
@@ -709,6 +728,7 @@ class Consensus:
                 return ReliableSender(
                     link_delay=link_delay,
                     max_conns=max_conns,
+                    fault_plane=fault_plane,
                     flows=flows,
                 )
 
@@ -729,6 +749,7 @@ class Consensus:
                 state=state_machine,
                 committee=committee,
             ),
+            fault_plane=fault_plane,
             flows=flows,
         )
         await self.receiver.spawn()
@@ -738,6 +759,34 @@ class Consensus:
             bind_host,
             address[1],
         )
+
+        if fault_plane is not None:
+            from ..faults import run_clock
+
+            journal = telemetry.journal if telemetry is not None else None
+            self._tasks.append(
+                asyncio.get_running_loop().create_task(
+                    run_clock(fault_plane, journal),
+                    name="fault-clock",
+                )
+            )
+            if telemetry is not None:
+                for count_name, help_text in (
+                    ("dropped", "Frames dropped by the fault plane"),
+                    ("delayed", "Frames delayed by the fault plane"),
+                    ("duplicated", "Frames duplicated by the fault plane"),
+                    ("corrupted", "Frames corrupted by the fault plane"),
+                    (
+                        "inbound_dropped",
+                        "Inbound frames swallowed during isolate windows",
+                    ),
+                ):
+                    telemetry.gauge(
+                        f"fault_{count_name}",
+                        help_text,
+                        fn=lambda p=fault_plane, k=count_name: p.counts[k],
+                    )
+                telemetry.add_section("fault_plane", fault_plane.stats)
 
         leader_elector = LeaderElector(committee)
         self.synchronizer = Synchronizer(

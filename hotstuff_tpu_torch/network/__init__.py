@@ -2,8 +2,9 @@
 
 A copy of ``hotstuff_tpu.network``: the asyncio transport and the native
 C++ reactor (``native``: ``NativeReceiver``, ``NativeSimpleSender``,
-``NativeReliableSender``).  WAN emulation, the fault plane and flow
-accounting are not ported.  Parity map (SURVEY.md §2.3): Receiver/MessageHandler/Writer, SimpleSender
+``NativeReliableSender``), with WAN emulation (``wan``), the chaos
+plane's seams (``fault_plane=``, ``faults/plane.py``) and flow
+accounting (``flows=``).  Parity map (SURVEY.md §2.3): Receiver/MessageHandler/Writer, SimpleSender
 (best-effort), ReliableSender (ACK-paired with backoff retransmit) —
 reference crate ``network/``.
 """

@@ -1,24 +1,26 @@
 """ctypes bridge to the native C++ transport reactor (native/transport.cpp).
 
-A copy of ``hotstuff_tpu.network.native`` without the fault plane; flow
-accounting (``flows=``, ``telemetry/flows.py``) and the simple sender's
-``lucky_broadcast`` are the reference's, and, as there, no link of the
-native transport is WAN-delayed.  The reference's network layer is
+A copy of ``hotstuff_tpu.network.native``; the chaos plane's seams
+(``fault_plane=``, ``faults/plane.py``), flow accounting (``flows=``,
+``telemetry/flows.py``) and the simple sender's ``lucky_broadcast`` are
+the reference's, and, as there, no link of the native transport is
+WAN-delayed.  The reference's network layer is
 native (tokio TCP); this is its native equivalent — an epoll reactor
 thread owning every socket, bridged into asyncio through a notify pipe:
 the loop registers the pipe fd with ``add_reader`` and drains the
 reactor's event queue without ever blocking.  API mirrors of the
 asyncio classes:
 
-- ``NativeReceiver(host, port, handler, flows=)`` — like ``receiver.Receiver``:
+- ``NativeReceiver(host, port, handler, fault_plane=, flows=)`` — like
+  ``receiver.Receiver``:
   every inbound frame goes through ``dispatch_ingest`` to
   ``handler.dispatch(writer, bytes)``, where the writer replies (ACKs)
   on the same connection;
-- ``NativeSimpleSender(flows=)`` — like ``simple_sender.SimpleSender``:
+- ``NativeSimpleSender(fault_plane=, flows=)`` — like ``simple_sender.SimpleSender``:
   persistent best-effort per-peer connections, frames dropped while the
   peer is down, reconnect attempted on the next send; peer ACK frames
   are read and discarded;
-- ``NativeReliableSender(flows=)`` — like ``reliable_sender.ReliableSender``:
+- ``NativeReliableSender(fault_plane=, flows=)`` — like ``reliable_sender.ReliableSender``:
   per-frame ACK futures, retransmission after a reconnect.
 
 The library is the port's own build of ``native/transport.cpp`` and
@@ -38,6 +40,7 @@ import random
 from collections import deque
 
 from .. import _native_build
+from ..faults.plane import BARRIER_POLL_S, corrupt_frame
 from .receiver import dispatch_ingest
 
 log = logging.getLogger(__name__)
@@ -197,15 +200,21 @@ class NativeReceiver:
     queue is watermarked — past HIGH_WATER the connection's reads are
     PAUSED in the reactor (``ht_set_read_paused``) and resumed at
     LOW_WATER.  Without this an overloaded node buffers everything in
-    unbounded queues."""
+    unbounded queues.
+
+    ``fault_plane``: the inbound cut of an ``isolate`` window, as on
+    ``receiver.Receiver``."""
 
     HIGH_WATER = 256
     LOW_WATER = 64
 
-    def __init__(self, host: str, port: int, handler, flows=None):
+    def __init__(
+        self, host: str, port: int, handler, fault_plane=None, flows=None
+    ):
         self.host = host
         self.port = port
         self.handler = handler
+        self._faults = fault_plane
         self._flows = flows
         self.reactor = Reactor.shared()
         self._listener = -1
@@ -266,6 +275,8 @@ class NativeReceiver:
             payload = await q.get()
             if payload is None:
                 return
+            if self._faults is not None and self._faults.inbound_cut():
+                payload = b""  # isolate window: swallow the frame unACKed
             try:
                 if payload:
                     await dispatch_ingest(self.handler, writer, payload)
@@ -360,12 +371,27 @@ class NativeSimpleSender:
     frames to a peer that is down are dropped and the next send
     reconnects.  ``flows`` is charged for each frame the reactor
     accepts (``ht_send`` returned 0) and once per ``send``/``broadcast``
-    call on the logical ledger."""
+    call on the logical ledger.
 
-    def __init__(self, flows=None):
+    ``fault_plane`` (chaos plane, faults/plane.py): best-effort links
+    support the full fault matrix — drop skips the send, delay defers
+    the ``ht_send`` via ``call_later`` (later undelayed frames may
+    overtake it: reordering is fair game on a lossy best-effort link),
+    corrupt mangles the bytes, duplicate hands the frame over twice."""
+
+    def __init__(self, fault_plane=None, flows=None):
         self.reactor = Reactor.shared()
+        self._fault_plane = fault_plane
         self._flows = flows
+        self._links: dict[Address, object] = {}
         self._peers: dict[Address, int] = {}
+
+    def _link(self, address: Address):
+        if self._fault_plane is None:
+            return None
+        if address not in self._links:
+            self._links[address] = self._fault_plane.link(address)
+        return self._links[address]
 
     def _peer(self, address: Address) -> int | None:
         peer = self._peers.get(address)
@@ -391,11 +417,44 @@ class NativeSimpleSender:
         peer = self._peer(address)
         if peer is None:
             return
+        faults = self._link(address)
+        if faults is not None:
+            decision = faults.decide()
+            if decision.drop:
+                return
+            if decision.corrupt:
+                payload = corrupt_frame(payload)
+            if decision.delay_s:
+                asyncio.get_running_loop().call_later(
+                    decision.delay_s, self._send_now, address, peer,
+                    payload, decision.duplicate,
+                )
+                return
+            if decision.duplicate:
+                self._send_now(address, peer, payload, True)
+                return
         rc = self.reactor.lib.ht_send(
             self.reactor.handle, peer, payload, len(payload)
         )
         if rc == 0 and self._flows is not None:
             self._flows.tx(address, payload)
+
+    def _send_now(
+        self, address: Address, peer: int, payload: bytes, duplicate: bool
+    ) -> None:
+        if not self.reactor.handle:
+            return  # reactor stopped while the frame sat in its delay
+        rc = self.reactor.lib.ht_send(
+            self.reactor.handle, peer, payload, len(payload)
+        )
+        if rc == 0 and self._flows is not None:
+            self._flows.tx(address, payload)
+        if duplicate:
+            rc = self.reactor.lib.ht_send(
+                self.reactor.handle, peer, payload, len(payload)
+            )
+            if rc == 0 and self._flows is not None:
+                self._flows.tx(address, payload)
 
     async def broadcast(self, addresses: list[Address], payload: bytes) -> None:
         # ONE logical charge per broadcast call regardless of fan-out
@@ -447,14 +506,23 @@ class NativeReliableSender:
     ``flows``: each frame handed to the reactor is charged on the wire
     ledger when ``ht_send`` accepts it — a second hand-over after a
     disconnect as a retransmit — and each ``send``/``broadcast`` call
-    once on the logical ledger."""
+    once on the logical ledger.
+
+    ``fault_plane`` (chaos plane, faults/plane.py): the FIFO pairing
+    allows only order-preserving faults here — a barrier (hard
+    partition window) or a drawn drop defers the flush exactly like an
+    outbox-full refusal (head-of-line hold, frames flow when the window
+    closes / on the next attempt); delay/corrupt/duplicate are skipped
+    on native reliable links."""
 
     RETRY_DELAY_S = 0.2
     RETRY_CAP_S = 60.0
 
-    def __init__(self, flows=None):
+    def __init__(self, fault_plane=None, flows=None):
         self.reactor = Reactor.shared()
+        self._fault_plane = fault_plane
         self._flows = flows
+        self._links: dict[int, object] = {}  # pid -> LinkFaults | None
         self._peers: dict[Address, int] = {}
         self._addrs: dict[int, Address] = {}  # pid -> address (flow peer)
         # pid -> deque[[payload, fut, transmitted]]: the third slot
@@ -482,6 +550,8 @@ class NativeReliableSender:
             self._addrs[pid] = address
             self._queue[pid] = deque()
             self._sent[pid] = 0
+            if self._fault_plane is not None:
+                self._links[pid] = self._fault_plane.link(address)
             self.reactor._peer_handlers[pid] = (
                 lambda kind, payload, pid=pid: self._on_peer_event(
                     pid, kind, payload
@@ -523,6 +593,7 @@ class NativeReliableSender:
         stopping at the first refusal (outbox full) — a short retry
         keeps order without busy-waiting."""
         q = self._queue[pid]
+        faults = self._links.get(pid)
         while self._sent[pid] < len(q):
             entry = q[self._sent[pid]]
             payload, fut = entry[0], entry[1]
@@ -531,6 +602,16 @@ class NativeReliableSender:
                 # unsent cancelled frames can simply be dropped
                 del q[self._sent[pid]]
                 continue
+            if faults is not None and (faults.barrier() or faults.decide().drop):
+                # hold the head of the line like an outbox-full refusal:
+                # order and ACK pairing survive, frames flow on retry
+                if self._retry_handle.get(pid) is None:
+                    self._retry_handle[pid] = (
+                        asyncio.get_running_loop().call_later(
+                            BARRIER_POLL_S, self._retry_flush, pid
+                        )
+                    )
+                return
             rc = self.reactor.lib.ht_send(
                 self.reactor.handle, pid, payload, len(payload)
             )

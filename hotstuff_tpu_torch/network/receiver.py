@@ -1,8 +1,9 @@
 """Network receiver: TCP listener dispatching frames to a handler.
 
-A copy of ``hotstuff_tpu.network.receiver`` without the fault plane:
-every frame read is charged to the node's flow accountant (``flows=``,
-``telemetry/flows.py``), then goes through ``dispatch_ingest`` (the
+A copy of ``hotstuff_tpu.network.receiver``: every frame read is
+charged to the node's flow accountant (``flows=``,
+``telemetry/flows.py``), passes the chaos plane's inbound cut
+(``fault_plane=``, ``faults/plane.py``), then goes through ``dispatch_ingest`` (the
 zero-copy ingest taps, shared with the native receiver) to
 ``handler.dispatch(writer, bytes)``.  Parity target:
 reference ``Receiver<Handler>`` (network/src/receiver.rs:18-89): bind a
@@ -87,14 +88,28 @@ class MessageHandler(Protocol):
 class Receiver:
     """Listens on ``address`` and dispatches every frame to ``handler``;
     ``flows`` (telemetry/flows.py) is charged for every frame read and
-    every reply written."""
+    every reply written.
+
+    ``fault_plane`` (chaos plane, faults/plane.py): inbound faulting is
+    all-or-nothing — accepted connections arrive from ephemeral ports,
+    so frames can't be attributed to a committee peer; committee-pair
+    partitions are fully enforced sender-side (every node shares the
+    scenario spec).  The receiver-side cut exists for ``isolate``
+    windows, where frames from planeless senders (benchmark clients)
+    must die too."""
 
     def __init__(
-        self, host: str, port: int, handler: MessageHandler, flows=None
+        self,
+        host: str,
+        port: int,
+        handler: MessageHandler,
+        fault_plane=None,
+        flows=None,
     ):
         self.host = host
         self.port = port
         self.handler = handler
+        self._faults = fault_plane
         self._flows = flows
         self._server: asyncio.AbstractServer | None = None
         self._closing = False
@@ -134,8 +149,12 @@ class Receiver:
         try:
             while True:
                 frame = await read_frame(reader)
+                # charged before the inbound cut: the bytes crossed the
+                # wire whether or not the isolate window swallows them
                 if self._flows is not None:
                     self._flows.rx(peer, frame)
+                if self._faults is not None and self._faults.inbound_cut():
+                    continue  # isolate window: swallow the frame unACKed
                 await dispatch_ingest(self.handler, writer, frame)
         except (
             asyncio.IncompleteReadError,

@@ -1,10 +1,10 @@
 """Reliable sender: per-message ACK futures, reconnect with backoff,
 retransmission of un-ACKed messages.
 
-A copy of ``hotstuff_tpu.network.reliable_sender`` without the fault
-plane: the WAN link scheduler (``link_delay=``, ``network/wan.py``) and
-flow accounting (``flows=``, ``telemetry/flows.py``) are the
-reference's.  Parity target:
+A copy of ``hotstuff_tpu.network.reliable_sender``: the WAN link
+scheduler (``link_delay=``, ``network/wan.py``), the chaos plane
+(``fault_plane=``, ``faults/plane.py``) and flow accounting (``flows=``,
+``telemetry/flows.py``) are the reference's.  Parity target:
 reference ``ReliableSender`` (network/src/reliable_sender.rs:25-248),
 semantics reproduced exactly (the proposer's 2f+1-ACK back-pressure
 depends on them):
@@ -17,10 +17,23 @@ depends on them):
   reconnecting with exponential backoff (200 ms doubling, capped at 60 s —
   reference reliable_sender.rs:131,166) with FULL JITTER: each retry
   sleeps uniform(0, delay) so the whole committee doesn't reconnect-
-  stampede the instant a partition heals;
+  stampede the instant a partition heals (the deterministic schedule
+  synchronised every peer's retry clock);
 - messages whose future was cancelled by the caller are dropped instead of
   retransmitted (the reference drops messages whose CancelHandler receiver
   was dropped).
+
+Chaos-plane semantics on reliable links (faults/plane.py): the FIFO
+ACK pairing constrains what each fault can mean here. A hard partition
+(drop >= 1.0 window) HOLDS frames at the head of the line via
+``barrier()`` — no loss decision is consumed, frames flow when the
+window closes. A probabilistic drop tears the connection with a
+synthetic ConnectionError instead (the frame stays un-ACKed and rides
+the reconnect/retransmit path — exactly what a lost frame causes on a
+reliable link). Corruption sends the mangled bytes then tears the
+connection so the pairing resets and the clean frame is retransmitted.
+Duplication is a no-op: a duplicated frame would draw a second ACK and
+desync the FIFO pairing.
 
 Under WAN emulation every outbound frame waits for its deliver-at time
 and its ACK future resolves one return leg later, so the proposer's
@@ -33,6 +46,7 @@ import asyncio
 import logging
 from collections import deque
 
+from ..faults.plane import BARRIER_POLL_S, corrupt_frame
 from ..utils.clock import default_clock, default_connector, default_rng
 from .errors import UnexpectedAckError, classify
 from .framing import FramingError, read_frame, send_frame, set_nodelay
@@ -49,9 +63,15 @@ Address = tuple[str, int]
 CancelHandler = asyncio.Future  # resolves to the ACK payload (bytes)
 
 
+class FaultDisconnect(ConnectionError):
+    """Synthetic disconnect injected by the chaos plane: rides the
+    normal reconnect/retransmit path (loss-on-a-reliable-link)."""
+
+
 class _Connection:
-    def __init__(self, address: Address, delay_fn=None, flows=None):
+    def __init__(self, address: Address, delay_fn=None, faults=None, flows=None):
         self.address = address
+        self._faults = faults
         self._flows = flows
         #: retries whose backoff sleep was jittered (stampede-avoided
         #: reconnect attempts)
@@ -134,14 +154,18 @@ class _Connection:
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
     ) -> None:
         # retransmit un-ACKed messages first (skip cancelled),
-        # reference reliable_sender.rs:187-199
+        # reference reliable_sender.rs:187-199; a live partition window
+        # holds the retransmit burst too (head-of-line, like writer_loop)
         self.pending = deque(
             (d, f) for d, f in self.pending if not f.cancelled()
         )
+        if self._faults is not None and self.pending:
+            while self._faults.barrier():
+                await default_clock().sleep(BARRIER_POLL_S)
         for data, _ in self.pending:
             # charged as a RETRANSMIT at the actual re-send instant —
             # never at enqueue time — so net_retx_bytes counts bytes
-            # that really crossed the link a second time
+            # that really crossed the healed link a second time
             if self._flows is not None:
                 self._flows.tx(self.address, data, retx=True)
             await send_frame(writer, data)
@@ -165,9 +189,7 @@ class _Connection:
                 self.pending.append((data, fut))
                 if at:
                     await LinkScheduler.wait_until(at)
-                if self._flows is not None:
-                    self._flows.tx(self.address, data)
-                await send_frame(writer, data)
+                await self._transmit(writer, data)
 
         def _resolve(fut, ack):
             if not fut.cancelled():
@@ -198,6 +220,33 @@ class _Connection:
         wtask = asyncio.ensure_future(writer_loop())
         rtask = asyncio.ensure_future(reader_loop())
         return await self._supervise(wtask, rtask)
+
+    async def _transmit(self, writer: asyncio.StreamWriter, data: bytes) -> None:
+        """Send one frame through the chaos plane (module docstring has
+        the reliable-link fault semantics)."""
+        faults = self._faults
+        if faults is None:
+            if self._flows is not None:
+                self._flows.tx(self.address, data)
+            await send_frame(writer, data)
+            return
+        while faults.barrier():
+            await default_clock().sleep(BARRIER_POLL_S)
+        decision = faults.decide()
+        if decision.drop:
+            # never written: never charged (accounted == bytes written)
+            raise FaultDisconnect(f"fault plane dropped frame to {self.address}")
+        if decision.delay_s:
+            await default_clock().sleep(decision.delay_s)
+        if decision.corrupt:
+            mangled = corrupt_frame(data)
+            if self._flows is not None:
+                self._flows.tx(self.address, mangled)
+            await send_frame(writer, mangled)
+            raise FaultDisconnect(f"fault plane corrupted frame to {self.address}")
+        if self._flows is not None:
+            self._flows.tx(self.address, data)
+        await send_frame(writer, data)
 
     @staticmethod
     async def _supervise(wtask: asyncio.Task, rtask: asyncio.Task) -> None:
@@ -238,17 +287,20 @@ class ReliableSender(BoundedPoolMixin):
     and the pool shrinks back as ACKs drain.  Pool machinery shared
     with SimpleSender (network/pool.py).
 
-    ``link_delay`` and ``flows`` as on ``SimpleSender``."""
+    ``link_delay``, ``fault_plane`` and ``flows`` as on
+    ``SimpleSender``."""
 
     def __init__(
         self,
         link_delay=None,
         max_conns: int | None = None,
+        fault_plane=None,
         flows=None,
     ):
         self._connections: dict[Address, _Connection] = {}
         self._link_delay = link_delay
         self._max_conns = max_conns
+        self._fault_plane = fault_plane
         self._flows = flows
         self._sweeper: asyncio.Task | None = None
 
@@ -257,7 +309,12 @@ class ReliableSender(BoundedPoolMixin):
         if conn is not None:
             return conn
         delay_fn = self._link_delay(address) if self._link_delay else None
-        conn = _Connection(address, delay_fn=delay_fn, flows=self._flows)
+        faults = (
+            self._fault_plane.link(address) if self._fault_plane else None
+        )
+        conn = _Connection(
+            address, delay_fn=delay_fn, faults=faults, flows=self._flows
+        )
         self._admit(address, conn)
         return conn
 

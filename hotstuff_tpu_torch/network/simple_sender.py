@@ -1,9 +1,9 @@
 """Best-effort sender with persistent per-peer connections.
 
-A copy of ``hotstuff_tpu.network.simple_sender`` without the fault
-plane: the WAN link scheduler (``link_delay=``, ``network/wan.py``) and
-flow accounting (``flows=``, ``telemetry/flows.py``) are the
-reference's.  Parity target:
+A copy of ``hotstuff_tpu.network.simple_sender``: the WAN link
+scheduler (``link_delay=``, ``network/wan.py``), the chaos plane
+(``fault_plane=``, ``faults/plane.py``) and flow accounting (``flows=``,
+``telemetry/flows.py``) are the reference's.  Parity target:
 reference ``SimpleSender`` (network/src/simple_sender.rs:22-143): one
 long-lived connection task per peer address holding a persistent TCP
 connection and a bounded queue (capacity 1000); sending is pushing onto
@@ -16,6 +16,7 @@ from __future__ import annotations
 import asyncio
 import logging
 
+from ..faults.plane import corrupt_frame
 from ..utils.clock import default_clock, default_connector, default_rng
 from .errors import classify
 from .framing import read_frame, send_frame, set_nodelay
@@ -37,11 +38,18 @@ class _Connection:
     writing — per-message propagation delay, pipelined (never a
     head-of-line rate limit).
 
+    ``faults`` (chaos plane, faults/plane.py): the per-link fault view;
+    each frame about to go out consults ``faults.decide()`` — dropped
+    frames are simply not written (best-effort semantics make that
+    exactly message loss), delays sleep inline, corruption flips a byte,
+    duplication writes the frame twice.
+
     ``flows`` (telemetry/flows.py): every frame written is charged to
     this link's tx flow at the write site."""
 
-    def __init__(self, address: Address, delay_fn=None, flows=None):
+    def __init__(self, address: Address, delay_fn=None, faults=None, flows=None):
         self.address = address
+        self._faults = faults
         self._flows = flows
         self.queue: asyncio.Queue = asyncio.Queue(maxsize=CHANNEL_CAPACITY)
         self._waiting = False  # parked on an empty queue (see idle)
@@ -112,11 +120,27 @@ class _Connection:
                 self._writer = None  # disconnected: back to retry state
 
     async def _transmit(self, writer: asyncio.StreamWriter, data: bytes) -> None:
-        # flow accounting charges at THIS site, so accounted bytes ==
-        # bytes written
+        # flow accounting charges at THIS site — after the fault
+        # decision — so dropped frames are never charged and duplicated
+        # ones are charged twice: accounted bytes == bytes written
+        if self._faults is None:
+            if self._flows is not None:
+                self._flows.tx(self.address, data)
+            await send_frame(writer, data)
+            return
+        decision = self._faults.decide()
+        if decision.drop:
+            return
+        if decision.delay_s:
+            await default_clock().sleep(decision.delay_s)
+        payload = corrupt_frame(data) if decision.corrupt else data
         if self._flows is not None:
-            self._flows.tx(self.address, data)
-        await send_frame(writer, data)
+            self._flows.tx(self.address, payload)
+        await send_frame(writer, payload)
+        if decision.duplicate:
+            if self._flows is not None:
+                self._flows.tx(self.address, payload)
+            await send_frame(writer, payload)
 
     @staticmethod
     async def _sink_acks(reader: asyncio.StreamReader) -> None:
@@ -141,6 +165,10 @@ class SimpleSender(BoundedPoolMixin):
     ``(address) -> (() -> float)`` returning the per-link delay sampler
     (None for an undelayed link).
 
+    ``fault_plane``: optional chaos plane (faults/plane.py) — each new
+    connection resolves its directed-link fault view once, mirroring
+    how ``link_delay`` resolves the WAN delay sampler.
+
     ``flows``: optional flow accountant (telemetry/flows.py): wire
     bytes charged at each link's write site, one logical charge per
     ``send``/``broadcast`` call.
@@ -160,11 +188,13 @@ class SimpleSender(BoundedPoolMixin):
         self,
         link_delay=None,
         max_conns: int | None = None,
+        fault_plane=None,
         flows=None,
     ):
         self._connections: dict[Address, _Connection] = {}
         self._link_delay = link_delay
         self._max_conns = max_conns
+        self._fault_plane = fault_plane
         self._flows = flows
         self._sweeper: asyncio.Task | None = None
 
@@ -173,7 +203,12 @@ class SimpleSender(BoundedPoolMixin):
         if conn is not None:
             return conn
         delay_fn = self._link_delay(address) if self._link_delay else None
-        conn = _Connection(address, delay_fn=delay_fn, flows=self._flows)
+        faults = (
+            self._fault_plane.link(address) if self._fault_plane else None
+        )
+        conn = _Connection(
+            address, delay_fn=delay_fn, faults=faults, flows=self._flows
+        )
         self._admit(address, conn)
         return conn
 

@@ -42,12 +42,22 @@ aggregate their certificates into the compact form, with the G1 sums on
 the card's kernels under ``--verifier cuda``.  ``run-many`` takes the
 scheme from its files, as in the JAX package.
 
-Flags of planes the port does not have yet — ``--fault-plane`` and
-``--adversary`` — are accepted by the parser and refused before boot
-with exit code 2.  So are ``run``,
-``run-many`` and ``deploy`` when an env knob would switch such a plane
-on (``HOTSTUFF_FAULTS`` or ``HOTSTUFF_ADVERSARY``;
-``consensus.unported_env_plane``).  ``HOTSTUFF_WAN_SPEC=<spec file>``
+``--fault-plane SPEC`` (a spec file or inline JSON; or
+``HOTSTUFF_FAULTS``) turns the chaos plane on for ``run``, ``run-many``
+and ``deploy`` on both transports (``faults/plane.py``; every node logs
+``Fault plane active: ...``; an unreadable spec raises at boot).  Write
+a spec over a committee file's addresses with ``faults.scenarios``::
+
+    c = read_committee("committee.json")
+    keys = c.sorted_keys()  # scenario index i: the i-th key, the leader order
+    spec = scenarios.split_brain(nodes=len(keys), seed=1, at=20.0, until=30.0)
+    spec["nodes"] = {"%s:%d" % c.address(k): i for i, k in enumerate(keys)}
+    spec["epoch_unix"] = time.time()  # the windows count from here: clear the boot
+
+The adversary plane is not ported: ``--adversary`` is accepted by the
+parser and refused before boot with exit code 2, and so are ``run``,
+``run-many`` and ``deploy`` when ``HOTSTUFF_ADVERSARY`` would switch it
+on (``consensus.unported_env_plane``).  ``HOTSTUFF_WAN_SPEC=<spec file>``
 (``network/wan.py`` ``build_spec``) delays every node-to-node link on
 the asyncio transport, as in the reference, and does nothing on the
 native one.
@@ -183,10 +193,7 @@ def _freeze_boot_objects():
 
 
 #: flags whose plane is not ported yet: (argparse dest, the flag)
-_UNPORTED_FLAGS = (
-    ("fault_plane", "--fault-plane"),
-    ("adversary", "--adversary"),
-)
+_UNPORTED_FLAGS = (("adversary", "--adversary"),)
 
 
 def _unported(args) -> str | None:
@@ -197,6 +204,16 @@ def _unported(args) -> str | None:
         if value is not None and value is not False:
             return flag
     return None
+
+
+def _apply_fault_plane(args) -> None:
+    """Activate the chaos plane when ``--fault-plane`` was given: the
+    flag value (a spec file path or inline JSON) lands in
+    HOTSTUFF_FAULTS, which Consensus.spawn reads at boot — exactly the
+    env-first pattern the WAN and journal knobs use."""
+    spec = getattr(args, "fault_plane", None)
+    if spec:
+        os.environ["HOTSTUFF_FAULTS"] = spec
 
 
 def _apply_health(args) -> None:
@@ -386,6 +403,7 @@ async def _fd_probe() -> None:
 
 async def _run_node(args) -> None:
     _apply_env_bridges(args)
+    _apply_fault_plane(args)
     _apply_health(args)
     _apply_mesh_devices(args)
     nodes: list[Node] = []
@@ -545,6 +563,7 @@ async def _run_many(args) -> None:
     cores than nodes this removes cross-process scheduling from the
     measured path: every actor shares one asyncio loop."""
     _apply_env_bridges(args)
+    _apply_fault_plane(args)
     _apply_health(args)
     _apply_mesh_devices(args)
     key_files = args.keys.split(",")
@@ -717,10 +736,16 @@ def _add_node_flags(p: argparse.ArgumentParser) -> None:
         "visible device, or the HOTSTUFF_MESH_DEVICES env knob; only "
         "meaningful with --verifier mesh/cuda-sharded)",
     )
-    # planes the port does not have yet: parsed, then refused
-    not_ported = "not ported yet: refused"
-    p.add_argument("--fault-plane", default=None, help=not_ported)
-    p.add_argument("--adversary", default=None, help=not_ported)
+    p.add_argument(
+        "--fault-plane",
+        default=None,
+        help="activate the chaos plane from this fault-spec file (or "
+        "inline JSON): seeded deterministic drop/delay/duplicate/corrupt "
+        "per directed peer pair on a scenario timeline (default: off, or "
+        "the HOTSTUFF_FAULTS env knob)",
+    )
+    # a plane the port does not have yet: parsed, then refused
+    p.add_argument("--adversary", default=None, help="not ported yet: refused")
 
 
 def main(argv=None) -> int:
@@ -840,6 +865,7 @@ def main(argv=None) -> int:
         return asyncio.run(_submit_reconfig(args))
     if args.command == "deploy":
         _apply_env_bridges(args)
+        _apply_fault_plane(args)
         _apply_health(args)
         _apply_mesh_devices(args)
         asyncio.run(

@@ -8,9 +8,12 @@ client, whose logs ``benchmark.logs.LogParser`` reads; ``deploy``; and
 a port node joining a committee of JAX nodes through a reconfiguration
 submitted with the port's ``reconfig`` command; the client's
 digest-only mode (``--size 0``) against a port committee; the env
-knobs of planes the port does not have (``HOTSTUFF_FAULTS``,
-``HOTSTUFF_ADVERSARY``) refused before boot by the CLI,
-``Consensus.spawn`` and ``run_committee``; and ``HOTSTUFF_WAN_SPEC``
+knob of the plane the port does not have (``HOTSTUFF_ADVERSARY``)
+refused before boot by the CLI, ``Consensus.spawn`` and
+``run_committee``; the chaos plane (``--fault-plane`` and
+``HOTSTUFF_FAULTS``) accepted by ``run``, ``run-many`` and ``deploy``
+and by ``Consensus.spawn``, and an unreadable spec raising at boot;
+and ``HOTSTUFF_WAN_SPEC``
 accepted by ``run``, ``run-many`` and ``deploy`` (the WAN model on
 asyncio, nothing on native) and by ``Consensus.spawn``.
 
@@ -27,6 +30,7 @@ import socket
 import stat
 import subprocess
 import sys
+import time
 from unittest import mock
 
 import pytest
@@ -62,9 +66,9 @@ def test_keys_writes_a_private_key_file_both_packages_read(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["run", "--fault-plane", "{}"],
     ["run", "--adversary", "{}"],
-    ["run", "--health", "--fault-plane", "{}"],
+    ["run-many", "--health", "--adversary", "{}"],
+    ["deploy", "--adversary", "{}"],
 ], ids=lambda argv: "-".join(a.strip("-") for a in argv[:2]))
 def test_unported_flags_are_refused_before_boot(tmp_path, capsys, argv):
     from hotstuff_tpu_torch.node.main import main
@@ -547,13 +551,14 @@ def test_client_at_size_0_runs_against_a_port_committee(tmp_path):
 
 
 ENV_PLANES = ("HOTSTUFF_FAULTS", "HOTSTUFF_ADVERSARY")
+REFUSED_ENV_PLANES = ("HOTSTUFF_ADVERSARY",)
 WAN = "HOTSTUFF_WAN_SPEC"
 RE_COMMITTED = re.compile(r"Committed block (\d+) ->")
 RE_REGION = re.compile(r"WAN emulation active: region (\S+)")
 
 
 @pytest.mark.parametrize("command", ["run", "run-many", "deploy"])
-@pytest.mark.parametrize("knob", ENV_PLANES)
+@pytest.mark.parametrize("knob", REFUSED_ENV_PLANES)
 def test_env_knobs_of_unported_planes_are_refused_before_boot(tmp_path, monkeypatch, capsys, knob, command):
     """A node started with a knob that switches on a plane the port does
     not have yet (as ``benchmark/chaos.py`` and ``benchmark/local.py``
@@ -581,7 +586,7 @@ def test_env_knobs_of_unported_planes_are_refused_before_boot(tmp_path, monkeypa
     ({}, "asyncio", None),
     ({"HOTSTUFF_FAULTS": ""}, "asyncio", None),
     ({"HOTSTUFF_ADVERSARY": ""}, "native", None),
-    ({"HOTSTUFF_FAULTS": "x"}, "native", "HOTSTUFF_FAULTS"),
+    ({"HOTSTUFF_FAULTS": "x"}, "native", None),
     ({"HOTSTUFF_ADVERSARY": "x"}, "native", "HOTSTUFF_ADVERSARY"),
     ({"HOTSTUFF_WAN_SPEC": "x"}, "asyncio", None),
     ({"HOTSTUFF_WAN_SPEC": "x"}, "native", None),
@@ -589,10 +594,11 @@ def test_env_knobs_of_unported_planes_are_refused_before_boot(tmp_path, monkeypa
     ({"HOTSTUFF_MESH_DEVICES": "2"}, "asyncio", None),
 ])
 def test_unported_env_plane_follows_the_references_conditions(monkeypatch, env, transport, want):
-    """The knobs are refused exactly where ``hotstuff_tpu.consensus``'s
-    ``Consensus.spawn`` would switch their plane on: a non-empty value,
-    on either transport.  The WAN spec's plane is ported, so it is
-    refused nowhere.  The mesh size is read only where the mesh verifier
+    """The adversary knob is refused exactly where
+    ``hotstuff_tpu.consensus``'s ``Consensus.spawn`` would switch its
+    plane on: a non-empty value, on either transport.  The chaos plane
+    and the WAN spec's plane are ported, so their knobs are refused
+    nowhere.  The mesh size is read only where the mesh verifier
     is built, so it is no plane's knob, as in the reference."""
     from hotstuff_tpu_torch.consensus.consensus import unported_env_plane
 
@@ -626,11 +632,16 @@ def test_wan_spec_on_the_native_transport_still_boots(tmp_path):
     assert "Traceback" not in log_text(tmp_path, 0)
 
 
-@pytest.mark.parametrize("knob", ENV_PLANES)
-def test_consensus_spawn_and_run_committee_raise_on_the_knobs(tmp_path, monkeypatch, knob):
+@pytest.mark.parametrize("knob, error, match", [
+    ("HOTSTUFF_FAULTS", FileNotFoundError, "spec.json"),
+    ("HOTSTUFF_ADVERSARY", NotImplementedError, "HOTSTUFF_ADVERSARY is set, but its plane is not ported yet"),
+], ids=lambda v: v if isinstance(v, str) and v.startswith("HOTSTUFF") else "")
+def test_consensus_spawn_and_run_committee_raise_on_the_knobs(tmp_path, monkeypatch, knob, error, match):
     """In-process committees cannot start quietly either:
-    ``Consensus.spawn`` raises before it builds anything, and so does
-    ``run_committee``."""
+    ``Consensus.spawn`` raises before it serves anything, and so does
+    ``run_committee``: on the adversary knob, whose plane is not ported,
+    and on a chaos spec that cannot be read (as the JAX package
+    raises)."""
     from hotstuff_tpu_torch.bench.committee import run_committee
 
     from .test_torch_core import PORT as S
@@ -638,12 +649,13 @@ def test_consensus_spawn_and_run_committee_raise_on_the_knobs(tmp_path, monkeypa
     for other in ENV_PLANES + (WAN,):
         monkeypatch.delenv(other, raising=False)
     monkeypatch.setenv(knob, "spec.json")
+    monkeypatch.chdir(tmp_path)  # where no spec.json is
 
     async def body():
         store = S.store.Store(str(tmp_path / "db"))
         name, secret = S.keys()[0]
         try:
-            with pytest.raises(NotImplementedError, match=f"{knob} is set, but its plane is not ported yet"):
+            with pytest.raises(error, match=match):
                 await S.consensus.Consensus.spawn(
                     name, S.committee(range(7000, 7004)), S.consensus.Parameters(),
                     S.crypto.SignatureService(secret), store, asyncio.Queue(),
@@ -652,7 +664,7 @@ def test_consensus_spawn_and_run_committee_raise_on_the_knobs(tmp_path, monkeypa
             store.close()
 
     asyncio.run(body())
-    with pytest.raises(NotImplementedError, match=knob):
+    with pytest.raises(error, match=match):
         run_committee(nodes=4, rate=10, duration=1, verifier="cpu")
 
 
@@ -760,3 +772,129 @@ def test_consensus_spawn_runs_with_a_wan_spec(tmp_path, monkeypatch, caplog):
     with open(os.environ[WAN]) as f:
         region = json.load(f)["regions"][f"{host}:{port}"]
     assert RE_REGION.findall(caplog.text) == [region]
+
+
+def _fault_spec(tmp_path, addresses) -> str:
+    """A split brain of the port's ``faults.scenarios`` over
+    ``addresses``, written as an operator writes one; its window opens
+    an hour after boot, so the nodes only load the plane."""
+    from hotstuff_tpu_torch.faults import scenarios
+
+    spec = scenarios.split_brain(nodes=len(addresses), seed=3, at=3_600.0, until=3_700.0)
+    spec["nodes"] = {f"{h}:{p}": i for i, (h, p) in enumerate(addresses)}
+    spec["epoch_unix"] = time.time()
+    path = tmp_path / "faults.json"
+    path.write_text(json.dumps(spec))
+    return str(path)
+
+
+RE_FAULT_PLANE = re.compile(r"Fault plane active: scenario 'split-brain' seed 3 \(node index (\d+), 2 link rules\)")
+
+
+@pytest.mark.parametrize("command, how", [
+    ("run", "flag"), ("run", "flag-health"), ("run", "env"),
+    ("run-many", "flag"), ("run-many", "env"),
+    ("deploy", "flag"), ("deploy", "env"),
+])
+def test_the_fault_plane_runs(tmp_path, command, how):
+    """``--fault-plane SPEC`` and ``HOTSTUFF_FAULTS=SPEC`` boot ``run``,
+    ``run-many`` and ``deploy`` (they exited 2 while the chaos plane was
+    not ported): every node logs ``Fault plane active`` with its index
+    in a spec written over the committee's addresses, and the command
+    stops cleanly on SIGTERM.  With ``--health`` and telemetry on, the
+    health monitors run beside the plane."""
+    log_path = tmp_path / "nodes.log"
+    log = open(log_path, "w")
+    proc = None
+    try:
+        if command == "deploy":
+            base = _free_run(4)
+            spec = _fault_spec(tmp_path, [("127.0.0.1", base + i) for i in range(4)])
+            argv = ["deploy", "--nodes", "4", "--base-port", str(base), "--verifier", "cpu"]
+            indices, done = [0, 1, 2, 3], "Deployed 4-node local testbed"
+        else:
+            committee = write_port_committee(tmp_path, timeout_delay=1_000, sync_retry_delay=1_000)
+            addresses = [committee.address(k) for k in committee.sorted_keys()]
+            spec = _fault_spec(tmp_path, addresses)
+            common = ["--verifier", "cpu", "--committee", str(tmp_path / "committee.json"),
+                      "--parameters", str(tmp_path / "parameters.json")]
+            if command == "run":
+                argv = ["run", "--keys", str(tmp_path / "key_0.json"), "--store", str(tmp_path / "db_0"),
+                        *common]
+                from hotstuff_tpu_torch.node.config import Secret
+
+                indices = [addresses.index(committee.address(Secret.read(str(tmp_path / "key_0.json")).name))]
+            else:
+                keys = ",".join(str(tmp_path / f"key_{i}.json") for i in range(4))
+                argv = ["run-many", "--keys", keys, "--store-prefix", str(tmp_path / "db_"), *common]
+                indices = [0, 1, 2, 3]
+            done = "successfully booted"
+        env = dict(ENV)
+        if how == "env":
+            env["HOTSTUFF_FAULTS"] = spec
+        else:
+            argv += ["--fault-plane", spec]
+        if how == "flag-health":
+            argv += ["--health", "--metrics-port", "0"]
+        proc = subprocess.Popen(CLI + ["-vv", *argv], stdout=log, stderr=subprocess.STDOUT, env=env,
+                                cwd=tmp_path)
+        assert wait_for(lambda: log_path.read_text().count(done) >= (1 if command == "deploy" else len(indices)),
+                        90)
+        assert proc.poll() is None
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        stop_all([proc])
+        log.close()
+    text = log_path.read_text()
+    assert "Traceback" not in text and "not ported yet" not in text
+    assert sorted(int(i) for i in RE_FAULT_PLANE.findall(text)) == sorted(indices)
+    if how == "flag-health":
+        assert "Health monitor running for node" in text
+
+
+def test_consensus_spawn_runs_with_a_fault_spec(tmp_path, monkeypatch, caplog):
+    """``Consensus.spawn`` with ``HOTSTUFF_FAULTS`` set boots the stack
+    with the plane on its receiver and its senders, spawns the
+    ``fault-clock`` task and logs the plane, as the JAX package's does."""
+    from hotstuff_tpu_torch.bench.committee import reserve_ports
+
+    from .test_torch_core import PORT as S
+
+    for other in ENV_PLANES + (WAN,):
+        monkeypatch.delenv(other, raising=False)
+    socks = reserve_ports(4)
+    ports = [sk.getsockname()[1] for sk in socks]
+    committee = S.committee(ports)
+    addresses = [committee.address(k) for k in committee.sorted_keys()]
+    monkeypatch.setenv("HOTSTUFF_FAULTS", _fault_spec(tmp_path, addresses))
+    seen = {}
+
+    async def body():
+        store = S.store.Store(str(tmp_path / "db"))
+        name, secret = S.keys()[0]
+        stack = None
+        try:
+            socks[0].close()
+            stack = await S.consensus.Consensus.spawn(
+                name, committee, S.consensus.Parameters(), S.crypto.SignatureService(secret), store,
+                asyncio.Queue(), bind_host="127.0.0.1",
+            )
+            plane = stack.receiver._faults
+            seen["plane"] = plane
+            seen["senders"] = [stack.core.network._fault_plane, stack.synchronizer.network._fault_plane,
+                               stack.helper.network._fault_plane, stack.proposer.network._fault_plane]
+            seen["tasks"] = [t.get_name() for t in stack._tasks]
+        finally:
+            if stack is not None:
+                await stack.shutdown()
+            store.close()
+            for sk in socks:
+                sk.close()
+
+    with caplog.at_level(logging.INFO, logger="hotstuff_tpu_torch.consensus.consensus"):
+        asyncio.run(body())
+    assert seen["plane"].self_id == addresses.index(committee.address(S.keys()[0][0]))
+    assert all(p is seen["plane"] for p in seen["senders"])
+    assert "fault-clock" in seen["tasks"]
+    assert RE_FAULT_PLANE.findall(caplog.text) == [str(seen["plane"].self_id)]

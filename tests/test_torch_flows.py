@@ -528,3 +528,40 @@ def test_mixed_committee_flows_sections_have_the_same_keys(tmp_path):
         assert {"propose", "vote"} <= set(flows["classes"])
     entry_keys = {frozenset(e) for d in port_docs + jax_docs for e in d["flows"]["classes"].values()}
     assert len(entry_keys) == 1
+
+
+def test_a_delta_state_matches_its_snapshot_while_the_ranked_peer_blocks_reorder():
+    """``chip_smoke.keys_mismatch``, the check of phase (i) that a
+    ``/delta`` state decoded after a ``/snapshot`` scrape is that
+    document: the two blocks ranked by flow bytes (``flows.peers`` and
+    ``net.peer``) may change members and grow between the scrapes, a
+    flows class, the ``metrics`` block and an empty histogram's
+    percentiles may appear; a key that vanishes, any other new key and
+    a ranked block that shrinks are reported."""
+    import chip_smoke
+
+    def doc(net_peers, flow_peers):
+        return {"n0": {
+            "net": {"peer": {p: {"queued": 0, "retrying": 0, "bytes": 10} for p in net_peers},
+                    "peers_elided": 2},
+            "flows": {"enabled": True, "classes": {"vote": {"tx_bytes": 1}},
+                      "peers": {p: {"tx_bytes": 1, "rx_bytes": 1} for p in flow_peers}},
+            "trace": {"payload_wait": {"count": 0}},
+            "round": 7,
+        }}
+
+    snap = phealth.flatten(doc(["a", "b"], ["a"]))
+    later = doc(["c", "a"], ["b", "c"])
+    later["n0"]["flows"]["classes"]["propose"] = {"tx_bytes": 5}
+    later["n0"]["trace"]["payload_wait"].update(count=1, p50_ms=3.0)
+    later["n0"]["metrics"] = {"x": 1}
+    assert chip_smoke.keys_mismatch(phealth.flatten(later), snap) == []
+
+    gone = doc(["a", "b"], ["a"])
+    del gone["n0"]["round"]
+    assert chip_smoke.keys_mismatch(phealth.flatten(gone), snap) == ["n0.round"]
+    new = doc(["a", "b"], ["a"])
+    new["n0"]["epoch"] = 1
+    assert chip_smoke.keys_mismatch(phealth.flatten(new), snap) == ["n0.epoch"]
+    shrunk = phealth.flatten(doc(["a"], ["a"]))
+    assert chip_smoke.keys_mismatch(shrunk, snap) == ["n0.net.peer. holds 1 peers, fewer than 2"]
