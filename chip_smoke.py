@@ -8,9 +8,11 @@ Drives ``hotstuff_tpu_torch`` at the repo's deployment size — a
 to 1024 — through the verifier backend a node calls, and checks every
 verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
 
-1. prints the card's name and power limit, builds the CUDA kernels and
-   prints each kernel's registers, stack frame and shared memory, and
-   each device function's size and commonest opcodes in SASS;
+1. prints the card's name and power limit, builds the CUDA kernels (and,
+   beside them, the port's g++ libraries, so that no node builds one on
+   its event loop at first use) and prints each kernel's registers,
+   stack frame and shared memory, and each device function's size and
+   commonest opcodes in SASS;
 2. ``BatchVerifier(min_device_batch=0)`` on ``cuda``: ``precompute`` of
    the 256 keys, ``warmup(256)``;
 3. the main path, with the launch counts set to 0 just before it and
@@ -185,7 +187,28 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    12 s): rounds commit through it, one digest a round, the pair
    consults the plane on its link both ways and nobody else drops a
    frame (logs in ``chiprun_out/flapping_phase/``);
-18. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
+18. (o) the adversary plane (``faults/adversary.py``): first a direct
+   check of the honest side's kernels (``adversary_kernel_check``): the
+   forged QCs that ``AdversaryPlane.forged_qc`` builds for a 64-member
+   committee (43 real authors, garbage signatures), three in one
+   ``verify_many`` on ``make_verifier("cuda")`` (the device route) and
+   each through ``QC.verify``, all rejected, K1's lanes on the same
+   claims equal to the plain version's and the oracle's, all false; the
+   forged compact QC on a 64-member BLS committee rejected, and its
+   signers' real votes on another block replayed for the forged digest,
+   rejected after B4 summed them on the card (the sum the host's).
+   Then ``adversary_phase``: (e) with ``--adversary <spec>``, the
+   reference scenarios' rules over four attackers (equivocate on the
+   leader of round 3, forge-qc, double-vote and withhold on the next
+   three leaders), equivocate, forge-qc and double-vote open from the
+   scenarios' t = 2 s, withhold's window opening 8 s after the boot (e)
+   measured and closing 6 s later: the four planes armed, every
+   attacker logs its policy firing, the 60 honest nodes hold one digest
+   a round and one root a version and committed no shadow digest,
+   rounds commit before the withhold window, inside it and after it, a
+   new one within the withhold scenario's 25 s of its close, K1 after
+   boot (logs in ``chiprun_out/adversary_phase/``);
+19. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
    G1 kernels (``gpu/csrc/g1_kernels.cu``) against their plain versions
    on the card and against the oracle (``crypto/bls/curve.py``), X, Y and
    Z as integers mod q, tolerance zero: the tree sum at B = 256 (171
@@ -215,7 +238,7 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    agree, compact QCs were emitted, and the running-sum kernel launched
    at least once for every vote those QCs summed (logs in
    ``chiprun_out/bls_phase/``);
-19. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
+20. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
    card (``default_mesh()``, one card here) and on four shards of card 0
    (``Mesh([cuda:0] * 4)``, the port's counterpart of XLA's forced host
    device count): (l1) ``ShardedBatchVerifier`` after ``precompute`` and
@@ -234,10 +257,11 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    --mesh-devices 1`` (logs in ``chiprun_out/mesh_phase/``): the checks
    of (e) and ``mesh=`` > 0 and equal to ``device=`` in the last stats
    line.  Prints a ``mesh {json}`` line;
-20. a ``{"kernels": [...]}`` line, then the last line
+21. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
-   over the main-path runs (3, (a)-(j), (m), (n) and (l) for the Ed25519 verify
-   kernel, (k2), (k3) and (l3) for the G1 kernels), each counted from 0.
+   over the main-path runs (3, (a)-(j), (m), (n), (o) and (l) for the Ed25519
+   verify kernel, (k2), (k3), (l3) and (o)'s direct check for the G1
+   kernels), each counted from 0.
    A row's ``ms`` is the mean of back-to-back launches between two CUDA
    events, the host's enqueue inside the window (``cuda_ms``), except
    B6's (``g1_running_add_kernel``): its launch is shorter than its
@@ -245,6 +269,10 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    (``covered_cuda_ms``), and its row also gives the back-to-back mean
    (``b2b_ms``) and an empty launch's time taken the same way as its
    ``ms`` (``floor_ms``).
+
+The phases run in the order (a)-(j), (m), (n1), (n2), (o), (k), (l);
+before each, the script prints its running total (host clock), and
+after each the phase's own time (``phase (x) took``).
 
 Phases (c), (e) and (g) print the wave service's routes (device, cpu and
 probe waves, ``ewma_ms``, the mean wave and the verify kernel's launches
@@ -261,6 +289,7 @@ printed.  Without a CUDA device it exits with 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import faulthandler
 import gc
@@ -2666,6 +2695,293 @@ def flapping_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, win
     return launches, r
 
 
+# ---- (o) the adversary plane -------------------------------------------------
+
+RE_ADVERSARY_ACTIVE = re.compile(r"Adversary plane active: scenario '([^']+)' seed (\d+) \(node index (\d+), "
+                                 r"policies \[([^\]]*)\]\)")
+RE_BYZ = re.compile(_TS + r" \[INFO\] hotstuff_tpu_torch\.consensus\.(?:core|proposer)\.(\S+) "
+                    r"byz (equivocate|forge-qc|double-vote|withhold)(?: vote)? round (\d+)(.*)")
+RE_NODE_COMMIT = re.compile(_TS + r" \[INFO\] hotstuff_tpu_torch\.consensus\.core\.(\S+) Committed block (\d+) -> (\S+)")
+ADV_SEED = 19
+ADV_LEAD_S = 8.0  # from (e)'s boot to the withhold window's open: the client starts, the first rounds commit
+ADV_WITHHOLD_S = 6.0  # the withhold window
+# the attackers' scenario indexes: the committee file's members at leader
+# positions ADV_FIRST, ADV_FIRST + 1, ...: the equivocator leads round
+# ADV_FIRST, one of the first rounds that carry the client's payloads
+ADV_FIRST = 3
+ADV_POLICIES = ("equivocate", "forge-qc", "double-vote", "withhold")
+
+
+def adversary_spec(tmp: str, committee, at: float, until: float, first: int = ADV_FIRST) -> tuple:
+    """The reference scenarios' rules over four distinct attackers:
+    ``byz_equivocate`` and ``byz_forge_qc`` as built (open from t = 2 s,
+    before any round), double-vote in the same rule form, and
+    ``byz_withhold`` over [``at``, ``until``]; scenario index i the
+    member at sorted-key (leader) position ``first + i`` (mod n), written
+    where ``--adversary`` reads it; returns (spec, path)."""
+    from hotstuff_tpu_torch.faults import scenarios
+
+    keys = committee.sorted_keys()
+    n = len(keys)
+    equivocate = scenarios.byz_equivocate(nodes=n, seed=ADV_SEED)
+    forge = scenarios.byz_forge_qc(nodes=n, seed=ADV_SEED)
+    double = {**equivocate["adversary"][0], "policy": "double-vote"}
+    withhold = scenarios.byz_withhold(nodes=n, seed=ADV_SEED, at=at, until=until)
+    rules = []
+    for index, rule in enumerate((equivocate["adversary"][0], forge["adversary"][0], double,
+                                  withhold["adversary"][0])):
+        rules.append({**rule, "node": index})
+    spec = {"name": "byz-mixed", "seed": ADV_SEED, "rules": [], "adversary": rules,
+            "liveness": withhold["liveness"],
+            "nodes": {"%s:%d" % committee.address(keys[(first + i) % n]): i for i in range(n)},
+            "epoch_unix": time.time()}
+    path = os.path.join(tmp, "adversary.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return spec, path
+
+
+def adversary_kernel_check(card: str, nodes: int = 64, torch_device=None) -> dict:
+    """(o)'s direct check of the kernels on the honest side: the forged
+    QCs that the port's ``AdversaryPlane.forged_qc`` builds for a
+    ``nodes``-member committee (quorum 43: real authors, garbage
+    signatures) through ``make_verifier("cuda")``, three of them in one
+    ``verify_many`` (129 claims, the device route) and each through
+    ``QC.verify``; then the same claims staged by a ``BatchVerifier``
+    and K1's lanes against the plain version's and the oracle's, all
+    false.  On a BLS committee of the same size, ``forged_compact_qc``
+    through ``QC.verify`` on ``make_verifier("cuda", "bls")`` (the key
+    sum and one pairing: no G1 kernel on that path), and the forged
+    certificate's 43 signers replayed, each with its real signature on
+    another block, as a vote list for the forged digest through
+    ``verify_shared_msg``, whose vote sum is B4's on the card: both
+    rejected, the sum equal to the host's.  Returns the launches through
+    the wrappers a node calls (the comparisons' launches apart)."""
+    from hotstuff_tpu_torch.consensus import Committee
+    from hotstuff_tpu_torch.consensus.errors import ConsensusError
+    from hotstuff_tpu_torch.crypto import Digest
+    from hotstuff_tpu_torch.crypto import ed25519_ref as ref
+    from hotstuff_tpu_torch.crypto.bls.curve import G1Point
+    from hotstuff_tpu_torch.crypto.scheme import keygen_deterministic, make_signing_service
+    from hotstuff_tpu_torch.faults import AdversaryPlane
+    from hotstuff_tpu_torch.gpu import bls as G
+    from hotstuff_tpu_torch.gpu import dsm
+    from hotstuff_tpu_torch.gpu.ed25519 import BatchVerifier, resolve_device
+    from hotstuff_tpu_torch.node.node import make_verifier
+
+    phase = "adversary kernel check"
+    on_card = resolve_device(torch_device).type == "cuda"  # a CPU rehearsal runs the plain versions
+    t0 = time.perf_counter()
+    seed = b"\x19" * 32
+    addr = lambda i: ("127.0.0.1", 7000 + i)  # noqa: E731
+    spec = {"seed": ADV_SEED, "nodes": {"%s:%d" % addr(i): i for i in range(nodes)},
+            "adversary": [{"policy": "forge-qc", "node": 1}]}
+    ed_keys = [keygen_deterministic("ed25519", seed, i) for i in range(nodes)]
+    committee = Committee.new([(pk, 1, addr(i)) for i, (pk, _) in enumerate(ed_keys)])
+    plane = AdversaryPlane(spec, addr(1))
+    forged = [plane.forged_qc(committee, r) for r in (7, 8, 9)]
+    quorum = committee.quorum_threshold()
+    check(all(len(qc.votes) == quorum for qc in forged), f"{phase}: a forged QC names {quorum} authors")
+    for qc in forged:
+        qc.check_weight(committee)  # a quorum by stake: only the signatures give it away
+    msgs, raw_pks, raw_sigs = [], [], []
+    for qc in forged:
+        for pk, sig in qc.votes:
+            msgs.append(qc.digest().to_bytes())
+            raw_pks.append(pk.to_bytes())
+            raw_sigs.append(sig.to_bytes())
+    verifier = make_verifier("cuda", device=torch_device)
+    verifier.precompute([pk.to_bytes() for pk, _ in ed_keys])
+    verifier.warmup(256)
+    dsm.reset_launches()
+    G.reset_launches()
+    verdicts = verifier.verify_many(msgs, raw_pks, raw_sigs)
+    k1_route = dsm.launches["verify_compressed"]
+    rejected = 0
+    for qc in forged:
+        try:
+            qc.verify(committee, verifier)
+        except ConsensusError:
+            rejected += 1
+    check(verifier.routes["device"] >= 1 and (k1_route > 0 or not on_card),
+          f"{phase}: {len(msgs)} forged claims took the device route (K1 launches {k1_route})")
+    check(not any(verdicts), f"{phase}: every forged claim is rejected through make_verifier('cuda')")
+    check(rejected == len(forged), f"{phase}: QC.verify rejects every forged QC ({rejected})")
+    # K1's lanes on the same claims against the plain version and the oracle
+    v = BatchVerifier(min_device_batch=0, device=torch_device)
+    v.precompute([pk.to_bytes() for pk, _ in ed_keys])
+    valid_host, arrays = v.prepare(msgs, raw_pks, raw_sigs)
+    ax, ay, az, at, s_win, k_win, r_y, r_sign = (a.clone() for a in arrays)
+    lanes = dsm.verify_compressed(s_win, k_win, (ax, ay, az, at), r_y, r_sign)
+    plain = dsm.plain_verify_compressed(s_win, k_win, (ax, ay, az, at), r_y, r_sign)
+    lanes_k = lanes.cpu().numpy()
+    oracle_v = [ref.verify(s, p, m) for m, p, s in zip(msgs, raw_pks, raw_sigs)]
+    err = int((lanes.int() - plain.int()).abs().max())
+    check(err == 0, f"{phase}: K1's lanes equal the plain version's ({len(lanes_k)} lanes)")
+    got = (lanes_k[:len(msgs)] & valid_host).tolist()
+    check(got == oracle_v and not any(got), f"{phase}: K1's lanes are the oracle's, all false")
+    # BLS: the forged compact QC, and its signers' real signatures replayed
+    bls_keys = [keygen_deterministic("bls", seed, i) for i in range(nodes)]
+    bls_committee = Committee.new([(pk, 1, addr(i)) for i, (pk, _) in enumerate(bls_keys)], scheme="bls")
+    compact = plane.forged_compact_qc(bls_committee, 7)
+    bls_verifier = make_verifier("cuda", "bls", device=torch_device)
+    bls_verifier.precompute([pk.to_bytes() for pk, _ in bls_keys])
+    b4_before = G.launches["g1_aggregate"]
+    try:
+        compact.verify(bls_committee, bls_verifier)
+        compact_rejected = False
+    except ConsensusError:
+        compact_rejected = True
+    b4_compact = G.launches["g1_aggregate"] - b4_before
+    check(compact_rejected, f"{phase}: QC.verify rejects the forged compact QC")
+    secrets = dict(bls_keys)
+    signers = compact.signer_keys(bls_committee)
+    other = Digest.of(b"a block the signers did vote for")
+    replay = [(pk, make_signing_service("bls", secrets[pk]).sign_sync(other)) for pk in signers]
+    accepted = bls_verifier.verify_shared_msg(compact.digest(), replay)
+    b4_replay = G.launches["g1_aggregate"] - b4_before - b4_compact
+    check(not accepted and (b4_replay > 0 or not on_card),
+          f"{phase}: the replayed signatures are rejected for the forged digest, summed by B4 "
+          f"({b4_replay} launches)")
+    check(bls_verifier.verify_shared_msg(other, replay), f"{phase}: ... and accepted for their own digest")
+    launches = {"k1": k1_route, "b4": G.launches["g1_aggregate"]}  # the comparison below apart
+    points = [G1Point.from_bytes(sig.to_bytes(), subgroup_check=False) for _, sig in replay]
+    device_sum = bls_verifier._dev_agg.aggregate(points)
+    check(device_sum == G1Point.sum(points), f"{phase}: B4's sum of the replayed votes is the host's")
+    wall = time.perf_counter() - t0
+    out = {"claims": len(msgs), "k1_route_launches": k1_route, "forged_rejected": rejected,
+           "host_invalid": int((~valid_host).sum()), "k1_vs_plain_err": err, "compact_rejected": compact_rejected,
+           "b4_on_compact_path": b4_compact, "b4_replay_launches": b4_replay, "wall_s": wall}
+    print(f"{phase}: {len(forged)} forged QCs of {quorum} authors ({len(msgs)} claims, "
+          f"{out['host_invalid']} refused by host decoding) rejected through make_verifier('cuda') on the "
+          f"device route ({k1_route} K1 launches) and by QC.verify; K1's lanes equal the plain version's and "
+          f"the oracle's, all false; the forged compact QC rejected ({b4_compact} B4 launches on its path: key "
+          f"sum and one pairing), its {len(signers)} signers' replayed votes rejected after B4 summed them "
+          f"({b4_replay} launches); {wall:.1f} s [{card}]")
+    print(f"{phase} result: " + json.dumps(out))
+    return launches
+
+
+def adversary_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, duration: float = 20,
+                    verifier: str = "cuda"):
+    """(o) (e)'s committee under the adversary plane: ``run-many
+    --adversary <spec>`` with the client's 1,000 tx/s of 512 B for
+    ``duration`` s, the spec ``adversary_spec``'s four attackers (the
+    equivocator the leader of round ``ADV_FIRST``; forge-qc, double-vote
+    and withhold the next three leaders), the withhold window opening
+    ``ADV_LEAD_S`` after the boot (e) measured and closing
+    ``ADV_WITHHOLD_S`` later.  Checks: the four planes armed with their
+    policies; every attacker logs its policy firing; the 60 honest nodes
+    hold one digest a committed round and one root a version, and none
+    committed a shadow digest (the equivocator's second block or the
+    double vote's); rounds commit before the withhold window, inside it
+    and after it, a new one within the withhold scenario's
+    ``liveness.resume_within_s`` of its close; K1 after boot and the
+    device waves in the last stats line; no traceback and a stop within
+    60 s of SIGTERM (``node_phase``).  Returns the verify kernel's
+    launches in the node process and what the logs say."""
+    import tempfile
+
+    from hotstuff_tpu_torch.node.config import read_committee
+
+    phase = "adversary phase"
+    at = base["boot_s"] + ADV_LEAD_S
+    until = at + ADV_WITHHOLD_S
+    first = ADV_FIRST
+    with tempfile.TemporaryDirectory(prefix="adversary-") as tmp, contextlib.ExitStack() as ports:
+        held: list = []
+        files = committee_files(tmp, nodes, phase, held=held)
+        for sock in held:
+            ports.enter_context(sock)
+        committee = read_committee(files[1])
+        spec, spec_path = adversary_spec(tmp, committee, at, until)
+        epoch, resume_within = spec["epoch_unix"], spec["liveness"]["resume_within_s"]
+        open_at, close_at = epoch + at, epoch + until
+        keys = committee.sorted_keys()
+        tags = {str(keys[(first + i) % nodes])[:8]: i for i in range(len(ADV_POLICIES))}
+
+        def during(node_log_path, client_log_path, client):
+            # the equivocator's turn, and a round after the withhold
+            # window, or the scenario's deadline
+            deadline = close_at + resume_within + 2.0
+            while time.time() < deadline:
+                with open(node_log_path) as f:
+                    seen = commits_at(f.read())
+                before = max((rnd for t, rnd in seen if t <= close_at), default=0)
+                if (any(rnd >= first + 2 for _, rnd in seen)
+                        and any(t > close_at and rnd > before for t, rnd in seen)):
+                    break
+                time.sleep(0.5)
+
+        launches, r = node_phase(card, nodes, rate, duration, verifier, label=phase, files=files,
+                                 extra_args=("--adversary", spec_path), during=during)
+    with open(os.path.join(ROOT, "chiprun_out", "adversary_phase", "nodes.log")) as f:
+        node_text = f.read()
+    armed = {int(i): p for name, seed, i, p in RE_ADVERSARY_ACTIVE.findall(node_text)
+             if name == "byz-mixed" and int(seed) == ADV_SEED}
+    check(armed == dict(enumerate(ADV_POLICIES)),
+          f"{phase}: the four attackers, and only they, log 'Adversary plane active' with their policy ({armed})")
+    fired = collections.defaultdict(list)
+    shadows = set()
+    for ts, tag, policy, rnd, rest in RE_BYZ.findall(node_text):
+        fired[(tags.get(tag), policy)].append(int(rnd))
+        if policy == "equivocate":
+            shadows.add(rest.split("|")[1].split()[0])
+        elif policy == "double-vote":
+            shadows.add(rest.split("-> ")[1].strip())
+    counts = {p: len(fired[(i, p)]) for i, p in enumerate(ADV_POLICIES)}
+    check(all(counts.values()), f"{phase}: every attacker logs its policy firing ({counts})")
+    check(sum(len(v) for v in fired.values()) == sum(counts.values()),
+          f"{phase}: no other node logs a firing")
+    by_round = collections.defaultdict(set)
+    honest_lines = 0
+    for ts, tag, rnd, digest in RE_NODE_COMMIT.findall(node_text):
+        if tag not in tags and int(rnd) > 0:
+            by_round[int(rnd)].add(digest)
+            honest_lines += 1
+    roots = collections.defaultdict(set)
+    for logger, version, root, _rnd in RE_STATE_ROOT.findall(node_text):
+        if logger.rsplit(".", 1)[-1] not in tags:
+            roots[int(version)].add(root)
+    check(honest_lines >= (nodes - len(tags)) * 5 and all(len(d) == 1 for d in by_round.values()),
+          f"{phase}: the {nodes - len(tags)} honest nodes hold one digest a committed round "
+          f"({len(by_round)} rounds, {honest_lines} lines)")
+    check(roots and all(len(rs) == 1 for rs in roots.values()),
+          f"{phase}: the honest nodes report one state root a version ({len(roots)} versions)")
+    committed = set().union(*by_round.values()) if by_round else set()
+    check(shadows and not shadows & committed,
+          f"{phase}: no honest node committed a shadow digest ({len(shadows)} shadow digests)")
+    seen = commits_at(node_text)
+    before = {rnd for t, rnd in seen if t <= open_at}
+    inside = {rnd for t, rnd in seen if open_at < t <= close_at}
+    last_before_close = max((rnd for t, rnd in seen if t <= close_at), default=0)
+    resumed = [(t, rnd) for t, rnd in seen if t > close_at and rnd > last_before_close]
+    resume_s = resumed[0][0] - close_at if resumed else None
+    check(bool(before) and bool(inside) and bool(resumed),
+          f"{phase}: rounds commit before the withhold window ({len(before)}), inside it ({len(inside)}) "
+          f"and after it ({len(resumed)} commit lines)")
+    check(resume_s is not None and resume_s <= resume_within,
+          f"{phase}: a new round commits within {resume_within} s of the withhold window's close ({resume_s})")
+    check(verifier == "cpu" or (r["launches_after_boot"] > 0 and r["stats"] is not None),
+          f"{phase}: the verify kernel launched after boot, and the last stats line shows the device waves")
+    withheld = sorted(set(fired[(3, "withhold")]))
+    out = {"at_s": at, "until_s": until, "equivocator_leads": first, "firings": counts,
+           "equivocated_rounds": sorted(set(fired[(0, "equivocate")])),
+           "withheld_rounds": [withheld[0], withheld[-1]], "rounds_before": len(before),
+           "rounds_in_withhold": len(inside), "rounds_after": len({rnd for t, rnd in seen if t > close_at}),
+           "resume_s": resume_s, "shadow_digests": len(shadows), "honest_rounds": len(by_round),
+           "timeouts": r["timeouts"]}
+    r.update(adversary=out)
+    print(f"{phase}: withhold's window {at:.2f}-{until:.2f} s after the spec's t=0 (the others open at "
+          f"{spec['adversary'][0]['at']} s); the equivocator leads round {first} mod {nodes}; firings {counts}; "
+          f"{len(before)} rounds before the withhold window, {len(inside)} inside it, {out['rounds_after']} "
+          f"after it, the first new one "
+          f"{resume_s} s after the close; {len(shadows)} shadow digests, none committed; {r['timeouts']} "
+          f"timeouts; (e) committed {base['committed_rounds']} rounds in 20 s [{card}]")
+    print(f"{phase} result: " + json.dumps(out))
+    return launches, r
+
+
 # ---- (k) BLS at BASELINE config 5's size ------------------------------------
 
 G1_B4_SHAPES = ((171, 256), (171, 512), (1024, 1024))  # (points, B); 171 -> 512 is the aggregator's pad
@@ -3435,8 +3751,18 @@ def mesh_phase(card: str, claims, single, torch_device=None, waves: int = MESH_W
     return out
 
 
+def running_total(t_start: float, phase: str) -> float:
+    """Print the script's wall time so far, before ``phase`` starts, and
+    return the phase's start."""
+    now = time.perf_counter()
+    print(f"running total before phase {phase}: {now - t_start:.1f} s (host clock)")
+    return now
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3453,13 +3779,21 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    # 1. build: one nvcc a kernel source, all started together
+    # 1. build: one nvcc a kernel source, all started together, and the
+    #    port's native libraries (g++) beside them, so that no node
+    #    compiles one on its event loop at its first use of it
+    from hotstuff_tpu_torch import _native_build
+
     t0 = time.perf_counter()
-    _build.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native = pool.submit(lambda: [_native_build.build(name) for name in _native_build.LIBRARIES])
+        _build.build_all()
+        native_libs = native.result()
     _build.load("dsm")
     _build.load("g1")
     print(f"kernels built/loaded in {time.perf_counter() - t0:.1f} s: "
-          + ", ".join(_build.library_path(name).name for name in _build.LIBRARIES))
+          + ", ".join(_build.library_path(name).name for name in _build.LIBRARIES)
+          + "; native libraries: " + ", ".join(path.name for path in native_libs))
     for name in _build.LIBRARIES:
         report = _build.library_path(name).with_suffix(".ptxas.txt")
         if report.exists():
@@ -3617,55 +3951,59 @@ def main() -> int:
 
     # 7. (a) the view-change storm, 8. (b) coalesced waves, 9. (c) the
     #    committee: each its own main-path run, counted from 0
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(a)")
     storm_launches = storm_phase(card)
     print(f"phase (a) took {time.perf_counter() - t0:.1f} s")
     check(storm_launches > 0, "the storm never launched the verify kernel")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(b)")
     wave_launches = coalesced_phase(card)
     print(f"phase (b) took {time.perf_counter() - t0:.1f} s")
     check(wave_launches > 0, "the coalesced waves never launched the verify kernel")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(c)")
     committee_launches = committee_phase(card)
     print(f"phase (c) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(d)")
     restart_launches = restart_phase(card)
     print(f"phase (d) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(e)")
     node_launches, node_r = node_phase(card)
     print(f"phase (e) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(f)")
     ingest_launches = ingest_phase(card)
     print(f"phase (f) took {time.perf_counter() - t0:.1f} s")
     check(ingest_launches > 0, "the ingest phase never launched the verify kernel")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(g)")
     native_launches, native_r = node_phase(card, transport="native")
     print(f"phase (g) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(h)")
     bench_launches = verifier_phase(card, claims)
     print(f"phase (h) took {time.perf_counter() - t0:.1f} s")
     check(bench_launches > 0, "the verifier bench never launched the verify kernel")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(i)")
     telemetry_launches, telemetry_r = telemetry_phase(card)
     print(f"phase (i) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(j)")
     health_launches, health_r = health_phase(card)
     print(f"phase (j) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(m)")
     wan_launches, wan_r = wan_phase(card, node_r, telemetry_r["flows"]["classes"])
     print(f"phase (m) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(n1)")
     split_launches, split_r = split_brain_phase(card, node_r)
     print(f"phase (n1) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(n2)")
     flap_launches, flap_r = flapping_phase(card, native_r)
     print(f"phase (n2) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(o)")
+    adv_kernels = adversary_kernel_check(card)
+    adv_launches, adv_r = adversary_phase(card, node_r)
+    print(f"phase (o) took {time.perf_counter() - t0:.1f} s")
+    t0 = running_total(t_start, "(k)")
     g1, g1_launches, bls_r = bls_phase(card)
     print(f"phase (k) took {time.perf_counter() - t0:.1f} s")
     for name, count in g1_launches.items():
         check(count > 0, f"(k) the main path never launched {name}")
-    t0 = time.perf_counter()
+    t0 = running_total(t_start, "(l)")
     mesh = mesh_phase(card, claims, v)
     print(f"phase (l) took {time.perf_counter() - t0:.1f} s")
     check(mesh["k1_launches"] > 0 and mesh["b4_launches"] > 0, "(l) the mesh never launched K1 and B4")
@@ -3682,7 +4020,7 @@ def main() -> int:
           f"{telemetry_r['committed_rounds'] / max(node_r['committed_rounds'], 1):.3f} [{card}]")
     for label, r in (("(e) asyncio", node_r), ("(g) native", native_r), ("(i) telemetry", telemetry_r),
                      ("(j1) health", health_r), ("(m) wan", wan_r), ("(n1) split brain", split_r),
-                     ("(n2) flapping link", flap_r)):
+                     ("(n2) flapping link", flap_r), ("(o) adversary", adv_r)):
         print(f"node CLI {label}: " + ", ".join(f"{k} {r[k]}" for k in keys) + f", stats {r['stats']} [{card}]")
 
     B = WAVE
@@ -3697,7 +4035,8 @@ def main() -> int:
                          + committee_launches + restart_launches + node_launches
                          + ingest_launches + native_launches + bench_launches
                          + telemetry_launches + health_launches + wan_launches
-                         + split_launches + flap_launches + mesh["k1_launches"]),
+                         + split_launches + flap_launches + adv_launches + adv_kernels["k1"]
+                         + mesh["k1_launches"]),
             "max_abs_err": errs["verify"],
             "ms": times[B][0],
             "plain_ms": times[B][1],
@@ -3727,7 +4066,7 @@ def main() -> int:
             "route": "cuda",
             "source": "hotstuff_tpu_torch/gpu/csrc/g1_kernels.cu",
             "replaces": "hotstuff_tpu/tpu/bls.py:255",
-            "launches": g1_launches["g1_aggregate"] + mesh["b4_launches"],
+            "launches": g1_launches["g1_aggregate"] + mesh["b4_launches"] + adv_kernels["b4"],
             "max_abs_err": b4["b4"]["err"],
             "ms": b4_main["ms"],
             "plain_ms": b4_main["plain_ms"],
@@ -3764,6 +4103,7 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    print(f"script wall time {time.perf_counter() - t_start:.1f} s (host clock) [{card}]")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -11,7 +11,9 @@ unset) from sources of ``native/``, with the flags of
 - ``ed25519``: ``ed25519_batch.cpp``, the batch equation
   (``hs_ed25519_*``), with ``-O3``, as ``libhs_ed25519.so``;
 - ``store``: ``store_engine.cpp``, the C++ WAL engine (``hs_*``), as
-  ``libhs_store.so``;
+  ``libhs_store.so``, compiled through the port's
+  ``store/csrc/store_batch.cpp``, which includes it unchanged and adds
+  ``hs_put_many`` (many records, one write);
 - ``bls``: ``bls_pairing.cpp`` (with its header ``bls_constants.h``), the
   BLS12-381 pairing verifier (``hs_bls_*``), with ``-O3``, as
   ``libhs_bls.so``.
@@ -44,6 +46,7 @@ from typing import Callable, NamedTuple
 
 ROOT = Path(__file__).resolve().parents[1]
 NATIVE_DIR = ROOT / "native"
+PORT_DIR = ROOT / "hotstuff_tpu_torch"
 BUILD_DIR = ROOT / "build" / "torch_native"
 # native/Makefile's CXXFLAGS
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra")
@@ -52,13 +55,16 @@ CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra")
 class Library(NamedTuple):
     """One Makefile rule: its sources, its own compile flags, its link
     flags, the function that declares its ctypes signatures and the
-    headers its sources include (hashed, not compiled)."""
+    headers its sources include (hashed, not compiled), all of
+    ``native/``; and the port's own sources (of ``hotstuff_tpu_torch/``,
+    compiled with ``native/`` on the include path)."""
 
     sources: tuple[str, ...]
     flags: tuple[str, ...]
     link_flags: tuple[str, ...]
     bind: Callable[[ctypes.CDLL], ctypes.CDLL]
     headers: tuple[str, ...] = ()
+    port_sources: tuple[str, ...] = ()
 
 
 def _bind_transport(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -156,6 +162,8 @@ def _bind_store(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hs_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
     lib.hs_close.restype = None
     lib.hs_close.argtypes = [vp]
+    lib.hs_put_many.restype = ci
+    lib.hs_put_many.argtypes = [vp, cp, ctypes.c_uint64]
     return lib
 
 
@@ -183,7 +191,10 @@ LIBRARIES: dict[str, Library] = {
         ("transport.cpp", "wave_pack.cpp"), (), ("-lpthread",), _bind_transport
     ),
     "ed25519": Library(("ed25519_batch.cpp",), ("-O3",), (), _bind_ed25519),
-    "store": Library(("store_engine.cpp",), (), (), _bind_store),
+    # the port's translation unit includes native/store_engine.cpp whole
+    "store": Library(
+        (), (), (), _bind_store, ("store_engine.cpp",), ("store/csrc/store_batch.cpp",)
+    ),
     "bls": Library(
         ("bls_pairing.cpp",), ("-O3",), (), _bind_bls, ("bls_constants.h",)
     ),
@@ -204,6 +215,9 @@ def source_hash(name: str) -> str:
     for source in lib.sources + lib.headers:
         h.update(source.encode())
         h.update((NATIVE_DIR / source).read_bytes())
+    for source in lib.port_sources:
+        h.update(source.encode())
+        h.update((PORT_DIR / source).read_bytes())
     h.update(" ".join(_command_flags(lib) + lib.link_flags).encode())
     return h.hexdigest()[:16]
 
@@ -226,7 +240,10 @@ def build(name: str) -> Path:
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
         cxx = os.environ.get("CXX", "g++")
         cmd = [cxx, *_command_flags(lib), "-o", str(tmp)]
+        if lib.port_sources:
+            cmd += ["-I", str(NATIVE_DIR)]
         cmd += [str(NATIVE_DIR / s) for s in lib.sources]
+        cmd += [str(PORT_DIR / s) for s in lib.port_sources]
         cmd += lib.link_flags
         try:
             proc = subprocess.run(

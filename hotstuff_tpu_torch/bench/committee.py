@@ -39,7 +39,18 @@ WAN delays (a ``network/wan.build_spec`` over the committee's addresses,
 handed to every ``Consensus.spawn`` through ``HOTSTUFF_WAN_SPEC``, as
 the node CLI's environment does); with ``telemetry=True`` every stack
 gets its node's telemetry handle, flow accounting included, as a node
-started with ``--metrics-port`` does.
+started with ``--metrics-port`` does, and with ``journal_dir`` each also
+writes its flight-recorder journal there, as ``--journal-dir`` does.
+
+With ``adversary`` (a spec of ``faults/adversary.py`` whose rules name
+node indexes ``0..nodes-1``, the order of the run's keys) the named
+nodes attack: the spec gets the committee's addresses and the boot's
+wall time, and reaches every ``Consensus.spawn`` through
+``HOTSTUFF_ADVERSARY``, as the node CLI's ``--adversary`` does:
+
+    result = run_committee(nodes=4, rate=200, duration=8, verifier="cpu",
+                           adversary={"seed": 3, "adversary": [
+                               {"policy": "withhold", "node": 0}]})
 """
 
 from __future__ import annotations
@@ -88,6 +99,7 @@ LEDGER_READS = 200
 #: the core's log lines a committee run reads (its log contract)
 RE_STATE_ROOT = re.compile(r"State root (\d+) -> (\S+) \(round (\d+)\)$")
 RE_CURSOR = re.compile(r"State sync advanced commit cursor (\d+) -> (\d+) ")
+RE_COMMITTED = re.compile(r"Committed block (\d+) -> (\S+)$")
 
 
 def reserve_ports(n: int, host: str = "127.0.0.1") -> list[socket.socket]:
@@ -166,14 +178,20 @@ class _NodeLogs(logging.Handler):
     ``State root`` line into ``roots[i]`` as ``{version: (root_hex,
     round)}`` (a node that reports another root for a version it
     reported before is listed in ``conflicts``), and each ``State sync
-    advanced commit cursor`` line into ``cursors[i]``.  The line is
-    parsed as logged, which holds the core to its log contract; the full
-    root comes from the record's argument, whose display is what the
-    line shows."""
+    advanced commit cursor`` line into ``cursors[i]``, and with
+    ``commits=True`` each ``Committed block`` line into ``reported[i]``
+    as ``(round, digest)``: the chain a node reports, which is not the
+    chain it holds when it is a colluder's shadow committer.  The line
+    is parsed as logged, which holds the core to its log contract; the
+    full root comes from the record's argument, whose display is what
+    the line shows."""
 
-    def __init__(self, names):
+    def __init__(self, names, commits: bool = False):
         super().__init__(logging.INFO)
         self.roots: list[dict] = [{} for _ in names]
+        self.reported: list[list] | None = (
+            [[] for _ in names] if commits else None
+        )
         self.conflicts: list = []
         self.cursors: dict = {}
         self._index: dict[str, int] = {}
@@ -206,6 +224,11 @@ class _NodeLogs(logging.Handler):
         m = RE_CURSOR.match(msg)
         if m is not None:
             self.cursors[i] = (int(m[1]), int(m[2]))
+            return
+        if self.reported is not None:
+            m = RE_COMMITTED.match(msg)
+            if m is not None:
+                self.reported[i].append((int(m[1]), m[2]))
 
     def close(self) -> None:
         for logger, level in self._loggers:
@@ -300,6 +323,7 @@ async def _drained(service, limit_s: float = 10.0) -> None:
 async def _committee(
     nodes, rate, duration, size, verifier, device, timeout_delay, sync_retry_delay,
     seed, restart, transport, scheme="ed25519", wan=False, telemetry=False,
+    adversary=None, journal_dir=None,
 ) -> dict:
     loop = asyncio.get_running_loop()
     t_boot = time.perf_counter()
@@ -323,6 +347,8 @@ async def _committee(
     outage = None
     result: dict = {}
     wan_before = os.environ.get("HOTSTUFF_WAN_SPEC")
+    adversary_before = os.environ.get("HOTSTUFF_ADVERSARY")
+    journals: list = []
     try:
         if set_cap:
             os.environ["HOTSTUFF_MAX_PEER_CONNS"] = cap
@@ -355,14 +381,32 @@ async def _committee(
             wan_regions = dict(
                 collections.Counter(spec["regions"].values())
             )
+        if adversary is not None:
+            spec = dict(adversary)
+            spec.setdefault(
+                "nodes",
+                {"%s:%d" % committee.address(pk): i for i, (pk, _) in enumerate(keys)},
+            )
+            spec.setdefault("epoch_unix", time.time())
+            spec_path = os.path.join(tmp.name, "adversary.json")
+            with open(spec_path, "w") as f:
+                json.dump(spec, f)
+            os.environ["HOTSTUFF_ADVERSARY"] = spec_path
         tels = None
-        if telemetry:
+        if telemetry or journal_dir is not None:
             from .. import telemetry as telemetry_module
 
             telemetry_module.enable()
             tels = [
                 telemetry_module.for_node(str(pk)[:8]) for pk, _ in keys
             ]
+            if journal_dir is not None:
+                from ..telemetry.journal import Journal
+
+                os.makedirs(journal_dir, exist_ok=True)
+                for tel in tels:
+                    journals.append(Journal(tel.node, journal_dir))
+                    tel.attach_journal(journals[-1])
         backend = make_verifier(verifier, scheme, device=device)
         backend.precompute([pk.to_bytes() for pk in committee.authorities])
         service = AsyncVerifyService.for_backend(backend)
@@ -381,7 +425,7 @@ async def _committee(
             launches = dsm.launches
 
         sync: dict = {}
-        logs = _NodeLogs([pk for pk, _ in keys])
+        logs = _NodeLogs([pk for pk, _ in keys], commits=adversary is not None)
         params = Parameters(
             timeout_delay=timeout_delay, sync_retry_delay=sync_retry_delay
         )
@@ -572,7 +616,22 @@ async def _committee(
             "ledger_reads": None,
             "wan_regions": wan_regions,
             "snapshots": snapshots,
+            "adversary": None,
         }
+        if adversary is not None:
+            index = {pk: i for i, (pk, _) in enumerate(keys)}
+            planes = {}
+            for i, stack in enumerate(stacks):
+                if stack is not None and stack.core.adversary is not None:
+                    planes[i] = stack.core.adversary.stats()
+            result["adversary"] = {
+                # node index -> its plane's stats (attacking nodes only)
+                "planes": planes,
+                "vote_conflicts": [s.core.aggregator.vote_conflicts for s in stacks],
+                "reported_chains": logs.reported,
+                # round r's leader is node leader_order[r % nodes]
+                "leader_order": [index[pk] for pk in committee.sorted_keys()],
+            }
         if restart is not None:
             k = sync["node"]
             result["state_sync"] = _sync_report(
@@ -634,6 +693,8 @@ async def _committee(
             service.close()
         if logs is not None:
             logs.close()
+        for journal in journals:
+            journal.close()
         if undo_gc is not None:
             undo_gc()
         if set_cap:
@@ -642,6 +703,11 @@ async def _committee(
             os.environ.pop("HOTSTUFF_WAN_SPEC", None)
         else:
             os.environ["HOTSTUFF_WAN_SPEC"] = wan_before
+        if adversary is not None:
+            if adversary_before is None:
+                os.environ.pop("HOTSTUFF_ADVERSARY", None)
+            else:
+                os.environ["HOTSTUFF_ADVERSARY"] = adversary_before
         tmp.cleanup()
         result["shutdown_s"] = time.perf_counter() - t_shut
     return result
@@ -696,6 +762,8 @@ def run_committee(
     scheme: str = "ed25519",
     wan: bool = False,
     telemetry: bool = False,
+    adversary: dict | None = None,
+    journal_dir: str | None = None,
 ) -> dict:
     """Boot ``nodes`` co-located consensus stacks of a ``scheme``
     committee (``"bls"``: BLS12-381 keys with their proofs of possession,
@@ -763,10 +831,24 @@ def run_committee(
     (``telemetry.enable()``, as ``--metrics-port`` does) and spawns every
     stack with ``telemetry.for_node``; ``snapshots`` holds each node's
     snapshot document taken at the end of the load window.
+    ``journal_dir``: telemetry on, and every node journals into that
+    directory (flushed at the end of the run).
+
+    ``adversary``: a spec of ``faults/adversary.py`` whose rules name
+    node indexes (its ``nodes`` map and ``epoch_unix`` are filled in from
+    the committee and the boot when absent), handed to every stack
+    through ``HOTSTUFF_ADVERSARY``; ``adversary`` in the result then
+    holds ``planes`` (node index -> ``stats()`` of each attacking node's
+    plane), ``vote_conflicts`` (each node's aggregator's count of second
+    votes), ``reported_chains`` (each node's ``Committed block`` lines
+    as ``(round, digest)``, which a shadow committer reports apart from
+    its ``chains``) and ``leader_order`` (round r's leader is node
+    ``leader_order[r % nodes]``).
     """
     return asyncio.run(
         _committee(
             nodes, rate, duration, size, verifier, device, timeout_delay,
             sync_retry_delay, seed, restart, transport, scheme, wan, telemetry,
+            adversary, journal_dir,
         )
     )

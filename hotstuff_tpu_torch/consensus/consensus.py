@@ -26,12 +26,14 @@ asyncio transport, ``network/wan.py``), the chaos plane
 (``HOTSTUFF_FAULTS`` on both transports, ``faults/plane.py``: every
 sender and the receiver get the plane, a ``fault-clock`` task walks its
 windows, and with telemetry on the ``fault_*`` gauges and the
-``fault_plane`` snapshot section) and wire-level flow accounting
-(on with telemetry unless ``HOTSTUFF_NET=0``, ``telemetry/flows.py``).
-Not ported, so cut: the adversary plane and the sim transport.  Where
-the reference's ``spawn`` would switch the adversary plane on from the
-environment (``HOTSTUFF_ADVERSARY``), this ``spawn`` raises instead of
-running without it (:func:`unported_env_plane`).
+``fault_plane`` snapshot section), the adversary plane
+(``HOTSTUFF_ADVERSARY`` on both transports, ``faults/adversary.py``: the
+core, the proposer and the state-sync server get the plane of a node the
+spec names, an ``adversary-clock`` task walks its windows, with telemetry
+on the ``byz_*`` gauges and the ``adversary`` snapshot section) and
+wire-level flow accounting (on with telemetry unless ``HOTSTUFF_NET=0``,
+``telemetry/flows.py``).
+Not ported, so cut: the sim transport.
 """
 
 from __future__ import annotations
@@ -80,20 +82,6 @@ from .wire import (
 log = logging.getLogger(__name__)
 
 CHANNEL_CAPACITY = 1_000
-
-#: env knobs whose plane the reference's ``Consensus.spawn`` switches on
-#: from the environment and the port has not ported yet
-_UNPORTED_ENV_PLANES = ("HOTSTUFF_ADVERSARY",)
-
-
-def unported_env_plane(transport: str = "asyncio") -> str | None:
-    """The env knob that would switch on a plane the port does not have
-    yet, under exactly the reference's conditions (a non-empty value, on
-    either transport); None when no such knob is set."""
-    for knob in _UNPORTED_ENV_PLANES:
-        if os.environ.get(knob):
-            return knob
-    return None
 
 
 PAYLOAD_KEY_PREFIX = b"p"  # store namespace for payload bodies
@@ -522,16 +510,10 @@ class Consensus:
         """Spawn one node's stack.  ``transport`` is ``"asyncio"`` or
         ``"native"`` (the C++ reactor of ``network/native.py``: a
         library that cannot build raises here, never a quiet fall back
-        to asyncio); the simulator's ``"sim"`` is not ported.  Raises
-        when an env knob of a plane the port does not have is set."""
+        to asyncio); the simulator's ``"sim"`` is not ported."""
         if transport not in ("asyncio", "native"):
             raise NotImplementedError(
                 f"the '{transport}' transport is not ported yet"
-            )
-        knob = unported_env_plane(transport)
-        if knob is not None:
-            raise NotImplementedError(
-                f"{knob} is set, but its plane is not ported yet"
             )
         self = cls()
         # NOTE: this log entry is used to compute performance.
@@ -675,6 +657,23 @@ class Consensus:
             fault_plane = FaultPlane.load(faults_spec, address)
             log.info("Fault plane active: %s", fault_plane.describe())
 
+        # Byzantine adversary plane (HOTSTUFF_ADVERSARY, faults/
+        # adversary.py): protocol-level attack injection at the
+        # proposer/core seams.  The spec is shared committee-wide (the
+        # chaos runner points it at the same file as HOTSTUFF_FAULTS);
+        # the plane stays inert unless it names this node.  An
+        # unreadable spec raises here.
+        adversary = None
+        adversary_spec = os.environ.get("HOTSTUFF_ADVERSARY")
+        if adversary_spec:
+            from ..faults import AdversaryPlane
+
+            plane = AdversaryPlane.load(adversary_spec, address)
+            if plane.enabled:
+                adversary = plane
+                adversary.bind(committee, name)
+                log.info("Adversary plane active: %s", adversary.describe())
+
         # Wire-level flow accounting (telemetry/flows.py): one
         # accountant per node, threaded through every sender and the
         # receiver — each frame charged to a (peer, direction, class)
@@ -788,6 +787,49 @@ class Consensus:
                     )
                 telemetry.add_section("fault_plane", fault_plane.stats)
 
+        if adversary is not None:
+            from ..faults import run_adversary_clock, run_flood
+
+            journal = telemetry.journal if telemetry is not None else None
+            adversary.journal = journal
+            loop = asyncio.get_running_loop()
+            self._tasks.append(
+                loop.create_task(
+                    run_adversary_clock(adversary, journal),
+                    name="adversary-clock",
+                )
+            )
+            if any(r.policy == "flood" for r in adversary.my_rules):
+                self._tasks.append(
+                    loop.create_task(
+                        run_flood(adversary, committee, name),
+                        name="adversary-flood",
+                    )
+                )
+            if telemetry is not None:
+                for count_name, help_text in (
+                    ("byz_equivocations", "Conflicting blocks signed"),
+                    ("byz_forged_qcs", "Forged QCs shipped"),
+                    ("byz_votes_withheld", "Votes withheld"),
+                    ("byz_double_votes", "Conflicting votes cast"),
+                    ("byz_floods", "Garbage bursts sent"),
+                    ("byz_shadow_commits", "Shadow-branch commits logged"),
+                    ("byz_forged_reconfigs", "Forged reconfig ops proposed"),
+                    ("byz_shadow_epochs", "Skewed epoch activations logged"),
+                    ("byz_flood_accepted", "Flood payloads the victim admitted"),
+                    ("byz_flood_shed", "Flood payloads the victim shed"),
+                    ("byz_adapt_ambush", "ambush-leader trigger firings"),
+                    ("byz_adapt_sync", "sync-predator trigger firings"),
+                    ("byz_adapt_surf", "timeout-surfer trigger firings"),
+                    ("byz_adapt_snipe", "reconfig-sniper trigger firings"),
+                ):
+                    telemetry.gauge(
+                        count_name,
+                        help_text,
+                        fn=lambda p=adversary, k=count_name: p.counts[k],
+                    )
+                telemetry.add_section("adversary", adversary.stats)
+
         leader_elector = LeaderElector(committee)
         self.synchronizer = Synchronizer(
             name,
@@ -838,7 +880,25 @@ class Consensus:
             payload_bodies=payload_bodies,
             telemetry=telemetry,
             state_machine=state_machine,
+            adversary=adversary,
         )
+        if adversary is not None:
+            # Adaptive adversary state view (faults/adaptive.py): pure
+            # reads of local protocol state, installed before any task
+            # runs so triggers never observe a half-built node.  The
+            # committee schedule and timer are read live — reconfig
+            # splices and view-change backoff show through.
+            adversary.bind_view({
+                "round": lambda c=self.core: c.round,
+                "leader": lambda r, le=leader_elector: le.get_leader(r),
+                "self": lambda n=name: n,
+                "last_tc_round": lambda c=self.core: c._last_tc_round,
+                "timeout_ms": lambda c=self.core: c.timer.duration * 1000.0,
+                "credit": lambda a=admission: a.last_credit,
+                "boundaries": lambda c=committee: tuple(
+                    r for r, _ in getattr(c, "entries", ()) if r > 0
+                ),
+            })
         # State-sync plane (statesync.py): every node serves snapshots;
         # a recovering node (surviving consensus state ⇒ this is a
         # restart, not a first boot) additionally runs the one-shot
@@ -854,6 +914,7 @@ class Consensus:
             network=make_sender(),
             telemetry=telemetry,
             store=store,
+            adversary=adversary,
         )
         sync_mode = os.environ.get("HOTSTUFF_STATE_SYNC", "auto").lower()
         if sync_mode not in ("0", "off", "never"):
@@ -889,6 +950,7 @@ class Consensus:
             network=make_reliable(),
             admission=admission,
             telemetry=telemetry,
+            adversary=adversary,
         )
         self._tasks.append(self.proposer.spawn())
         self.admission = admission

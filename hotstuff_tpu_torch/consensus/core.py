@@ -22,13 +22,10 @@ the CUDA kernel behind ``make_verifier("cuda")``).
 
 A copy of ``hotstuff_tpu.consensus.core`` with its telemetry seams (the
 trace ring's marks, the flight-recorder journal's records and the core's
-gauges, each behind one ``is not None`` test) and without the adversary
-seams (the collude policy's shadow commits and the other attacks): that
-plane is not ported, so its branches are cut.  Every other path —
-event channels, voting, QC/TC handling, commit, the execution layer's
-apply and ``State root`` line after each commit, the boot-time
-state-sync catch-up, the persisted consensus state and reconfiguration
-with its persisted schedule links — is unchanged.
+gauges, each behind one ``is not None`` test) and its adversary seams
+(faults/adversary.py: withhold, vote-delay, double-vote and forge-qc in
+the vote path, the collude policy's shadow commits and the reconfig
+policy's shadow epochs), each behind one ``is not None`` test.
 """
 
 from __future__ import annotations
@@ -42,6 +39,7 @@ from ..crypto.async_service import AsyncVerifyService
 from ..crypto.service import VerifierBackend
 from ..network import SimpleSender
 from ..store import Store
+from ..utils.clock import default_clock
 from ..utils.codec import Decoder, Encoder
 from .aggregator import ROUND_LOOKAHEAD, Aggregator
 from .config import Committee, InvalidCommittee
@@ -310,6 +308,7 @@ class Core:
         payload_bodies=None,
         telemetry=None,
         state_machine=None,
+        adversary=None,
     ):
         self.name = name
         self.committee = committee
@@ -345,6 +344,10 @@ class Core:
         self._timeout_exponent = 0
         # TC advances since the last QC advance (see _advance_round)
         self._consecutive_tcs = 0
+        # The round most recently advanced past via a TC — the adaptive
+        # adversary's ambush-leader trigger reads this through the
+        # state view (faults/adaptive.py); None until the first TC.
+        self._last_tc_round: Round | None = None
         # local round timeouts fired (each one broadcast a Timeout): the
         # committee driver reports their sum as view-change timeouts
         self.local_timeouts = 0
@@ -373,6 +376,10 @@ class Core:
             os.environ.get("HOTSTUFF_RECONFIG_GRACE_ROUNDS", "16")
         )
         self.retired = False
+        # Byzantine adversary plane (faults/adversary.py): None on
+        # honest nodes; on attacking nodes the vote/timeout/commit
+        # seams below consult it for the active policy windows.
+        self.adversary = adversary
         # Replicated execution layer (store/state.py): committed blocks
         # are applied in commit order and summarized by a state root.
         self.state = state_machine
@@ -566,10 +573,33 @@ class Core:
             # head and debug-logs the rest (core.rs:204-209): head-only
             # logging hides the other blocks' payloads from the harness
             # and undercounts TPS after every view change.
-            self.log.info("Committed block %d -> %s", b.round, b.digest())
+            reported = b.digest()
+            shadow = None
+            adversary = self.adversary
+            if (
+                adversary is not None
+                and adversary.is_shadow_committer
+                and adversary.active("collude")
+                and b.author in adversary.colluder_names
+            ):
+                # collude policy: the designated shadow committer
+                # reports the shadow branch for colluder-led rounds —
+                # a REAL divergent history the safety checker must
+                # catch and attribute to the colluding authorities
+                shadow = adversary.shadow_block(b).digest()
+                reported = shadow
+                adversary.count("byz_shadow_commits")
+                adversary.record("shadow-commit", b.round, reported)
+                self.log.info(
+                    "byz shadow-commit round %d -> %s", b.round, reported
+                )
+            self.log.info("Committed block %d -> %s", b.round, reported)
             if self.state is not None:
-                # execution layer: apply in commit order
-                root = self.state.apply_block(b)
+                # execution layer: apply in commit order; the REPORTED
+                # root chains over the reported (possibly shadow)
+                # digests, so a colluder's claimed state diverges
+                # exactly where its claimed digest log does
+                root = self.state.apply_block(b, reported_digest=shadow)
                 if root is not None:
                     if self._journal is not None:
                         self._journal.record("state.apply", b.round, b.digest())
@@ -707,6 +737,25 @@ class Core:
             if com.epoch == epoch:
                 reported_round = from_round
                 break
+        adversary = self.adversary
+        snipes = (
+            adversary.wants("reconfig", self.round)
+            if adversary is not None else False
+        )
+        if snipes:
+            # reconfig policy (shadow half): claim the activation at a
+            # skewed round — a divergent epoch history the
+            # epoch-agreement invariant must catch and attribute.  The
+            # reconfig-sniper fires the same attack, but only inside
+            # the epoch-activation margin (wants returns its token).
+            adversary.mark_adaptive(snipes, self.round, self.log)
+            reported_round = reported_round + 1 + (epoch % 3)
+            adversary.count("byz_shadow_epochs")
+            adversary.record("reconfig-shadow", self.round)
+            self.log.info(
+                "byz reconfig-shadow epoch %d round %d -> %d",
+                epoch, self.round, reported_round,
+            )
         # NOTE: this log entry is used by the epoch-agreement invariant.
         self.log.info("Epoch %d activated at round %d", epoch, reported_round)
         if self._journal is not None:
@@ -743,6 +792,7 @@ class Core:
         #   convergence under asynchrony is preserved.
         if via_tc:
             self._consecutive_tcs += 1
+            self._last_tc_round = round_
             snap = self._consecutive_tcs == 1
             if self._trace is not None:
                 self._trace.mark_tc_advance()
@@ -851,9 +901,10 @@ class Core:
                 sig_verified=sig_verified,
             )
         except ConsensusError:
-            # a timeout whose author signature or embedded certificate
-            # fails verification (forged QCs land here after the burst
-            # preverifier refuses their claims)
+            # honest defense seam: a timeout whose author signature or
+            # embedded certificate fails verification (forged QCs from
+            # the adversary plane land here after the burst preverifier
+            # refuses their claims)
             self.aggregator.qc_rejects += 1
             self.log.info(
                 "qc reject: invalid certificate in timeout from %s "
@@ -1012,6 +1063,26 @@ class Core:
         if block.round != self.round:
             return
 
+        adversary = self.adversary
+        withholds = (
+            adversary.wants("withhold", block.round)
+            if adversary is not None else False
+        )
+        if withholds:
+            # withhold policy: receive, never vote — the committee must
+            # reach quorum without us (timeouts), and recover liveness
+            # once the window closes.  Also the reconfig-sniper's
+            # withhold half (wants returns its token near an epoch
+            # activation boundary).
+            adversary.mark_adaptive(withholds, block.round, self.log)
+            adversary.count("byz_votes_withheld")
+            adversary.record("withhold", block.round, block.digest())
+            self.log.info(
+                "byz withhold vote round %d -> %s",
+                block.round, block.digest(),
+            )
+            return
+
         if self.committee.for_round(block.round).stake(self.name) <= 0:
             # not a member of this block's epoch: observe the chain
             # (commits above still ran), never vote
@@ -1034,8 +1105,85 @@ class Core:
                 # own vote: we just signed it — no verification needed
                 await self._handle_vote(vote, sig_verified=True)
             else:
+                surfs = (
+                    adversary.wants("vote-delay", block.round)
+                    if adversary is not None else False
+                )
+                if surfs:
+                    # timeout-surfer (faults/adaptive.py): hold the vote
+                    # to a fraction of the OBSERVED view timer — the
+                    # collector reaches quorum just inside the timeout,
+                    # stretching every view without firing a TC
+                    delay = adversary.surf_delay_s(self.timer.duration)
+                    adversary.mark_adaptive(
+                        surfs, block.round, self.log, block.digest()
+                    )
+                    self.log.info(
+                        "byz vote-delay round %d: holding %.0f ms of "
+                        "%.0f ms timer", block.round, delay * 1e3,
+                        self.timer.duration * 1e3,
+                    )
+                    await default_clock().sleep(delay)
                 address = self.committee.address(next_leader)
                 await self.network.send(address, encode_vote(vote))
+            if adversary is not None and adversary.active("double-vote"):
+                await self._byz_double_vote(block, next_leader)
+        if adversary is not None and adversary.active("forge-qc"):
+            await self._byz_forge_qc()
+
+    # ---- adversary seams (faults/adversary.py) -----------------------------
+
+    async def _byz_double_vote(self, block: Block, next_leader) -> None:
+        """double-vote policy: also sign a vote for the deterministic
+        shadow twin of ``block`` and ship it to the same next leader —
+        a well-formed conflicting vote the honest aggregator must park
+        (second digest cell for one payer)."""
+        adversary = self.adversary
+        shadow = adversary.shadow_block(block)
+        vote = Vote(hash=shadow.digest(), round=block.round, author=self.name)
+        vote.signature = await self.signature_service.request_signature(
+            vote.digest()
+        )
+        adversary.count("byz_double_votes")
+        adversary.record(
+            "double-vote", block.round, shadow.digest(), str(next_leader)[:8]
+        )
+        self.log.info(
+            "byz double-vote round %d -> %s", block.round, shadow.digest()
+        )
+        if next_leader == self.name:
+            try:
+                await self._handle_vote(vote, sig_verified=True)
+            except ConsensusError as e:
+                self.log.debug("own conflicting vote rejected: %s", e)
+        else:
+            address = self.committee.address(next_leader)
+            await self.network.send(address, encode_vote(vote))
+
+    async def _byz_forge_qc(self) -> None:
+        """forge-qc policy: broadcast a properly-signed timeout whose
+        high_qc names real committee authors with quorum-many garbage
+        signatures — it passes every structural check (stake, quorum,
+        no reuse) and MUST die in honest signature verification.  One
+        seeded draw gates each opportunity so the attack volume is
+        replayable."""
+        adversary = self.adversary
+        if adversary.rng.random() >= 0.5:
+            return
+        qc = adversary.forged_qc(self.committee, max(self.round - 1, 1))
+        timeout = Timeout(high_qc=qc, round=self.round, author=self.name)
+        timeout.signature = await self.signature_service.request_signature(
+            timeout.digest()
+        )
+        adversary.count("byz_forged_qcs")
+        adversary.record("forge-qc", self.round, qc.hash)
+        self.log.info(
+            "byz forge-qc round %d (authors %d)", self.round, len(qc.votes)
+        )
+        addresses = [
+            addr for _, addr in self.committee.broadcast_addresses(self.name)
+        ]
+        await self.network.broadcast(addresses, encode_timeout(timeout))
 
     async def _handle_proposal(
         self, block: Block, sigs_verified: bool = False

@@ -30,8 +30,8 @@ reference's scheme produces):
 
 A copy of ``hotstuff_tpu.consensus.proposer`` with its telemetry seams
 (payload wait, deferred makes, the buffer gauges and the ``propose`` /
-``payload.first`` journal records) and without the adversary seams
-(that plane is not ported).
+``payload.first`` journal records) and its adversary seams (the forged
+reconfiguration and the equivocation in ``_make_block``).
 """
 
 from __future__ import annotations
@@ -89,6 +89,7 @@ class Proposer:
         network: ReliableSender | None = None,
         admission=None,
         telemetry=None,
+        adversary=None,
     ):
         self.name = name
         # Ingest admission controller (ingest/admission.py): fed the
@@ -104,6 +105,9 @@ class Proposer:
         # control active this staying at ZERO under overload is the
         # acceptance signal (sheds happen at the ingest door instead).
         self.drop_newest = 0
+        # Byzantine adversary plane (faults/adversary.py): None on
+        # honest nodes; the equivocation seam in _make_block consults it
+        self.adversary = adversary
         self.committee = committee
         self.signature_service = signature_service
         self.rx_producer = rx_producer
@@ -195,6 +199,22 @@ class Proposer:
             # another leader's block, or a competing op won): drop ours
             self.pending_reconfig = None
             op = None
+        snipes = (
+            self.adversary.wants("reconfig", round_)
+            if op is None and self.adversary is not None else False
+        )
+        if snipes:
+            # reconfig policy (forge half): attach a forged epoch change
+            # — well-formed wire, hostile committee / bad sponsor — that
+            # MUST die in every honest voter's Block.verify.  The
+            # reconfig-sniper mounts the same forgery, but only inside
+            # the epoch-activation margin (wants returns its token).
+            op = self.adversary.forged_reconfig(self.committee, round_)
+            if op is not None:
+                self.adversary.mark_adaptive(snipes, round_, self.log)
+                self.adversary.count("byz_forged_reconfigs")
+                self.adversary.record("reconfig-forge", round_)
+                self.log.info("byz reconfig-forge round %d", round_)
         if not self.pending and not allow_empty and op is None:
             # Defer: fire the moment the next payload arrives instead of
             # wedging the round until the view-change timer (see module
@@ -281,6 +301,19 @@ class Proposer:
 
         await self.tx_loopback.put(block)
 
+        ambushes = (
+            self.adversary.wants("equivocate", block.round)
+            if self.adversary is not None else False
+        )
+        if ambushes:
+            # schedule-driven equivocation, or the ambush-leader trigger
+            # (faults/adaptive.py): equivocate exactly when we lead a
+            # round seated by a fresh TC
+            self.adversary.mark_adaptive(
+                ambushes, block.round, self.log, block.digest()
+            )
+            await self._byz_equivocate(block, names_addresses)
+
         # Control system: wait for 2f+1 total stake (ours included) to ACK
         # the block before making the next one.
         total_stake = com.stake(self.name)
@@ -309,6 +342,32 @@ class Proposer:
             for t in tasks:
                 if not t.done():
                     t.cancel()
+
+    async def _byz_equivocate(self, block: Block, names_addresses) -> None:
+        """equivocate policy (adversary plane): sign the deterministic
+        shadow twin of the block just proposed — same round, same QC,
+        conflicting payloads — and ship it to a deterministic peer
+        subset (fellow colluders when colluding, else the first half of
+        the peer set).  Honest receivers vote at most once per round,
+        so the main branch keeps committing; the checker attributes the
+        equivocations to this authority."""
+        adversary = self.adversary
+        shadow = adversary.shadow_block(block)
+        shadow.signature = await self.signature_service.request_signature(
+            shadow.digest()
+        )
+        targets = adversary.equivocation_targets(names_addresses)
+        message = encode_propose(shadow)
+        for _, address in targets:
+            await self.network.send(address, message)
+        adversary.count("byz_equivocations")
+        adversary.record(
+            "equivocate", block.round, shadow.digest(), f"{len(targets)}p"
+        )
+        self.log.info(
+            "byz equivocate round %d -> %s | %s (%d peers)",
+            block.round, block.digest(), shadow.digest(), len(targets),
+        )
 
     def _requeue_orphans(
         self, round_: Round, payloads: tuple, committed=frozenset(), note: str = ""

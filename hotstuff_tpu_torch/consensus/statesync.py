@@ -32,11 +32,11 @@ missed at rounds beyond the manifest cursor is re-materialized by the
 normal apply path.
 
 A copy of ``hotstuff_tpu.consensus.statesync`` with its flight-recorder
-journal records and without the adversary plane's seams (the
-sync-withhold attack and prey sensing), which the port does not have.  Requests, manifests, chunks,
-the acceptance rule, the re-ask and the adoption are unchanged.  Added
-to the copy: ``StateSyncClient.outcome``, what the bootstrap saw and
-did, for callers that report it.
+journal records and the adversary plane's seams (the sync-withhold
+attack and prey sensing).  Requests, manifests, chunks, the acceptance
+rule, the re-ask and the adoption are unchanged.  Added to the copy:
+``StateSyncClient.outcome``, what the bootstrap saw and did, for
+callers that report it.
 """
 
 from __future__ import annotations
@@ -99,6 +99,7 @@ class StateSyncServer:
         network: SimpleSender | None = None,
         telemetry=None,
         store=None,
+        adversary=None,
     ):
         self.name = name
         self.committee = committee
@@ -110,6 +111,10 @@ class StateSyncServer:
         # links served in the manifest so a joiner can verify epoch
         # changes it never witnessed (docs/RECONFIG.md)
         self.store = store
+        # Byzantine adversary plane (faults/adversary.py): None on
+        # honest nodes; the chunk-serving path below is the
+        # sync-predator's attack seam (faults/adaptive.py)
+        self.adversary = adversary
         self._journal = telemetry.journal if telemetry is not None else None
         self._task: asyncio.Task | None = None
         # per-node logger suffix: multi-node harnesses (sim, local
@@ -141,6 +146,28 @@ class StateSyncServer:
                 )
                 continue
             if req.kind == STATE_REQ_CHUNK:
+                adversary = self.adversary
+                preys = (
+                    adversary.wants("sync-withhold")
+                    if adversary is not None else False
+                )
+                if preys:
+                    # sync-predator (faults/adaptive.py): withhold
+                    # exactly the chunks this bootstrapping peer needs —
+                    # manifests still flow, so the victim commits to a
+                    # sync it cannot finish until the window closes
+                    adversary.mark_adaptive(
+                        preys, req.from_round, self.log,
+                    )
+                    adversary.record(
+                        "sync-withhold", req.from_round, None,
+                        str(req.origin)[:8],
+                    )
+                    self.log.info(
+                        "byz sync-withhold chunk %d from %s",
+                        req.index, str(req.origin)[:8],
+                    )
+                    continue
                 entries = self.state.chunk(req.index, req.from_round)
                 reply = encode_state_chunk(
                     self.state.version, req.index, req.from_round, entries
@@ -162,6 +189,10 @@ class StateSyncServer:
                     links=await self._schedule_links(),
                 )
                 self.state.snapshots_served += 1
+                if self.adversary is not None:
+                    # sync-predator prey sensing: this peer just began a
+                    # snapshot bootstrap against us
+                    self.adversary.note_syncing(req.origin)
                 if self._journal is not None:
                     self._journal.record(
                         "sync.serve", m.last_round, None, str(req.origin)[:8]

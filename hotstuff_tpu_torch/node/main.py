@@ -54,10 +54,14 @@ a spec over a committee file's addresses with ``faults.scenarios``::
     spec["nodes"] = {"%s:%d" % c.address(k): i for i, k in enumerate(keys)}
     spec["epoch_unix"] = time.time()  # the windows count from here: clear the boot
 
-The adversary plane is not ported: ``--adversary`` is accepted by the
-parser and refused before boot with exit code 2, and so are ``run``,
-``run-many`` and ``deploy`` when ``HOTSTUFF_ADVERSARY`` would switch it
-on (``consensus.unported_env_plane``).  ``HOTSTUFF_WAN_SPEC=<spec file>``
+``--adversary SPEC`` (or ``HOTSTUFF_ADVERSARY``) turns the Byzantine
+adversary plane on for the same commands, on both transports
+(``faults/adversary.py``: each node the spec's ``adversary`` rules name
+logs ``Adversary plane active: ...`` and its ``byz ...`` lines; the
+others stay honest and silent).  It reads the same spec format, so one
+file may carry both planes; ``faults.scenarios`` builds the ``byz-*``
+ones, whose ``adversary`` rules name scenario indexes as above.
+``HOTSTUFF_WAN_SPEC=<spec file>``
 (``network/wan.py`` ``build_spec``) delays every node-to-node link on
 the asyncio transport, as in the reference, and does nothing on the
 native one.
@@ -83,7 +87,6 @@ import sys
 import time
 
 from ..consensus import Committee, Parameters
-from ..consensus.consensus import unported_env_plane
 from .config import (
     Secret,
     read_committee,
@@ -192,20 +195,6 @@ def _freeze_boot_objects():
     return undo
 
 
-#: flags whose plane is not ported yet: (argparse dest, the flag)
-_UNPORTED_FLAGS = (("adversary", "--adversary"),)
-
-
-def _unported(args) -> str | None:
-    """The first flag of ``args`` naming a plane the port does not have
-    yet, as the operator spelled it; None when there is none."""
-    for dest, flag in _UNPORTED_FLAGS:
-        value = getattr(args, dest, None)
-        if value is not None and value is not False:
-            return flag
-    return None
-
-
 def _apply_fault_plane(args) -> None:
     """Activate the chaos plane when ``--fault-plane`` was given: the
     flag value (a spec file path or inline JSON) lands in
@@ -214,6 +203,18 @@ def _apply_fault_plane(args) -> None:
     spec = getattr(args, "fault_plane", None)
     if spec:
         os.environ["HOTSTUFF_FAULTS"] = spec
+
+
+def _apply_adversary(args) -> None:
+    """Activate the Byzantine adversary plane when ``--adversary`` was
+    given: the flag value (a spec file path or inline JSON naming the
+    attacking node indexes and policy windows) lands in
+    HOTSTUFF_ADVERSARY, which Consensus.spawn reads at boot.  Inert on
+    nodes the spec does not name, so the whole committee can share one
+    spec file."""
+    spec = getattr(args, "adversary", None)
+    if spec:
+        os.environ["HOTSTUFF_ADVERSARY"] = spec
 
 
 def _apply_health(args) -> None:
@@ -404,6 +405,7 @@ async def _fd_probe() -> None:
 async def _run_node(args) -> None:
     _apply_env_bridges(args)
     _apply_fault_plane(args)
+    _apply_adversary(args)
     _apply_health(args)
     _apply_mesh_devices(args)
     nodes: list[Node] = []
@@ -564,6 +566,7 @@ async def _run_many(args) -> None:
     measured path: every actor shares one asyncio loop."""
     _apply_env_bridges(args)
     _apply_fault_plane(args)
+    _apply_adversary(args)
     _apply_health(args)
     _apply_mesh_devices(args)
     key_files = args.keys.split(",")
@@ -744,8 +747,15 @@ def _add_node_flags(p: argparse.ArgumentParser) -> None:
         "per directed peer pair on a scenario timeline (default: off, or "
         "the HOTSTUFF_FAULTS env knob)",
     )
-    # a plane the port does not have yet: parsed, then refused
-    p.add_argument("--adversary", default=None, help="not ported yet: refused")
+    p.add_argument(
+        "--adversary",
+        default=None,
+        help="activate the Byzantine adversary plane from this spec file "
+        "(or inline JSON): seeded deterministic protocol-level attacks — "
+        "equivocate, forge-qc, withhold, double-vote, flood, collude — "
+        "on the named node indexes (default: off, or the "
+        "HOTSTUFF_ADVERSARY env knob)",
+    )
 
 
 def main(argv=None) -> int:
@@ -840,13 +850,6 @@ def main(argv=None) -> int:
     _add_node_flags(p_dep)
 
     args = parser.parse_args(argv)
-    flag = _unported(args)
-    if flag is not None:
-        parser.error(f"{flag} is not ported yet")
-    if args.command in ("run", "run-many", "deploy"):
-        knob = unported_env_plane(args.transport)
-        if knob is not None:
-            parser.error(f"{knob} is set, but its plane is not ported yet")
     setup_logging(args.verbose)
 
     if args.command == "keys":
@@ -866,6 +869,7 @@ def main(argv=None) -> int:
     if args.command == "deploy":
         _apply_env_bridges(args)
         _apply_fault_plane(args)
+        _apply_adversary(args)
         _apply_health(args)
         _apply_mesh_devices(args)
         asyncio.run(

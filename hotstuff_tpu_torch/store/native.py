@@ -10,10 +10,19 @@ output; ``open_engine(..., prefer_native=False)`` or
 
 Durability: ``fsync_mode`` 0 = flush per put (process-crash safe),
 1 = fdatasync per put (power-loss safe), 2 = fdatasync on close.
+
+Added to the copy: ``batch()``, a block inside which puts and deletes
+are held and then appended with one write (the port's ``hs_put_many``,
+``store/csrc/store_batch.cpp``): the same log bytes as the same calls
+one by one, one system call in place of one a record, and the block's
+records land together or, if the process dies inside it, not at all
+(``fsync_mode`` 1 syncs once, at its end).  ``StateMachine.apply_block``
+applies a committed block inside one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import struct
@@ -22,6 +31,9 @@ from typing import Iterator
 from .. import _native_build
 
 _U32 = struct.Struct("<I")
+_HDR = struct.Struct("<II")  # a WAL record's klen, vlen
+_TOMBSTONE = 0xFFFFFFFF
+_DELETED = object()  # a batch's delete, as its overlay holds it
 
 
 class NativeEngine:
@@ -37,12 +49,44 @@ class NativeEngine:
         if not self._h:
             raise OSError(f"hs_open failed for {path!r}")
         self.path = path
+        # inside batch(): the held records, and the keys they set
+        self._records: list[bytes] | None = None
+        self._overlay: dict = {}
+
+    @contextlib.contextmanager
+    def batch(self):
+        """Hold every put and delete of the block, reads seeing them, and
+        append them with one call when it ends (also when it raises, so
+        the calls made stay made, as one by one).  Not reentrant."""
+        if self._records is not None:
+            raise RuntimeError("NativeEngine.batch is not reentrant")
+        self._records = []
+        try:
+            yield self
+        finally:
+            self._write_held()
+
+    def _write_held(self) -> None:
+        records, self._records = self._records, None
+        self._overlay = {}
+        if records:
+            blob = b"".join(records)
+            if self._lib.hs_put_many(self._h, blob, len(blob)) != 0:
+                raise OSError("hs_put_many failed")
 
     def put(self, key: bytes, value: bytes) -> None:
+        if self._records is not None:
+            self._records.append(_HDR.pack(len(key), len(value)) + key + value)
+            self._overlay[key] = value
+            return
         if self._lib.hs_put(self._h, key, len(key), value, len(value)) != 0:
             raise OSError("hs_put failed")
 
     def get(self, key: bytes) -> bytes | None:
+        if self._overlay:
+            held = self._overlay.get(key)
+            if held is not None:
+                return None if held is _DELETED else held
         out = ctypes.POINTER(ctypes.c_uint8)()
         outlen = ctypes.c_uint32()
         rc = self._lib.hs_get(
@@ -58,6 +102,10 @@ class NativeEngine:
             self._lib.hs_free(out)
 
     def delete(self, key: bytes) -> None:
+        if self._records is not None:
+            self._records.append(_HDR.pack(len(key), _TOMBSTONE) + key)
+            self._overlay[key] = _DELETED
+            return
         if self._lib.hs_delete(self._h, key, len(key)) != 0:
             raise OSError("hs_delete failed")
 

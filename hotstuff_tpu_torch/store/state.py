@@ -42,11 +42,15 @@ delta log).
 
 A copy of ``hotstuff_tpu.store.state``, whole: the same keys, values,
 roots and snapshot chunks byte for byte, so a store or a snapshot
-written by either package is read by the other.
+written by either package is read by the other.  Added to the copy:
+``apply_block`` writes a block's records inside the engine's
+``batch()`` where it has one (the native engine: one write a block,
+not one a payload; the log's bytes are unchanged).
 """
 
 from __future__ import annotations
 
+import contextlib
 import struct
 
 from ..crypto import Digest
@@ -235,6 +239,11 @@ class StateMachine:
             # before the end-of-loop consensus_state persist)
             return None
         engine = self.store.engine
+        batch = getattr(engine, "batch", None)
+        with batch() if batch is not None else contextlib.nullcontext():
+            return self._apply(engine, block, reported_digest)
+
+    def _apply(self, engine, block, reported_digest) -> bytes:
         real_digest = block.digest()
         round_ = block.round
         for seq, digest in enumerate(block.payloads):

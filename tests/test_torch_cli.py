@@ -1,16 +1,15 @@
 """The port's node CLI (``python -m hotstuff_tpu_torch.node``) and its
 producer client (``python -m hotstuff_tpu_torch.node.client``), driven
-as an operator drives them: ``keys``; the refusal of every flag whose
-plane is not ported; ``run`` defaulting to the CUDA verifier with no
+as an operator drives them: ``keys``; ``run`` defaulting to the CUDA verifier with no
 quiet CPU fallback; the wave service's stats line against the harness's
 regex and the JAX package's line; a ``run-many`` committee fed by the
 client, whose logs ``benchmark.logs.LogParser`` reads; ``deploy``; and
 a port node joining a committee of JAX nodes through a reconfiguration
 submitted with the port's ``reconfig`` command; the client's
-digest-only mode (``--size 0``) against a port committee; the env
-knob of the plane the port does not have (``HOTSTUFF_ADVERSARY``)
-refused before boot by the CLI, ``Consensus.spawn`` and
-``run_committee``; the chaos plane (``--fault-plane`` and
+digest-only mode (``--size 0``) against a port committee; the
+adversary plane (``--adversary`` and ``HOTSTUFF_ADVERSARY``) accepted
+by ``run``, ``run-many`` and ``deploy`` on both transports, and armed by
+``Consensus.spawn`` exactly where the JAX package's arms it; the chaos plane (``--fault-plane`` and
 ``HOTSTUFF_FAULTS``) accepted by ``run``, ``run-many`` and ``deploy``
 and by ``Consensus.spawn``, and an unreadable spec raising at boot;
 and ``HOTSTUFF_WAN_SPEC``
@@ -65,29 +64,56 @@ def test_keys_writes_a_private_key_file_both_packages_read(tmp_path):
     assert mine.secret.to_bytes() == theirs.secret.to_bytes() and mine.scheme == "ed25519"
 
 
-@pytest.mark.parametrize("argv", [
-    ["run", "--adversary", "{}"],
-    ["run-many", "--health", "--adversary", "{}"],
-    ["deploy", "--adversary", "{}"],
-], ids=lambda argv: "-".join(a.strip("-") for a in argv[:2]))
-def test_unported_flags_are_refused_before_boot(tmp_path, capsys, argv):
-    from hotstuff_tpu_torch.node.main import main
-
-    required = {
-        "run": ["--keys", "k", "--committee", "c", "--store", str(tmp_path / "db")],
-        "run-many": ["--keys", "k", "--committee", "c", "--store-prefix", str(tmp_path / "db")],
-        "deploy": ["--nodes", "4"],
-        "keys": ["--filename", str(tmp_path / "k.json")],
-    }[argv[0]]
-    with pytest.raises(SystemExit) as exit_:
-        main(argv + required)
-    assert exit_.value.code == 2
-    assert "is not ported yet" in capsys.readouterr().err
-    assert not any(tmp_path.iterdir())  # nothing booted, nothing written
-
-
 class _Booted(Exception):
     """Raised by the stand-in ``Node.new``: the command got to booting."""
+
+
+BOOT_ARGV = {
+    "run": ["--keys", "key_0.json", "--committee", "committee.json", "--store", "db_0"],
+    "run-many": ["--keys", "key_0.json,key_1.json", "--committee", "committee.json",
+                 "--store-prefix", "db_"],
+    "deploy": ["--nodes", "4", "--base-port", "0"],
+}
+
+
+@pytest.mark.parametrize("command, how", [
+    ("run", "flag"), ("run", "env"), ("run-many", "flag"), ("run-many", "env"),
+    ("deploy", "flag"), ("deploy", "env"),
+])
+def test_the_adversary_knob_reaches_the_boot(tmp_path, monkeypatch, command, how):
+    """``--adversary SPEC`` (it exited 2 while the plane was not ported)
+    and ``HOTSTUFF_ADVERSARY=SPEC`` get every command to its boot with
+    the knob set to the spec, where ``Consensus.spawn`` reads it; the
+    flag wins over a knob already set.  ``Node.new`` is a stand-in that
+    records what the boot saw and stops the command."""
+    from hotstuff_tpu_torch.node import main as cli
+
+    seen = []
+
+    class _Node:
+        @classmethod
+        async def new(cls, **kw):
+            seen.append((kw["transport"], os.environ.get("HOTSTUFF_ADVERSARY")))
+            raise _Booted
+
+    monkeypatch.setattr(cli, "Node", _Node)
+    monkeypatch.setattr(cli, "setup_logging", lambda verbosity: None)
+    monkeypatch.chdir(tmp_path)  # deploy writes its files here
+    write_port_committee(tmp_path)
+    argv = [command, "--verifier", "cpu", "--transport", "native", *BOOT_ARGV[command]]
+    before = dict(os.environ)
+    with mock.patch.dict(os.environ):
+        for knob in ("HOTSTUFF_ADVERSARY", "HOTSTUFF_COLOCATED_NODES", "HOTSTUFF_MAX_PEER_CONNS"):
+            os.environ.pop(knob, None)
+        if how == "flag":
+            os.environ["HOTSTUFF_ADVERSARY"] = "overridden.json"
+            argv += ["--adversary", "spec.json"]
+        else:
+            os.environ["HOTSTUFF_ADVERSARY"] = "spec.json"
+        with pytest.raises(_Booted):
+            cli.main(argv)
+    assert seen == [("native", "spec.json")]
+    assert dict(os.environ) == before
 
 
 @pytest.mark.parametrize("command", ["run", "run-many", "deploy"])
@@ -551,62 +577,114 @@ def test_client_at_size_0_runs_against_a_port_committee(tmp_path):
 
 
 ENV_PLANES = ("HOTSTUFF_FAULTS", "HOTSTUFF_ADVERSARY")
-REFUSED_ENV_PLANES = ("HOTSTUFF_ADVERSARY",)
 WAN = "HOTSTUFF_WAN_SPEC"
 RE_COMMITTED = re.compile(r"Committed block (\d+) ->")
 RE_REGION = re.compile(r"WAN emulation active: region (\S+)")
 
 
-@pytest.mark.parametrize("command", ["run", "run-many", "deploy"])
-@pytest.mark.parametrize("knob", REFUSED_ENV_PLANES)
-def test_env_knobs_of_unported_planes_are_refused_before_boot(tmp_path, monkeypatch, capsys, knob, command):
-    """A node started with a knob that switches on a plane the port does
-    not have yet (as ``benchmark/chaos.py`` and ``benchmark/local.py``
-    start nodes) stops with exit 2 and names the knob, before any node
-    boots; it used to boot and run without the plane."""
-    from hotstuff_tpu_torch.node.main import main
+def _adversary_spec(tmp_path, addresses, rules, seed=3, extra=None) -> str:
+    """An adversary spec over ``addresses`` (scenario index i: the i-th
+    address), written as an operator writes one."""
+    spec = {"name": "byz-cli", "seed": seed, "adversary": rules,
+            "nodes": {f"{h}:{p}": i for i, (h, p) in enumerate(addresses)},
+            "epoch_unix": time.time(), **(extra or {})}
+    path = tmp_path / "adversary.json"
+    path.write_text(json.dumps(spec))
+    return str(path)
 
+
+RE_ADVERSARY = re.compile(r"Adversary plane active: scenario '([^']+)' seed (\d+) \(node index (\d+), "
+                          r"policies \[([^\]]*)\]\)")
+
+
+def _spawn_tasks(side, committee, key, store_path, transport="asyncio") -> dict:
+    """What one ``Consensus.spawn`` of ``side`` armed: its plane's index
+    and policies (None when inert), whether the core, the proposer and
+    the state-sync server share it, and its task names."""
+    seen = {}
+
+    async def body():
+        store = side.store.Store(store_path)
+        stack = None
+        name, secret = key
+        try:
+            stack = await side.consensus.Consensus.spawn(
+                name, committee, side.consensus.Parameters(), side.crypto.SignatureService(secret), store,
+                asyncio.Queue(), bind_host="127.0.0.1", transport=transport,
+            )
+            plane = stack.core.adversary
+            seen["plane"] = None if plane is None else (plane.self_id, sorted(r.policy for r in plane.my_rules))
+            seen["shared"] = stack.proposer.adversary is plane and stack.state_server.adversary is plane
+            seen["tasks"] = sorted(t.get_name() for t in stack._tasks if t.get_name().startswith("adversary"))
+        finally:
+            if stack is not None:
+                await stack.shutdown()
+            store.close()
+
+    asyncio.run(body())
+    return seen
+
+
+SPAWN_CASES = {
+    "no-knob": ({}, "asyncio"),
+    "empty-knob": ({"HOTSTUFF_ADVERSARY": ""}, "asyncio"),
+    "named": ({"HOTSTUFF_ADVERSARY": [{"policy": "withhold", "node": 0, "at": 3600}]}, "asyncio"),
+    "named-native": ({"HOTSTUFF_ADVERSARY": [{"policy": "withhold", "node": 0, "at": 3600}]}, "native"),
+    "not-named": ({"HOTSTUFF_ADVERSARY": [{"policy": "equivocate", "node": 2}]}, "asyncio"),
+    "collude-flood": ({"HOTSTUFF_ADVERSARY": [{"policy": "collude", "nodes": [0, 1], "at": 3600},
+                                              {"policy": "flood", "node": 0, "at": 3600}]}, "asyncio"),
+    "adaptive": ({"HOTSTUFF_ADVERSARY": [{"policy": "timeout-surfer", "node": 0, "at": 3600}]}, "native"),
+    "with-faults": ({"HOTSTUFF_ADVERSARY": [{"policy": "forge-qc", "node": 0, "at": 3600}],
+                     "HOTSTUFF_FAULTS": True}, "asyncio"),
+    "with-wan": ({"HOTSTUFF_ADVERSARY": [{"policy": "double-vote", "node": 0, "at": 3600}],
+                  WAN: True}, "asyncio"),
+}
+
+
+@pytest.mark.parametrize("case", list(SPAWN_CASES))
+def test_consensus_spawn_arms_the_plane_as_the_reference_does(tmp_path, monkeypatch, case):
+    """``Consensus.spawn`` arms the adversary plane exactly where the JAX
+    package's does (it raised on the knob while the plane was not
+    ported): on a non-empty ``HOTSTUFF_ADVERSARY`` naming this node, on
+    either transport, beside the chaos plane's or the WAN's spec; the
+    core, the proposer and the state-sync server share the plane, and
+    the ``adversary-clock`` task (and ``adversary-flood`` for a flood
+    rule) runs.  The JAX stack is spawned on asyncio beside the port's
+    on the same spec and committee."""
+    from hotstuff_tpu_torch.bench.committee import reserve_ports
+
+    from .test_torch_core import JAX, PORT
+
+    env, transport = SPAWN_CASES[case]
     for other in ENV_PLANES + (WAN,):
         monkeypatch.delenv(other, raising=False)
-    monkeypatch.setenv(knob, '{"seed": 1}')
-    monkeypatch.chdir(tmp_path)
-    required = {
-        "run": ["--keys", "k", "--committee", "c", "--store", str(tmp_path / "db")],
-        "run-many": ["--keys", "k", "--committee", "c", "--store-prefix", str(tmp_path / "db")],
-        "deploy": ["--nodes", "4"],
-    }[command]
-    with pytest.raises(SystemExit) as exit_:
-        main([command, *required])
-    assert exit_.value.code == 2
-    assert f"{knob} is set, but its plane is not ported yet" in capsys.readouterr().err
-    assert not any(tmp_path.iterdir())  # nothing booted, nothing written
-
-
-@pytest.mark.parametrize("env, transport, want", [
-    ({}, "asyncio", None),
-    ({"HOTSTUFF_FAULTS": ""}, "asyncio", None),
-    ({"HOTSTUFF_ADVERSARY": ""}, "native", None),
-    ({"HOTSTUFF_FAULTS": "x"}, "native", None),
-    ({"HOTSTUFF_ADVERSARY": "x"}, "native", "HOTSTUFF_ADVERSARY"),
-    ({"HOTSTUFF_WAN_SPEC": "x"}, "asyncio", None),
-    ({"HOTSTUFF_WAN_SPEC": "x"}, "native", None),
-    ({"HOTSTUFF_WAN_SPEC": "x", "HOTSTUFF_ADVERSARY": "y"}, "asyncio", "HOTSTUFF_ADVERSARY"),
-    ({"HOTSTUFF_MESH_DEVICES": "2"}, "asyncio", None),
-])
-def test_unported_env_plane_follows_the_references_conditions(monkeypatch, env, transport, want):
-    """The adversary knob is refused exactly where
-    ``hotstuff_tpu.consensus``'s ``Consensus.spawn`` would switch its
-    plane on: a non-empty value, on either transport.  The chaos plane
-    and the WAN spec's plane are ported, so their knobs are refused
-    nowhere.  The mesh size is read only where the mesh verifier
-    is built, so it is no plane's knob, as in the reference."""
-    from hotstuff_tpu_torch.consensus.consensus import unported_env_plane
-
-    for knob in ENV_PLANES + (WAN, "HOTSTUFF_MESH_DEVICES"):
-        monkeypatch.delenv(knob, raising=False)
+    socks = reserve_ports(4)
+    ports = [sk.getsockname()[1] for sk in socks]
+    committee = PORT.committee(ports)
+    addresses = [committee.address(k) for k in committee.sorted_keys()]
     for knob, value in env.items():
+        if knob == "HOTSTUFF_ADVERSARY" and isinstance(value, list):
+            value = _adversary_spec(tmp_path, addresses, value)
+        elif knob == "HOTSTUFF_FAULTS":
+            value = _fault_spec(tmp_path, addresses)
+        elif knob == WAN:
+            value = _wan_spec(tmp_path, addresses)
         monkeypatch.setenv(knob, value)
-    assert unported_env_plane(transport) == want
+    me = next(i for i, k in enumerate(PORT.keys()) if committee.address(k[0]) == addresses[0])
+    try:
+        socks[0].close()
+        port = _spawn_tasks(PORT, committee, PORT.keys()[me], str(tmp_path / "port_db"), transport)
+        jax = _spawn_tasks(JAX, JAX.committee(ports), JAX.keys()[me], str(tmp_path / "jax_db"))
+    finally:
+        for sk in socks:
+            sk.close()
+    assert port == jax
+    armed = case not in ("no-knob", "empty-knob", "not-named")
+    assert (port["plane"] is not None) == armed and port["shared"]
+    if armed:
+        assert port["plane"][0] == 0
+        assert port["tasks"] == (["adversary-clock", "adversary-flood"] if case == "collude-flood"
+                                 else ["adversary-clock"])
 
 
 def test_wan_spec_on_the_native_transport_still_boots(tmp_path):
@@ -634,14 +712,13 @@ def test_wan_spec_on_the_native_transport_still_boots(tmp_path):
 
 @pytest.mark.parametrize("knob, error, match", [
     ("HOTSTUFF_FAULTS", FileNotFoundError, "spec.json"),
-    ("HOTSTUFF_ADVERSARY", NotImplementedError, "HOTSTUFF_ADVERSARY is set, but its plane is not ported yet"),
+    ("HOTSTUFF_ADVERSARY", FileNotFoundError, "spec.json"),
 ], ids=lambda v: v if isinstance(v, str) and v.startswith("HOTSTUFF") else "")
 def test_consensus_spawn_and_run_committee_raise_on_the_knobs(tmp_path, monkeypatch, knob, error, match):
     """In-process committees cannot start quietly either:
     ``Consensus.spawn`` raises before it serves anything, and so does
-    ``run_committee``: on the adversary knob, whose plane is not ported,
-    and on a chaos spec that cannot be read (as the JAX package
-    raises)."""
+    ``run_committee``, on a chaos or an adversary spec that cannot be
+    read (as the JAX package raises)."""
     from hotstuff_tpu_torch.bench.committee import run_committee
 
     from .test_torch_core import PORT as S
@@ -898,3 +975,75 @@ def test_consensus_spawn_runs_with_a_fault_spec(tmp_path, monkeypatch, caplog):
     assert all(p is seen["plane"] for p in seen["senders"])
     assert "fault-clock" in seen["tasks"]
     assert RE_FAULT_PLANE.findall(caplog.text) == [str(seen["plane"].self_id)]
+
+
+@pytest.mark.parametrize("command, how, transport", [
+    ("run", "flag", "asyncio"), ("run", "env", "native"),
+    ("run-many", "flag", "asyncio"), ("run-many", "env", "native"),
+    ("deploy", "flag", "native"), ("deploy", "env", "asyncio"),
+])
+def test_the_adversary_plane_runs(tmp_path, command, how, transport):
+    """``--adversary SPEC`` and ``HOTSTUFF_ADVERSARY=SPEC`` boot ``run``,
+    ``run-many`` and ``deploy`` on both transports (they exited 2 while
+    the plane was not ported): every node the spec names logs
+    ``Adversary plane active`` with its index, and the command stops
+    cleanly on SIGTERM.  A ``run-many`` committee fed by the client
+    commits while node 0 withholds its votes, and node 0 logs each
+    withheld vote."""
+    log_path = tmp_path / "nodes.log"
+    log = open(log_path, "w")
+    proc = client = None
+    rules = [{"policy": "withhold", "node": 0, "at": 0.0},
+             {"policy": "forge-qc", "nodes": [1, 2, 3], "at": 3_600.0}]
+    try:
+        if command == "deploy":
+            base = _free_run(4)
+            spec = _adversary_spec(tmp_path, [("127.0.0.1", base + i) for i in range(4)], rules)
+            argv = ["deploy", "--nodes", "4", "--base-port", str(base), "--verifier", "cpu"]
+            indices, done = [0, 1, 2, 3], "Deployed 4-node local testbed"
+        else:
+            committee = write_port_committee(tmp_path, timeout_delay=1_000, sync_retry_delay=1_000)
+            addresses = [committee.address(k) for k in committee.sorted_keys()]
+            spec = _adversary_spec(tmp_path, addresses, rules)
+            common = ["--verifier", "cpu", "--committee", str(tmp_path / "committee.json"),
+                      "--parameters", str(tmp_path / "parameters.json")]
+            if command == "run":
+                argv = ["run", "--keys", str(tmp_path / "key_0.json"), "--store", str(tmp_path / "db_0"),
+                        *common]
+                from hotstuff_tpu_torch.node.config import Secret
+
+                indices = [addresses.index(committee.address(Secret.read(str(tmp_path / "key_0.json")).name))]
+            else:
+                keys = ",".join(str(tmp_path / f"key_{i}.json") for i in range(4))
+                argv = ["run-many", "--keys", keys, "--store-prefix", str(tmp_path / "db_"), *common]
+                indices = [0, 1, 2, 3]
+            done = "successfully booted"
+        argv += ["--transport", transport]
+        env = dict(ENV)
+        if how == "env":
+            env["HOTSTUFF_ADVERSARY"] = spec
+        else:
+            argv += ["--adversary", spec]
+        proc = subprocess.Popen(CLI + ["-vv", *argv], stdout=log, stderr=subprocess.STDOUT, env=env,
+                                cwd=tmp_path)
+        assert wait_for(lambda: log_path.read_text().count(done) >= (1 if command == "deploy" else len(indices)),
+                        90)
+        if command == "run-many":
+            client = spawn_client(tmp_path, rate=200, duration=3)
+            assert client.wait(timeout=60) == 0
+            assert wait_for(lambda: len(RE_COMMITTED.findall(log_path.read_text())) >= 3 * 4, 30)
+        assert proc.poll() is None
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        stop_all([client, proc])
+        log.close()
+    text = log_path.read_text()
+    assert "Traceback" not in text and "not ported yet" not in text
+    armed = RE_ADVERSARY.findall(text)
+    assert sorted(int(i) for _, _, i, _ in armed) == sorted(indices)
+    assert {(name, seed) for name, seed, _, _ in armed} == {("byz-cli", "3")}
+    assert {i: p for _, _, i, p in armed}.get("0", "withhold") == "withhold"
+    if command == "run-many":
+        assert "byz withhold vote round" in text
+        assert max(int(r) for r in RE_COMMITTED.findall(text)) > 0
