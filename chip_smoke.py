@@ -97,7 +97,9 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    wall time are printed;
 12. (f) 16 waves of 1024 signed votes over the native transport into one
    ``NativeReceiver``, adopted from the ingest arenas and verified by the
-   verify kernel, and (g) the node CLI of (e) on ``--transport native``;
+   verify kernel, and (g) the node CLI of (e) on ``--transport native``,
+   started only when no child process of an earlier phase is alive, its
+   node process loading the g++ libraries step 1 built and building none;
 13. (h) the port's verifier bench (``hotstuff_tpu_torch/bench/verifier.py``)
    at the 256-validator shape: a 1024-signature shared-digest stream, QC
    sizes 16/64/256 and the 171-entry TC, every verdict checked; the
@@ -173,7 +175,7 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    addresses, its window opening 15 s after the boot (e) (or (g))
    measured: (n1) ``split_brain_phase``: (e) with ``--fault-plane <spec>
    --metrics-port 0 --journal-dir <dir>``, the members cut 32 against 32
-   (quorum 43) for 10 s: every node logs ``Fault plane active`` with its
+   (quorum 43) for 13 s: every node logs ``Fault plane active`` with its
    index, some round commits before the window, no new round from its
    open + 5 s to the heal, a new round within the scenario's 20 s of the
    heal, one digest a committed round, every node's ``fault_plane``
@@ -208,7 +210,18 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    rounds commit before the withhold window, inside it and after it, a
    new one within the withhold scenario's 25 s of its close, K1 after
    boot (logs in ``chiprun_out/adversary_phase/``);
-19. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
+19. (p) the deterministic simulator (``sim_phase``), which verifies on the
+   CPU as the reference's does and launches no kernel: two child
+   processes started together, each ``python -m hotstuff_tpu_torch.sim``
+   in its own temporary directory under a 90 s deadline, (p1) the
+   regression corpus ``tests/data/sim_seeds.json`` (each entry the
+   ``ok`` the corpus records, the promoted ones its threats and journal
+   digest, every one the JAX package's rounds, commits, timeouts and
+   journal digest, held here as ``SIM_CORPUS_REFERENCE``), (p2) seed 1
+   at 4 nodes twice (equal journals and flow tables), and (p3) seed 1 at
+   64 nodes (the JAX package's ``ok``, rounds, commits, timeouts and
+   digest, ``SIM_64``); prints each run's and the phase's wall time;
+20. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
    G1 kernels (``gpu/csrc/g1_kernels.cu``) against their plain versions
    on the card and against the oracle (``crypto/bls/curve.py``), X, Y and
    Z as integers mod q, tolerance zero: the tree sum at B = 256 (171
@@ -238,7 +251,7 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    agree, compact QCs were emitted, and the running-sum kernel launched
    at least once for every vote those QCs summed (logs in
    ``chiprun_out/bls_phase/``);
-20. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
+21. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
    card (``default_mesh()``, one card here) and on four shards of card 0
    (``Mesh([cuda:0] * 4)``, the port's counterpart of XLA's forced host
    device count): (l1) ``ShardedBatchVerifier`` after ``precompute`` and
@@ -257,7 +270,7 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    --mesh-devices 1`` (logs in ``chiprun_out/mesh_phase/``): the checks
    of (e) and ``mesh=`` > 0 and equal to ``device=`` in the last stats
    line.  Prints a ``mesh {json}`` line;
-21. a ``{"kernels": [...]}`` line, then the last line
+22. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
    over the main-path runs (3, (a)-(j), (m), (n), (o) and (l) for the Ed25519
    verify kernel, (k2), (k3), (l3) and (o)'s direct check for the G1
@@ -270,9 +283,11 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    (``b2b_ms``) and an empty launch's time taken the same way as its
    ``ms`` (``floor_ms``).
 
-The phases run in the order (a)-(j), (m), (n1), (n2), (o), (k), (l);
+The phases run in the order (a)-(j), (m), (n1), (n2), (o), (p), (k), (l);
 before each, the script prints its running total (host clock), and
-after each the phase's own time (``phase (x) took``).
+after each the phase's own time (``phase (x) took``).  Every node-CLI
+phase prints a ``boot and round 1`` line (``boot_timeline``) before
+its checks.
 
 Phases (c), (e) and (g) print the wave service's routes (device, cpu and
 probe waves, ``ewma_ms``, the mean wave and the verify kernel's launches
@@ -1269,6 +1284,42 @@ def parse_node_logs(node_log: str, client_log: str) -> dict:
     return out
 
 
+RE_SPAWN = re.compile(_TS + r".*Timeout delay set to")
+RE_BLOCK_1 = re.compile(_TS + r".*Created block 1 ")
+RE_BLOCK_2 = re.compile(_TS + r".*Created block 2 ")
+RE_ROUND_1_TIMEOUT = re.compile(r"Timeout reached for round 1$", re.M)
+RE_FD_PROBE = re.compile(r"fd-probe: (\d+) open fds")
+
+
+def boot_timeline(node_log: str) -> dict:
+    """A node process's boot and round 1, from its log: the boot spread
+    (the first node's first line, ``Timeout delay set``, which
+    ``Consensus.spawn`` logs first, to the last ``successfully booted``),
+    the first node's own boot (that line to its ``successfully
+    booted``), the last boot to block 1's proposal, block 1's proposal
+    to block 2's, the count of round-1 timeouts and the fd probe's
+    series (one a 5 s).  A slow round 1 makes every node time out at
+    once and open its connections to the 63 others together (failed
+    runs of (g) showed a 3.6 s first boot, 64 round-1 timeouts and
+    ~8,400 fds within 14 s)."""
+    spawn = RE_SPAWN.search(node_log)
+    boots = [_ts(ts) for ts, _ in RE_BOOTED.findall(node_log)]
+    b1, b2 = RE_BLOCK_1.search(node_log), RE_BLOCK_2.search(node_log)
+    t0 = _ts(spawn[1]) if spawn else None
+
+    def gap(a, b):
+        return None if a is None or b is None else round(b - a, 3)
+
+    return {
+        "boot_spread_s": gap(t0, boots[-1] if boots else None),
+        "first_boot_s": gap(t0, boots[0] if boots else None),
+        "last_boot_to_block_1_s": gap(boots[-1] if boots else None, _ts(b1[1]) if b1 else None),
+        "block_1_to_block_2_s": gap(_ts(b1[1]) if b1 else None, _ts(b2[1]) if b2 else None),
+        "round_1_timeouts": len(RE_ROUND_1_TIMEOUT.findall(node_log)),
+        "fd_probe": [int(n) for n in RE_FD_PROBE.findall(node_log)],
+    }
+
+
 def cofactored_verify(sig: bytes, pub: bytes, msg: bytes) -> bool:
     """The native batch equation's acceptance of one signature, in
     ``ed25519_ref`` arithmetic: [8][s]B = [8]R + [8][k]A, with the
@@ -1387,6 +1438,37 @@ def verifier_phase(card: str, claims, torch_device=None, batch: int = WAVE, roun
     return launches
 
 
+def loaded_native_libraries(pid: int) -> set:
+    """The paths of the port's g++ libraries (``libhs_*.so`` of
+    ``build/torch_native``) that process ``pid`` has mapped."""
+    from hotstuff_tpu_torch import _native_build
+
+    where = str(_native_build.BUILD_DIR) + os.sep
+    with open(f"/proc/{pid}/maps") as f:
+        return {line.split(None, 5)[5].strip() for line in f
+                if len(line.split(None, 5)) == 6 and line.split(None, 5)[5].startswith(where)}
+
+
+def live_children() -> list:
+    """(pid, state, command line) of every process whose parent is this
+    one and that has not been reaped, from ``/proc``."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) != os.getpid():
+                continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, IndexError, ValueError):
+            continue  # gone since the listing
+        out.append((int(entry), fields[0], cmd))
+    return out
+
+
 def committee_files(tmp: str, nodes: int, phase: str, timeout_delay: int | None = None,
                     scheme: str = "ed25519", held: list | None = None) -> tuple:
     """(key files, committee file, parameters file) of an ``nodes``-member
@@ -1435,7 +1517,8 @@ def committee_files(tmp: str, nodes: int, phase: str, timeout_delay: int | None 
 
 def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
                verifier: str = "cuda", transport: str = "asyncio", label: str | None = None,
-               extra_args=(), extra_env=None, during=None, files=None, scheme: str = "ed25519"):
+               extra_args=(), extra_env=None, during=None, files=None, scheme: str = "ed25519",
+               native_libs=None):
     """(e), (g) with ``transport="native"``, and (k3) with
     ``scheme="bls"``: the node CLI, a
     ``run-many`` committee process and the producer client process, both
@@ -1452,7 +1535,9 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     --metrics-port 0`` (the telemetry snapshots carry the compact-QC
     counters), at least 3 commits a node, compact QCs, and the running-sum
     kernel launched for every vote those QCs summed; the K1 checks are
-    the Ed25519 committee's."""
+    the Ed25519 committee's.  ``native_libs``: the port's g++ libraries
+    step 1 built; the node process must load no other and build none.
+    Before its checks the phase prints its ``boot_timeline`` line."""
     import signal
     import tempfile
 
@@ -1467,6 +1552,10 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     cli = [sys.executable, "-m", "hotstuff_tpu_torch.node"]
     procs = []
     held: list = []  # the member ports, reserved until the node process ends
+    if native_libs is not None:
+        from hotstuff_tpu_torch import _native_build
+
+        build_dir_before = set(os.listdir(_native_build.BUILD_DIR))
     with tempfile.TemporaryDirectory(prefix="node-phase-") as tmp:
         key_files, committee_file, parameters_file = files or committee_files(
             tmp, nodes, phase, scheme=scheme, held=held)
@@ -1491,6 +1580,8 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
                         if len(RE_BOOTED.findall(f.read())) >= nodes:
                             break
                     time.sleep(0.5)
+                if native_libs is not None:
+                    loaded = loaded_native_libraries(node.pid) if node.poll() is None else set()
                 procs.append(subprocess.Popen(
                     [sys.executable, "-m", "hotstuff_tpu_torch.node.client", "--committee", committee_file,
                      "--rate", str(rate), "--size", "512", "--duration", str(duration), "--warmup", "2"],
@@ -1524,6 +1615,9 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     with open(client_log_path) as f:
         client_text = f.read()
     r = parse_node_logs(node_text, client_text)
+    r["timeline"] = boot_timeline(node_text)
+    print(f"{phase} boot and round 1: " + ", ".join(f"{k} {v}" for k, v in r["timeline"].items())
+          + f" [{card}]")
     boot_s = r["boot_at"] - t_launch if r["boot_at"] is not None else None
     stats = r["stats"] or {}
     launches = (r["launches"] or {}).get("verify_compressed", 0)
@@ -1539,6 +1633,14 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
           f"{stats.get('ewma_ms')}, zc {stats.get('zc')} fb {stats.get('fb')}, verify kernel launches {launches}, {r['versions']} state versions; "
           f"stopped in {stop_s:.1f} s; {wall:.1f} s in all (host clock) [{card}]")
     print(f"{phase} result: " + json.dumps({**r, "boot_s": boot_s, "stop_s": stop_s, "wall_s": wall}))
+    if native_libs is not None:
+        built = {str(path) for path in native_libs}
+        print(f"{phase}: the node process loaded {sorted(os.path.basename(p) for p in loaded)}")
+        check(str(_native_build.library_path("transport")) in loaded and loaded <= built,
+              f"{phase}: the node process loads the native libraries step 1 built, and no other "
+              f"(loaded {sorted(loaded)}, built {sorted(built)})")
+        check(set(os.listdir(_native_build.BUILD_DIR)) == build_dir_before,
+              f"{phase}: the node process built no native library")
     check(stopped_in_time, f"{phase}: the node process stopped within 60 s of SIGTERM")
     check("Traceback" not in node_text and "Traceback" not in client_text,
           f"{phase}: no traceback in the node or client log")
@@ -2416,6 +2518,13 @@ RE_SNAPSHOT_AT = re.compile(_TS + r" \[INFO\] telemetry\.(\S+) Telemetry snapsho
 FAULT_SEED = 17
 FAULT_DRAIN_S = 5.0  # commits of rounds certified before a window opens may still land in it
 FAULT_LEAD_S = 15.0  # from the committee's boot to a window's open: the client starts, commits begin
+# (n1)'s cut.  Every node must drop frames across it, and a node sends
+# across it first with its round's timeout: 5 s timers whose 64 handlers,
+# each opening connections to 63 peers, ran 3.7-13.2 s after the open on
+# the card machine, so a 10 s cut healed before some nodes' first timeout
+# (7 nodes dropped nothing in one run).  13 s still heals before any
+# node's second timeout (its first + the 10 s backed-off timer).
+SPLIT_WINDOW_S = 13.0
 
 
 def fault_spec(tmp: str, committee, build, first: int = 0, **kw) -> tuple:
@@ -2466,7 +2575,7 @@ def loop_lag_ms(node_text: str, t0: float | None, t1: float) -> float | None:
     return sum(means) / len(means) if means else None
 
 
-def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, window_s: float = 10.0,
+def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, window_s: float = SPLIT_WINDOW_S,
                       verifier: str = "cuda"):
     """(n1) (e)'s committee under the port's ``faults.scenarios.split_brain``:
     the committee file's 64 members cut 32 against 32 (quorum 43, so
@@ -3751,6 +3860,111 @@ def mesh_phase(card: str, claims, single, torch_device=None, waves: int = MESH_W
     return out
 
 
+SIM_BUDGET_S = 90.0  # (p) whole, and each of its child processes
+SIM_CORPUS = "tests/data/sim_seeds.json"
+# What the JAX package's ``run_schedule`` gives on the CPU
+# (``scripts/sim_reference.py`` records and checks them), held as constants:
+# the JAX package does not run on the card.  Each corpus entry in order:
+# (seed, rounds, commits, timeouts, journal digest); a port run's digest
+# is compared once its records' ``src`` names the reference's loggers.
+SIM_CORPUS_REFERENCE = (
+    (0, 89, 353, 0, "6ea2d989f05020785d0031077cc846f69486feee4059b51a66d6978cc0a5cb20"),
+    (1, 89, 353, 0, "c80259825ce4f91b0a37589a918bcbc673fa870ac64ee26b2e342cdad3fd6595"),
+    (3, 58, 200, 6, "2960b84d3bf363e84b64f8b57dc32966a9a891782deda999d985ab5391cc11f9"),
+    (17, 49, 184, 17, "99cfd7d33a84b7e6dceb26dd56bcb28383b887d50a0e5932c46a2c13625a96c8"),
+    (48, 40, 149, 13, "7cfaf43142b714516c22e44b1249f503ca753868a05c95f561b12a6bf9e9d0fb"),
+    (91, 58, 201, 6, "bfb090a65acb0a08b3b0e9457c92eeb7506a30ec028813e8302d82f1b8b0a186"),
+    (384, 59, 228, 7, "7875d96602895bb56165da2e91bcd12a4533ac7cdc143a76221f479b85b1ad8e"),
+    (689067519, 118, 472, 0, "f930b64042e8fa7e6ccfd0ef39bec818e99e95bff90813008a114e39e67bd253"),
+    (5000016, 89, 353, 0, "7623281ae860d814dc94723a1473f3ef4677771a9e693cc689786ae692888c06"),
+    (1, 70, 272, 14, "4c555168441223855e807d5e143ead0834886ab8c114166f75066f8689275bee"),
+    (1000005, 70, 272, 14, "b583b641e2cbc29da8909457377bb3819f8e81068f14a6235e413a773d5201d3"),
+)
+# (p3): seed 1 drawn at 64 nodes, the committee size of (c)-(o)
+SIM_64 = {"seed": 1, "nodes": 64, "ok": True, "rounds": 89, "commits": 5633, "timeouts": 0,
+          "journal_digest": "bdf8eabac0a7e887960f9ff18428e99fdc8aa0b9ce9bcdb11bb1e42270a9d4ad"}
+
+
+def sim_phase(card: str, budget_s: float = SIM_BUDGET_S) -> dict:
+    """(p) the deterministic simulator (``hotstuff_tpu_torch/sim``) in two
+    child processes started together, each ``python -m
+    hotstuff_tpu_torch.sim`` in its own temporary directory under its own
+    deadline, so no loop, env var, logger or reactor of the earlier
+    phases reaches it: (p1)+(p2) the regression corpus (every entry the
+    ``ok`` the corpus records, the promoted ones its threats and journal
+    digest, every entry the JAX package's rounds, commits, timeouts and
+    digest) and seed 1 at 4 nodes twice (equal journals and flow
+    tables); (p3) seed 1 at 64 nodes (the JAX package's ``ok``, rounds,
+    commits, timeouts and digest).  The simulator verifies on the CPU,
+    as the reference's does: no kernel launches.  Prints the phase's wall
+    time and each run's."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    jobs = {"p1+p2": [os.path.join(ROOT, SIM_CORPUS), "1", "1"], "p3": [f"{SIM_64['seed']}:{SIM_64['nodes']}"]}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="sim-phase-") as tmp:
+        procs = {}
+        try:
+            for part, args in jobs.items():
+                workdir = os.path.join(tmp, part)
+                os.makedirs(workdir)
+                procs[part] = subprocess.Popen(
+                    [sys.executable, "-m", "hotstuff_tpu_torch.sim", "--workdir", workdir, *args],
+                    cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for part, proc in procs.items():
+                left = max(1.0, budget_s - (time.perf_counter() - t0))
+                try:
+                    stdout, stderr = proc.communicate(timeout=left)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.communicate()
+                    check(False, f"(p) {part}: the simulator did not finish within {budget_s} s")
+                check(proc.returncode == 0, f"(p) {part}: exit {proc.returncode}: {stderr[-2000:]}")
+                lines = stdout.strip().splitlines()
+                check(len(lines) == 1, f"(p) {part}: one JSON line (got {len(lines)})")
+                out[part] = json.loads(lines[0])
+                out[part]["part_wall_s"] = time.perf_counter() - t0
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    wall = time.perf_counter() - t0
+    runs = out["p1+p2"]["runs"]
+    corpus, twice = runs[:-2], runs[-2:]
+    check(len(corpus) == len(SIM_CORPUS_REFERENCE), "(p1) every corpus entry ran")
+    for i, (run, (seed, rounds, commits, timeouts, digest)) in enumerate(zip(corpus, SIM_CORPUS_REFERENCE)):
+        expect = run["expect"]
+        print(f"(p1) entry {i}, seed {run['seed']} {run['profile']}: ok {run['ok']} (corpus {expect['ok']}), "
+              f"threats {run['threats']}, {run['rounds']} rounds, {run['commits']} commits, "
+              f"{run['timeouts']} timeouts, {run['wall_s']:.2f} s [{card}]")
+        check(run["seed"] == seed and run["ok"] == expect["ok"], f"(p1) seed {seed}: the corpus's ok")
+        if "journal_digest" in expect:
+            check(run["threats"] == expect["threats"] and run["normalised_digest"] == expect["journal_digest"],
+                  f"(p1) seed {seed}: the promoted entry's threats and journal digest")
+        check((run["rounds"], run["commits"], run["timeouts"], run["normalised_digest"])
+              == (rounds, commits, timeouts, digest),
+              f"(p1) seed {seed}: the JAX package's rounds, commits, timeouts and journal digest")
+    a, b = twice
+    print(f"(p2) seed 1 at 4 nodes twice: journals {a['journal_digest'][:16]} / {b['journal_digest'][:16]}, "
+          f"flows {a['flows_digest'][:16]} / {b['flows_digest'][:16]}, {a['wall_s']:.2f} / {b['wall_s']:.2f} s [{card}]")
+    check(a["ok"] and a["journal_digest"] == b["journal_digest"] and a["flows_digest"] == b["flows_digest"],
+          "(p2) two runs of one seed: equal journals and flow tables")
+    big = out["p3"]["runs"][0]
+    print(f"(p3) seed 1 at 64 nodes: ok {big['ok']}, {big['rounds']} rounds, {big['commits']} commits, "
+          f"{big['timeouts']} timeouts, journal {big['normalised_digest'][:16]}, {big['wall_s']:.1f} s [{card}]")
+    check(big["nodes"] == SIM_64["nodes"] and all(big[k] == SIM_64[k] for k in ("ok", "rounds", "commits", "timeouts"))
+          and big["normalised_digest"] == SIM_64["journal_digest"],
+          "(p3) seed 1 at 64 nodes: the JAX package's ok, rounds, commits, timeouts and journal digest")
+    print(f"(p) took {wall:.1f} s: (p1)+(p2) {out['p1+p2']['wall_s']:.1f} s in its child "
+          f"({sum(r['wall_s'] for r in corpus):.1f} s corpus, {a['wall_s'] + b['wall_s']:.1f} s twice), "
+          f"(p3) {out['p3']['wall_s']:.1f} s in its child [{card}]")
+    check(wall <= budget_s, f"(p) within {budget_s} s")
+    return {"wall_s": wall, "p3": big, "corpus_s": out["p1+p2"]["wall_s"], "p3_s": out["p3"]["wall_s"]}
+
+
 def running_total(t_start: float, phase: str) -> float:
     """Print the script's wall time so far, before ``phase`` starts, and
     return the phase's start."""
@@ -3973,7 +4187,14 @@ def main() -> int:
     print(f"phase (f) took {time.perf_counter() - t0:.1f} s")
     check(ingest_launches > 0, "the ingest phase never launched the verify kernel")
     t0 = running_total(t_start, "(g)")
-    native_launches, native_r = node_phase(card, transport="native")
+    # (g) fails if the loop stalls in round 1 (PERF.md section 7): no
+    # earlier phase's process may still be running beside it.  A process
+    # pool's resource tracker ((f)'s spawn pool) idles to the script's end.
+    children = live_children()
+    print(f"child processes before phase (g): {children}")
+    check(all("multiprocessing.resource_tracker" in cmd for _pid, _state, cmd in children),
+          f"(g): no child process of an earlier phase is alive ({children})")
+    native_launches, native_r = node_phase(card, transport="native", native_libs=native_libs)
     print(f"phase (g) took {time.perf_counter() - t0:.1f} s")
     t0 = running_total(t_start, "(h)")
     bench_launches = verifier_phase(card, claims)
@@ -3998,6 +4219,9 @@ def main() -> int:
     adv_kernels = adversary_kernel_check(card)
     adv_launches, adv_r = adversary_phase(card, node_r)
     print(f"phase (o) took {time.perf_counter() - t0:.1f} s")
+    t0 = running_total(t_start, "(p)")
+    sim_phase(card)
+    print(f"phase (p) took {time.perf_counter() - t0:.1f} s")
     t0 = running_total(t_start, "(k)")
     g1, g1_launches, bls_r = bls_phase(card)
     print(f"phase (k) took {time.perf_counter() - t0:.1f} s")

@@ -32,8 +32,9 @@ core, the proposer and the state-sync server get the plane of a node the
 spec names, an ``adversary-clock`` task walks its windows, with telemetry
 on the ``byz_*`` gauges and the ``adversary`` snapshot section) and
 wire-level flow accounting (on with telemetry unless ``HOTSTUFF_NET=0``,
-``telemetry/flows.py``).
-Not ported, so cut: the sim transport.
+``telemetry/flows.py``), and the simulator's transport (``"sim"``: the
+in-memory ``sim/transport.py`` listener, the asyncio senders over the
+ambient connector, a ``HOTSTUFF_SIM_LINK_MS`` hop delay).
 """
 
 from __future__ import annotations
@@ -507,14 +508,12 @@ class Consensus:
         transport: str = "asyncio",
         telemetry=None,
     ) -> "Consensus":
-        """Spawn one node's stack.  ``transport`` is ``"asyncio"`` or
+        """Spawn one node's stack.  ``transport`` is ``"asyncio"``,
         ``"native"`` (the C++ reactor of ``network/native.py``: a
         library that cannot build raises here, never a quiet fall back
-        to asyncio); the simulator's ``"sim"`` is not ported."""
-        if transport not in ("asyncio", "native"):
-            raise NotImplementedError(
-                f"the '{transport}' transport is not ported yet"
-            )
+        to asyncio) or ``"sim"`` (the simulator's in-memory network of
+        ``sim/transport.py``; outside a sim run, with no ``SimNet``
+        installed, it raises)."""
         self = cls()
         # NOTE: this log entry is used to compute performance.
         parameters.log()
@@ -705,6 +704,43 @@ class Consensus:
             def make_reliable():
                 return NativeReliableSender(
                     fault_plane=fault_plane, flows=flows
+                )
+        elif transport == "sim":
+            # Virtual-time simulation (sim/): the stock asyncio senders
+            # run verbatim — the ambient connector seam routes their
+            # connections through the in-memory SimNet — and only the
+            # listener side needs the sim class.
+            from ..sim.transport import SimReceiver
+
+            receiver_cls = SimReceiver
+            # Virtual link propagation: without it every hop lands in
+            # the same virtual instant and rounds advance at raw CPU
+            # speed — a 12-virtual-second run would burn thousands of
+            # rounds of signature work.  A fixed per-hop delay paces the
+            # protocol like a LAN and makes per-seed CPU cost
+            # proportional to virtual duration, not host speed.
+            if link_delay is None:
+                sim_link_s = (
+                    float(os.environ.get("HOTSTUFF_SIM_LINK_MS", "50"))
+                    / 1000.0
+                )
+                if sim_link_s > 0:
+
+                    def link_delay(dst, _d=sim_link_s):
+                        return lambda: _d
+
+            def make_sender():
+                return SimpleSender(
+                    link_delay=link_delay,
+                    fault_plane=fault_plane,
+                    flows=flows,
+                )
+
+            def make_reliable():
+                return ReliableSender(
+                    link_delay=link_delay,
+                    fault_plane=fault_plane,
+                    flows=flows,
                 )
         else:
             receiver_cls = NetworkReceiver

@@ -46,7 +46,7 @@ import logging
 import os
 
 from ..crypto import PublicKey
-from ..utils.clock import default_clock
+from ..utils.clock import SYSTEM_CLOCK, default_clock
 from ..network import SimpleSender
 from ..store.state import SnapshotManifest, StateMachine
 from ..utils.codec import CodecError
@@ -81,7 +81,8 @@ SYNC_CHUNK_WAIT_S = 5.0
 #: not wedge the whole sync until the deadline
 SYNC_CHUNK_RETRY_S = 1.0
 #: the reply wait wakes at least this often (seconds) to notice a stall
-#: of the event loop, which it gives back to the window
+#: of the event loop, which it gives back to the window (on the system
+#: clock only: see ``StateSyncClient._collect``)
 SYNC_STALL_SLICE_S = 0.05
 
 
@@ -269,13 +270,21 @@ class StateSyncClient:
         coming late because other callbacks held the loop, as when the
         co-located peers' servers each scan their store for the requested
         manifest — does not count against the window: replies sent inside
-        it are still read once the loop runs again."""
+        it are still read once the loop runs again.
+
+        Under another ambient clock (the simulator's virtual one, whose
+        loop never wakes a task late) the wait is the reference's single
+        wait for the whole window: the slices' extra timers would only
+        reorder callbacks due at one virtual instant."""
         loop = asyncio.get_running_loop()
+        sliced = default_clock() is SYSTEM_CLOCK
         while True:
             now = loop.time()
             if now >= deadline:
                 return None, deadline
-            step = min(deadline - now, SYNC_STALL_SLICE_S)
+            step = deadline - now
+            if sliced:
+                step = min(step, SYNC_STALL_SLICE_S)
             try:
                 msg = await asyncio.wait_for(self.rx_replies.get(), timeout=step)
                 return msg, deadline

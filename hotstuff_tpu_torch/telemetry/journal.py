@@ -3,8 +3,8 @@
 A copy of ``hotstuff_tpu.telemetry.journal``: the same record format,
 segment names and ring bounds, so ``benchmark/traces.py`` merges a port
 node's journal with a JAX node's.  ``Journal(..., clock=)`` takes the
-clock explicitly (the port's ``utils/clock.py`` has no setters); by
-default it binds the ambient clock, as the reference does.
+clock explicitly; by default it binds the ambient clock at construction,
+as the reference does (the simulator's virtual clock inside a sim run).
 
 Every node appends its consensus lifecycle events — propose / receive /
 vote-sent / vote-received / QC-formed / commit, timeout / TC, sync

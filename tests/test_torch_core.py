@@ -1220,20 +1220,25 @@ def test_ingest_ack_and_schedule_links_match_jax():
 
 
 def test_unported_transports_raise(tmp_path):
-    async def body():
-        store = S.store.Store(str(tmp_path / "db"))
-        name, secret = S.keys()[0]
+    """Every transport of the JAX package is ported: ``"sim"`` outside a
+    sim run, with no ``SimNet`` installed, raises in both packages alike
+    (``tests/test_torch_sim.py`` spawns on one)."""
+
+    async def body(side):
+        store = side.store.Store(str(tmp_path / side.root))
+        name, secret = side.keys()[0]
         try:
-            with pytest.raises(NotImplementedError, match="not ported"):
-                await S.consensus.Consensus.spawn(
-                    name, S.committee(range(7000, 7004)), S.consensus.Parameters(),
-                    S.crypto.SignatureService(secret), store, asyncio.Queue(),
+            with pytest.raises(RuntimeError, match="no SimNet installed"):
+                await side.consensus.Consensus.spawn(
+                    name, side.committee(range(7000, 7004)), side.consensus.Parameters(),
+                    side.crypto.SignatureService(secret), store, asyncio.Queue(),
                     transport="sim",
                 )
         finally:
             store.close()
 
-    asyncio.run(body())
+    for side in (JAX, PORT):
+        asyncio.run(body(side))
 
 
 # ---- the handler's state-sync routes and state reads ----------------------

@@ -246,13 +246,18 @@ def _imports(path):
             yield node.module
 
 
+#: JAX, the JAX package, and the reference harness (``benchmark/``, which
+#: imports the JAX package): the port keeps its own copies of all three
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "hotstuff_tpu", "benchmark")
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     sources = sorted(PKG.rglob("*.py"))
     assert len(sources) >= 15
     for path in sources:
         for mod in _imports(path):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "hotstuff_tpu"), f"{path}: imports {mod}"
+            assert root not in FORBIDDEN_ROOTS, f"{path}: imports {mod}"
     modules = [
         ".".join(p.relative_to(PKG.parent).with_suffix("").parts).removesuffix(".__init__")
         for p in sources
@@ -260,7 +265,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hotstuff_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_ROOTS!r})\n"
         "print(len([m for m in sys.modules if m.startswith('hotstuff_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
