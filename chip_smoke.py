@@ -210,17 +210,27 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    rounds commit before the withhold window, inside it and after it, a
    new one within the withhold scenario's 25 s of its close, K1 after
    boot (logs in ``chiprun_out/adversary_phase/``);
-19. (p) the deterministic simulator (``sim_phase``), which verifies on the
-   CPU as the reference's does and launches no kernel: two child
-   processes started together, each ``python -m hotstuff_tpu_torch.sim``
-   in its own temporary directory under a 90 s deadline, (p1) the
-   regression corpus ``tests/data/sim_seeds.json`` (each entry the
-   ``ok`` the corpus records, the promoted ones its threats and journal
-   digest, every one the JAX package's rounds, commits, timeouts and
-   journal digest, held here as ``SIM_CORPUS_REFERENCE``), (p2) seed 1
-   at 4 nodes twice (equal journals and flow tables), and (p3) seed 1 at
-   64 nodes (the JAX package's ``ok``, rounds, commits, timeouts and
-   digest, ``SIM_64``); prints each run's and the phase's wall time;
+19. (p) the deterministic simulator and (q) its explorer (``sim_phase``),
+   which verify on the CPU as the reference's does and launch no kernel:
+   four child processes started together, each ``python -m
+   hotstuff_tpu_torch.sim`` in its own temporary directory under one
+   90 s deadline, (p1) the regression corpus ``tests/data/sim_seeds.json``
+   (each entry the ``ok`` the corpus records, the promoted ones its
+   threats and journal digest, every one the JAX package's rounds,
+   commits, timeouts and journal digest, held here as
+   ``SIM_CORPUS_REFERENCE``), (p2) seed 1 at 4 nodes twice (equal
+   journals and flow tables), (p3) seed 1 at 64 nodes (the JAX package's
+   ``ok``, rounds, commits, timeouts and digest, ``SIM_64``), (q1) the
+   guided search ``guided:18:4:0`` on a copy of the corpus (the JAX
+   package's counts, regimes, promoted entries with their normalised
+   journal digests, appended corpus copy and scenario files, three of
+   them the committed ``tests/data/adapt_scenarios/`` files byte for
+   byte; ``SIM_GUIDED``) and (q2) ``shrink`` of the planted collusion
+   schedule (exactly the planted event left, the JAX package's steps;
+   the minimal schedule fails and passes without its event) then the
+   flat sweep ``explore:12:4:0`` (``SIM_EXPLORE``); the corpus and the
+   committed scenario files have the same sha256 after as before;
+   prints the host's core count, each part's and the phase's wall time;
 20. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
    G1 kernels (``gpu/csrc/g1_kernels.cu``) against their plain versions
    on the card and against the oracle (``crypto/bls/curve.py``), X, Y and
@@ -283,7 +293,7 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    (``b2b_ms``) and an empty launch's time taken the same way as its
    ``ms`` (``floor_ms``).
 
-The phases run in the order (a)-(j), (m), (n1), (n2), (o), (p), (k), (l);
+The phases run in the order (a)-(j), (m), (n1), (n2), (o), (p) with (q), (k), (l);
 before each, the script prints its running total (host clock), and
 after each the phase's own time (``phase (x) took``).  Every node-CLI
 phase prints a ``boot and round 1`` line (``boot_timeline``) before
@@ -2527,6 +2537,32 @@ FAULT_LEAD_S = 15.0  # from the committee's boot to a window's open: the client 
 SPLIT_WINDOW_S = 13.0
 
 
+RE_CORE_TIMEOUT = re.compile(_TS + r" \[\w+\] hotstuff_tpu_torch\.consensus\.core\.(\S+) Timeout reached for round (\d+)")
+
+
+def cut_timeline(node_text: str, open_at: float, heal_at: float) -> dict:
+    """When each node's round timer fired around a cut (unix times
+    ``open_at`` to ``heal_at``), from the nodes' ``Timeout reached``
+    lines: a node sends across the cut first with its timeout, so one
+    whose first timeout after the open runs after the heal drops nothing.
+    Returns the nodes that timed out in the 10 s before the open, the
+    first timeout after the open of each node (s from the open: the
+    fastest and the slowest), and the nodes with none before the heal."""
+    before, first_after = set(), {}
+    for ts, node, _rnd in RE_CORE_TIMEOUT.findall(node_text):
+        t = _ts(ts)
+        if open_at - 10.0 <= t <= open_at:
+            before.add(node)
+        elif t > open_at and node not in first_after:
+            first_after[node] = t - open_at
+    window = heal_at - open_at
+    inside = sorted(v for v in first_after.values() if v <= window)
+    return {"timed_out_in_10_s_before": len(before),
+            "first_after_open_s": [round(inside[0], 3), round(inside[-1], 3)] if inside else None,
+            "none_before_heal": sorted((round(v, 3), n, n in before) for n, v in first_after.items() if v > window),
+            "nodes": len(set(first_after) | before)}
+
+
 def fault_spec(tmp: str, committee, build, first: int = 0, **kw) -> tuple:
     """A spec of the port's ``faults.scenarios`` builder ``build`` over
     the committee file's addresses, scenario index i the member of
@@ -2660,6 +2696,11 @@ def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, 
           f"{phase}: a new round commits within {resume_within} s of the heal ({resume_s})")
     check(r["rounds_agree"], f"{phase}: every committed round names one digest on every node")
     sections = [doc.get("fault_plane") for doc in scraped.get("snapshot", {}).values()]
+    cut = cut_timeline(node_text, open_at, heal_at)
+    print(f"{phase} cut timeline: {cut['timed_out_in_10_s_before']} nodes timed out in the 10 s before the "
+          f"open; first timeouts after it {cut['first_after_open_s']} s; after the heal ({window_s} s), with a "
+          f"timeout before the open: {cut['none_before_heal']}; nodes dropping nothing "
+          f"{sum(1 for s in sections if s and s['dropped'] == 0)}; {r['timeouts']} timeouts in all [{card}]")
     check(len(sections) == nodes and all(s is not None for s in sections),
           f"{phase}: a fault_plane section in every node's snapshot ({len(sections)})")
     check(all(s["dropped"] > 0 and s["inbound_dropped"] == 0 for s in sections),
@@ -2691,6 +2732,7 @@ def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, 
            "resume_s": resume_s, "resumed_round": resumed[0][1] if resumed else None,
            "loop_lag_before_ms": lag_pre, "loop_lag_in_window_ms": lag_in, "loop_lag_max_ms": lag_max_s * 1e3,
            "dropped": [min(s["dropped"] for s in sections), max(s["dropped"] for s in sections)],
+           "cut_timeline": cut,
            "edges_late_s": {k: max(t - (at if k == "fault.open" else until) for _, t in v)
                             for k, v in edges.items()}}
     r.update(split_brain=out)
@@ -3860,8 +3902,9 @@ def mesh_phase(card: str, claims, single, torch_device=None, waves: int = MESH_W
     return out
 
 
-SIM_BUDGET_S = 90.0  # (p) whole, and each of its child processes
+SIM_BUDGET_S = 90.0  # (p) and (q) together, and each of their child processes
 SIM_CORPUS = "tests/data/sim_seeds.json"
+SIM_SCENARIOS = "tests/data/adapt_scenarios"
 # What the JAX package's ``run_schedule`` gives on the CPU
 # (``scripts/sim_reference.py`` records and checks them), held as constants:
 # the JAX package does not run on the card.  Each corpus entry in order:
@@ -3885,47 +3928,143 @@ SIM_64 = {"seed": 1, "nodes": 64, "ok": True, "rounds": 89, "commits": 5633, "ti
           "journal_digest": "bdf8eabac0a7e887960f9ff18428e99fdc8aa0b9ce9bcdb11bb1e42270a9d4ad"}
 
 
+# (q1): the JAX package's ``explore_guided(budget=18, nodes=4, start_seed=0)``
+# on a copy of SIM_CORPUS (``scripts/sim_reference.py`` records it too)
+SIM_GUIDED = {
+    "budget": 18, "nodes": 4, "start_seed": 0, "generations": 2, "passed": 18, "threats": 12,
+    "best_fitness": 1016, "findings": 0, "regimes": {"network-bound": 18},
+    # each promoted entry: (seed, profile, ok, threats, journal digest)
+    "promoted": (
+        (5000016, "byz-collude", True, ("full-history-divergence",),
+         "7623281ae860d814dc94723a1473f3ef4677771a9e693cc689786ae692888c06"),
+        (5000018, "byz-collude", True, ("full-history-divergence",),
+         "fab4e391ca9e2f8d3dadbb6d2223e876f8e77d7ddb8c94cf86e63db2807b02ee"),
+        (1, "adaptive", True, ("liveness-stall",),
+         "4c555168441223855e807d5e143ead0834886ab8c114166f75066f8689275bee"),
+        (1000005, "adaptive", True, ("liveness-stall",),
+         "b583b641e2cbc29da8909457377bb3819f8e81068f14a6235e413a773d5201d3"),
+    ),
+    # emitted scenario files: these are the committed ones of SIM_SCENARIOS
+    "committed": ("adapt-1.json", "adapt-1000005.json", "adapt-5000016.json"),
+    # and this one is not committed
+    "emitted_sha256": {"adapt-5000018.json": "2b57ff9fab809b49a8d621b61691142675b9b7ef6d1b882b64b856db7e0feb9f"},
+    # the corpus copy once the search appended its one new entry
+    "corpus_sha256": "5c84d6c827a07b29a906675be4048fde300ce5e7d292deab251fcc8ccdd65695",
+}
+# (q2): the reference's planted safety bug (its tests/test_simnet.py): seed
+# 48's honest schedule at 4 nodes with this collusion event appended, and
+# the progress messages of the JAX package's ``shrink`` on it
+SIM_PLANTED = {"seed": 48, "nodes": 4,
+               "event": {"kind": "byz", "policy": "collude", "nodes": [0, 1], "at": 1.0, "until": None}}
+SIM_SHRINK_PROGRESS = (
+    "  shrink: dropped partition event, 5 remain",
+    "  shrink: dropped partition event, 4 remain",
+    "  shrink: dropped loss event, 3 remain",
+    "  shrink: dropped delay event, 2 remain",
+    "  shrink: dropped delay event, 1 remain",
+)
+# and its ``explore(seeds=12, nodes=4, start_seed=0)``
+SIM_EXPLORE = {"seeds": 12, "nodes": 4, "start_seed": 0, "passed": 12, "honest": 8, "byz": 4, "threats": 4,
+               "findings": 0, "regimes": {"network-bound": 12}}
+
+
+def sha256_file(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def sim_data_digests() -> dict:
+    """sha256 of the regression corpus and of every committed scenario
+    file, which no run of (p) or (q) may change."""
+    paths = [SIM_CORPUS] + sorted(os.path.join(SIM_SCENARIOS, name)
+                                  for name in os.listdir(os.path.join(ROOT, SIM_SCENARIOS)))
+    return {path: sha256_file(os.path.join(ROOT, path)) for path in paths}
+
+
+def planted_schedule() -> dict:
+    """(q2)'s input: SIM_PLANTED's event appended to its seed's schedule."""
+    from hotstuff_tpu_torch.sim.schedule import draw_schedule
+
+    schedule = draw_schedule(SIM_PLANTED["seed"], nodes=SIM_PLANTED["nodes"])
+    schedule["events"] = schedule["events"] + [dict(SIM_PLANTED["event"])]
+    return schedule
+
+
 def sim_phase(card: str, budget_s: float = SIM_BUDGET_S) -> dict:
-    """(p) the deterministic simulator (``hotstuff_tpu_torch/sim``) in two
-    child processes started together, each ``python -m
-    hotstuff_tpu_torch.sim`` in its own temporary directory under its own
-    deadline, so no loop, env var, logger or reactor of the earlier
-    phases reaches it: (p1)+(p2) the regression corpus (every entry the
-    ``ok`` the corpus records, the promoted ones its threats and journal
-    digest, every entry the JAX package's rounds, commits, timeouts and
-    digest) and seed 1 at 4 nodes twice (equal journals and flow
-    tables); (p3) seed 1 at 64 nodes (the JAX package's ``ok``, rounds,
-    commits, timeouts and digest).  The simulator verifies on the CPU,
-    as the reference's does: no kernel launches.  Prints the phase's wall
-    time and each run's."""
+    """(p) the deterministic simulator (``hotstuff_tpu_torch/sim``) and
+    (q) its explorer, in four child processes started together, each
+    ``python -m hotstuff_tpu_torch.sim`` in its own temporary directory
+    under the one deadline, so no loop, env var, logger or reactor of the
+    earlier phases reaches them: (p1)+(p2) the regression corpus (every
+    entry the ``ok`` the corpus records, the promoted ones its threats
+    and journal digest, every entry the JAX package's rounds, commits,
+    timeouts and digest) and seed 1 at 4 nodes twice (equal journals and
+    flow tables); (p3) seed 1 at 64 nodes (the JAX package's ``ok``,
+    rounds, commits, timeouts and digest); (q1) the guided search on a
+    copy of the corpus (the JAX package's counts, promotions, corpus
+    copy and scenario files, three of them the committed ones byte for
+    byte); (q2) the shrinker on the planted schedule (exactly the planted
+    event left, which still fails, and passes without it) and the flat
+    sweep's counts.  The corpus and the committed scenario files are
+    unchanged after.  The simulator verifies on the CPU, as the
+    reference's does: no kernel launches.  Prints the phase's wall time
+    and each part's."""
     import tempfile
 
     t0 = time.perf_counter()
+    print(f"(p) host cores: os.cpu_count() = {os.cpu_count()}, four child processes")
+    data_before = sim_data_digests()
     env = {**os.environ, "PYTHONPATH": ROOT}
-    jobs = {"p1+p2": [os.path.join(ROOT, SIM_CORPUS), "1", "1"], "p3": [f"{SIM_64['seed']}:{SIM_64['nodes']}"]}
+    g = SIM_GUIDED
     out = {}
     with tempfile.TemporaryDirectory(prefix="sim-phase-") as tmp:
+        corpus_copy = os.path.join(tmp, "corpus-copy.json")
+        shutil.copyfile(os.path.join(ROOT, SIM_CORPUS), corpus_copy)
+        planted = os.path.join(tmp, "planted.json")
+        with open(planted, "w") as f:
+            json.dump(planted_schedule(), f)
+        e = SIM_EXPLORE
+        jobs = {
+            "p1+p2": [os.path.join(ROOT, SIM_CORPUS), "1", "1"],
+            "p3": [f"{SIM_64['seed']}:{SIM_64['nodes']}"],
+            "q1": ["--corpus", corpus_copy, f"guided:{g['budget']}:{g['nodes']}:{g['start_seed']}"],
+            "q2": [f"shrink:{planted}", f"explore:{e['seeds']}:{e['nodes']}:{e['start_seed']}"],
+        }
         procs = {}
         try:
             for part, args in jobs.items():
                 workdir = os.path.join(tmp, part)
                 os.makedirs(workdir)
-                procs[part] = subprocess.Popen(
-                    [sys.executable, "-m", "hotstuff_tpu_torch.sim", "--workdir", workdir, *args],
-                    cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                # output to files, not pipes: a child never waits on a
+                # full pipe while the parent waits on another child
+                with open(os.path.join(tmp, f"{part}.out"), "w") as out_f, \
+                        open(os.path.join(tmp, f"{part}.err"), "w") as err_f:
+                    procs[part] = subprocess.Popen(
+                        [sys.executable, "-m", "hotstuff_tpu_torch.sim", "--workdir", workdir, *args],
+                        cwd=workdir, env=env, stdout=out_f, stderr=err_f)
             for part, proc in procs.items():
+                label = "(p)" if part.startswith("p") else f"({part})"
                 left = max(1.0, budget_s - (time.perf_counter() - t0))
                 try:
-                    stdout, stderr = proc.communicate(timeout=left)
+                    proc.wait(timeout=left)
                 except subprocess.TimeoutExpired:
                     proc.kill()
-                    proc.communicate()
-                    check(False, f"(p) {part}: the simulator did not finish within {budget_s} s")
-                check(proc.returncode == 0, f"(p) {part}: exit {proc.returncode}: {stderr[-2000:]}")
+                    proc.wait()
+                    check(False, f"{label} {part}: the simulator did not finish within {budget_s} s")
+                with open(os.path.join(tmp, f"{part}.out")) as f:
+                    stdout = f.read()
+                with open(os.path.join(tmp, f"{part}.err")) as f:
+                    stderr = f.read()
+                check(proc.returncode == 0, f"{label} {part}: exit {proc.returncode}: {stderr[-2000:]}")
                 lines = stdout.strip().splitlines()
-                check(len(lines) == 1, f"(p) {part}: one JSON line (got {len(lines)})")
+                check(len(lines) == 1, f"{label} {part}: one JSON line (got {len(lines)})")
                 out[part] = json.loads(lines[0])
                 out[part]["part_wall_s"] = time.perf_counter() - t0
+            emitted = {}
+            scenarios = os.path.join(tmp, "q1", "0", "scenarios")
+            if os.path.isdir(scenarios):
+                emitted = {name: sha256_file(os.path.join(scenarios, name)) for name in os.listdir(scenarios)}
+            corpus_sha = sha256_file(corpus_copy)
         finally:
             for proc in procs.values():
                 if proc.poll() is None:
@@ -3958,11 +4097,64 @@ def sim_phase(card: str, budget_s: float = SIM_BUDGET_S) -> dict:
     check(big["nodes"] == SIM_64["nodes"] and all(big[k] == SIM_64[k] for k in ("ok", "rounds", "commits", "timeouts"))
           and big["normalised_digest"] == SIM_64["journal_digest"],
           "(p3) seed 1 at 64 nodes: the JAX package's ok, rounds, commits, timeouts and journal digest")
-    print(f"(p) took {wall:.1f} s: (p1)+(p2) {out['p1+p2']['wall_s']:.1f} s in its child "
+    explorer_checks(out["q1"]["runs"][0], out["q2"]["runs"], emitted, corpus_sha, card)
+    data_after = sim_data_digests()
+    check(data_after == data_before, f"(q) the corpus and the committed scenario files are unchanged "
+          f"({[k for k in data_before if data_after.get(k) != data_before[k]]})")
+    print(f"(q) {len(data_after)} committed files unchanged (sha256 before and after) [{card}]")
+    print(f"(p) and (q) took {wall:.1f} s: (p1)+(p2) {out['p1+p2']['wall_s']:.1f} s in its child "
           f"({sum(r['wall_s'] for r in corpus):.1f} s corpus, {a['wall_s'] + b['wall_s']:.1f} s twice), "
-          f"(p3) {out['p3']['wall_s']:.1f} s in its child [{card}]")
-    check(wall <= budget_s, f"(p) within {budget_s} s")
-    return {"wall_s": wall, "p3": big, "corpus_s": out["p1+p2"]["wall_s"], "p3_s": out["p3"]["wall_s"]}
+          f"(p3) {out['p3']['wall_s']:.1f} s, (q1) {out['q1']['wall_s']:.1f} s, "
+          f"(q2) {out['q2']['wall_s']:.1f} s, each in its child [{card}]")
+    check(wall <= budget_s, f"(p) and (q) within {budget_s} s")
+    return {"wall_s": wall, "p3": big, "corpus_s": out["p1+p2"]["wall_s"], "p3_s": out["p3"]["wall_s"],
+            "q1_s": out["q1"]["wall_s"], "q2_s": out["q2"]["wall_s"]}
+
+
+def explorer_checks(guided: dict, q2: list, emitted: dict, corpus_sha: str, card: str) -> None:
+    """(q)'s checks on the explorer children's JSON lines against the JAX
+    package's results (SIM_GUIDED, SIM_PLANTED, SIM_SHRINK_PROGRESS,
+    SIM_EXPLORE)."""
+    g = SIM_GUIDED
+    print(f"(q1) guided search, budget {guided['budget']} at {guided['nodes']} nodes from seed "
+          f"{guided['start_seed']}: {guided['generations']} generations, {guided['passed']} passed, "
+          f"{guided['threats']} threats, best fitness {guided['best_fitness']}, {len(guided['findings'])} "
+          f"findings, regimes {guided['regimes']}, {guided['wall_s']:.1f} s [{card}]")
+    check(all(guided[k] == g[k] for k in ("budget", "nodes", "start_seed", "generations", "passed", "threats",
+                                          "best_fitness", "regimes")) and len(guided["findings"]) == g["findings"],
+          "(q1) the JAX package's budget, generations, passed, threats, best fitness, findings and regimes")
+    promoted = tuple((e["seed"], e["profile"], e["ok"], tuple(e["threats"]), e["journal_digest"])
+                     for e in guided["promoted"])
+    for row in promoted:
+        print(f"(q1) promoted: seed {row[0]} {row[1]}, ok {row[2]}, threats {list(row[3])}, "
+              f"journal {row[4][:16]} [{card}]")
+    check(promoted == g["promoted"], "(q1) the JAX package's promoted entries (seed, profile, ok, threats, "
+          "normalised journal digest)")
+    want = {name: sha256_file(os.path.join(ROOT, SIM_SCENARIOS, name)) for name in g["committed"]}
+    want.update(g["emitted_sha256"])
+    check(guided["scenarios"] == emitted, "(q1) the child's scenario digests are the files it left")
+    for name in sorted(want):
+        print(f"(q1) {name}: {emitted.get(name, 'missing')[:16]}, "
+              f"{'the committed file' if name in g['committed'] else 'the JAX run'}'s {want[name][:16]}")
+    check(emitted == want, "(q1) the emitted scenario files: three byte for byte the committed ones, "
+          "the fourth the JAX run's")
+    check(corpus_sha == g["corpus_sha256"], "(q1) the appended corpus copy equals the JAX package's")
+    shrunk, flat = q2
+    print(f"(q2) shrink of seed {shrunk['seed']} with the planted event: {shrunk['events']} events down to "
+          f"{shrunk['minimal_events']}; minimal ok {shrunk['minimal_ok']}, without events ok "
+          f"{shrunk['clean_ok']}, {shrunk['wall_s']:.1f} s [{card}]")
+    check(shrunk["seed"] == SIM_PLANTED["seed"] and shrunk["minimal_events"] == [SIM_PLANTED["event"]],
+          "(q2) the minimal schedule is exactly the planted event")
+    check(tuple(shrunk["progress"]) == SIM_SHRINK_PROGRESS, "(q2) the JAX package's shrink steps")
+    check(shrunk["minimal_ok"] is False and shrunk["clean_ok"] is True,
+          "(q2) the minimal schedule still fails, and passes with no events")
+    print(f"(q2) flat sweep, {flat['seeds']} seeds at {flat['nodes']} nodes from seed {flat['start_seed']}: "
+          f"{flat['passed']} passed, {flat['honest']} honest, {flat['byz']} byz, {flat['threats']} threats, "
+          f"{len(flat['findings'])} findings, regimes {flat['regimes']}, {flat['wall_s']:.1f} s [{card}]")
+    e = SIM_EXPLORE
+    check(all(flat[k] == e[k] for k in ("seeds", "nodes", "start_seed", "passed", "honest", "byz", "threats",
+                                        "regimes")) and len(flat["findings"]) == e["findings"],
+          "(q2) the JAX package's flat sweep counts")
 
 
 def running_total(t_start: float, phase: str) -> float:
@@ -4219,9 +4411,9 @@ def main() -> int:
     adv_kernels = adversary_kernel_check(card)
     adv_launches, adv_r = adversary_phase(card, node_r)
     print(f"phase (o) took {time.perf_counter() - t0:.1f} s")
-    t0 = running_total(t_start, "(p)")
+    t0 = running_total(t_start, "(p) and (q)")
     sim_phase(card)
-    print(f"phase (p) took {time.perf_counter() - t0:.1f} s")
+    print(f"phase (p) and (q) took {time.perf_counter() - t0:.1f} s")
     t0 = running_total(t_start, "(k)")
     g1, g1_launches, bls_r = bls_phase(card)
     print(f"phase (k) took {time.perf_counter() - t0:.1f} s")

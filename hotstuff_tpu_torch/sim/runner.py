@@ -104,9 +104,16 @@ class SimVerdict:
     #: must reproduce them byte-for-byte (tests/test_flows.py).  None
     #: when accounting is disabled.
     flows: dict | None = None
+    #: ``journal_digest`` with the records' ``src`` written under the
+    #: reference's logger root (:func:`normalised_journal_digest`): the
+    #: digest the explorer writes into the shared corpus and into emitted
+    #: scenarios.  Not part of ``to_json``, whose shape is the reference's.
+    normalised_digest: str = dataclasses.field(default="", repr=False)
 
     def to_json(self) -> dict:
-        return dataclasses.asdict(self)
+        doc = dataclasses.asdict(self)
+        del doc["normalised_digest"]
+        return doc
 
 
 class _LogCapture(logging.Handler):
@@ -155,17 +162,32 @@ def _render_logs(
             f.write("\n".join(lines[i]) + ("\n" if lines[i] else ""))
 
 
+def _journal_lines(
+    records: list[tuple[float, str, str]], reference: bool = False
+) -> bytes:
+    """The merged journal's bytes; with ``reference`` each ``src`` is
+    written under the reference's logger root."""
+    rename = _reference_name if reference else (lambda src: src)
+    return "".join(
+        json.dumps({"t": round(vt, 6), "src": rename(name), "msg": msg})
+        + "\n"
+        for vt, name, msg in records
+    ).encode()
+
+
+def _reference_name(src: str) -> str:
+    if src == LOGGER or src.startswith(LOGGER + "."):
+        return REFERENCE_LOGGER + src[len(LOGGER):]
+    return src
+
+
 def _write_journal(
     records: list[tuple[float, str, str]], path: str
 ) -> str:
     """Merged run journal: one JSONL line per captured record, virtual
     timestamps, stable key order.  Returns the sha256 hex digest — the
     byte-identity witness for the determinism contract."""
-    payload = "".join(
-        json.dumps({"t": round(vt, 6), "src": name, "msg": msg})
-        + "\n"
-        for vt, name, msg in records
-    ).encode()
+    payload = _journal_lines(records)
     with open(path, "wb") as f:
         f.write(payload)
     return hashlib.sha256(payload).hexdigest()
@@ -181,9 +203,7 @@ def normalised_journal_digest(path: str) -> str:
     with open(path, "rb") as f:
         for line in f:
             rec = json.loads(line)
-            src = rec["src"]
-            if src == LOGGER or src.startswith(LOGGER + "."):
-                rec["src"] = REFERENCE_LOGGER + src[len(LOGGER):]
+            rec["src"] = _reference_name(rec["src"])
             out.append(json.dumps(rec) + "\n")
     return hashlib.sha256("".join(out).encode()).hexdigest()
 
@@ -376,6 +396,9 @@ def run_schedule(schedule: dict, workdir: str | None = None) -> SimVerdict:
         timeouts=timeouts,
         attribution=attribution,
         flows=cluster.flow_tables or None,
+        normalised_digest=hashlib.sha256(
+            _journal_lines(capture.records, reference=True)
+        ).hexdigest(),
     )
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Phase (g) of ``chip_smoke.py`` alone, several times, with its node
-process's boot sampled: where a 64-node ``run-many`` spends its boot.
+process's boot sampled: where a 64-node ``run-many`` spends its boot;
+or, with ``--phase split``, phase (n1) alone several times.
 
-    python3 scripts/boot_probe.py [--tree DIR] [--runs 6] [--out DIR]
+    python3 scripts/boot_probe.py [--tree DIR] [--runs 6] [--out DIR] [--phase boot|split]
 
 Needs a CUDA card (phase (g) runs ``--verifier cuda``).  ``--tree`` runs
 the phase of another checkout (a ``git archive`` of another commit
@@ -18,6 +19,13 @@ log (boot spread, first node's boot, last boot to block 1, block 1 to
 block 2, round-1 timeouts, fd probe) and the seconds from the process's
 start to the first node's spawn by what the main thread was doing
 (imports, ``Node.new``'s steps, the rest).
+
+``--phase split`` runs phase (e) (``node_phase``) once for the boot time
+(n1) opens its window after, then ``split_brain_phase`` ``--runs`` times,
+unsampled: each run prints the phase's own lines, its ``cut timeline``
+among them (nodes that timed out in the 10 s before the cut, the first
+timeout after it, the nodes whose first one ran after the heal, nodes
+dropping nothing), and a line with its verdict.
 """
 
 from __future__ import annotations
@@ -117,6 +125,24 @@ def _module(name: str, path: str):
     return mod
 
 
+def split_runs(smoke, card: str, runs: int) -> int:
+    """(e) once, then (n1) ``runs`` times; a failed check is a verdict."""
+    _launches, base = smoke.node_phase(card)
+    print(f"(e) boot {base['boot_s']:.2f} s", flush=True)
+    passed = 0
+    for i in range(runs):
+        t0 = time.perf_counter()
+        try:
+            smoke.split_brain_phase(card, base)
+            verdict = "pass"
+            passed += 1
+        except Exception as e:  # noqa: BLE001 — a failed run is a result here
+            verdict = f"FAIL ({e})"
+        print(f"split run {i}: {verdict} in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    print(f"split runs: {passed} of {runs} passed [{card}]")
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--sample":
         sample_and_run_node(sys.argv[2], sys.argv[3:])
@@ -125,6 +151,7 @@ def main() -> int:
     parser.add_argument("--tree", default=ROOT)
     parser.add_argument("--runs", type=int, default=6)
     parser.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "boot_probe"))
+    parser.add_argument("--phase", choices=("boot", "split"), default="boot")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     ours = _module("boot_probe_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -140,6 +167,8 @@ def main() -> int:
     libs = [_native_build.build(name) for name in _native_build.LIBRARIES]
     print(f"card: {card}; tree {tree}; built in {time.perf_counter() - t0:.1f} s: "
           f"{[p.name for p in libs]}", flush=True)
+    if args.phase == "split":
+        return split_runs(smoke, card, args.runs)
     popen = subprocess.Popen
     run = {"i": 0}
 
