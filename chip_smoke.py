@@ -117,9 +117,10 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    card;
 14. (i) the node CLI of (e) with the telemetry plane on (``--metrics-port
    0 --journal-dir <dir> --profile`` and ``HOTSTUFF_WORK_STATS=1``):
-   ``/metrics``, ``/snapshot``, ``/trace`` and ``/delta`` scraped at 8 s
-   and 16 s of the load and once after it — OpenMetrics with every family
-   typed, 64 node labels, no counter falling between scrapes, the route
+   ``/metrics``, ``/snapshot``, ``/trace`` and ``/delta`` scraped at 0.4
+   and 0.8 of its 14 s load (``TELEMETRY_LOAD_S``) and once after it —
+   OpenMetrics with every family typed, 64 node labels, no counter
+   falling between scrapes, the route
    counts at most the final stats line's, device wall seconds wherever
    device or probe waves ran, 64 snapshot documents each a superset of
    the ``Work stats:`` one, a ``/delta`` frame decoding against the one
@@ -172,10 +173,13 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    ``chiprun_out/wan_phase/``);
 17. (n) the chaos plane (``faults/plane.py``) on the node CLI, each a
    spec of the port's ``faults.scenarios`` over the committee file's 64
-   addresses, its window opening 15 s after the boot (e) (or (g))
-   measured: (n1) ``split_brain_phase``: (e) with ``--fault-plane <spec>
-   --metrics-port 0 --journal-dir <dir>``, the members cut 32 against 32
-   (quorum 43) for 13 s: every node logs ``Fault plane active`` with its
+   addresses, its window opening 15 s (n2) or 28 s (n1) after the boot
+   (e) (or (g)) measured: (n1) ``split_brain_phase``: (e) with
+   ``--fault-plane <spec> --metrics-port 0 --journal-dir <dir>``, the
+   client sending from the boot (no settle time) to 5 s past the heal,
+   the lead long enough that most members have led a round, so their
+   connections to every peer are open before the cut, the members cut
+   32 against 32 (quorum 43) for 13 s: every node logs ``Fault plane active`` with its
    index, some round commits before the window, no new round from its
    open + 5 s to the heal, a new round within the scenario's 20 s of the
    heal, one digest a committed round, every node's ``fault_plane``
@@ -231,7 +235,15 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    flat sweep ``explore:12:4:0`` (``SIM_EXPLORE``); the corpus and the
    committed scenario files have the same sha256 after as before;
    prints the host's core count, each part's and the phase's wall time;
-20. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
+20. (r) the port's static analysis plane (``analysis_phase``, host only):
+   one child process under a 60 s deadline runs ``python -m
+   hotstuff_tpu_torch.analysis check --json`` on this tree (no finding,
+   no allowlisted key), ``gen-knobs --check`` (the port's
+   ``analysis/KNOBS.md`` fresh) and ``check`` on a temporary root
+   holding one planted ``time.sleep`` in an ``async def`` under
+   ``hotstuff_tpu_torch/consensus/`` (exit 1, exactly that finding);
+   prints each command's exit and seconds;
+21. (k) BLS at BASELINE config 5's size (``bls_phase``): (k1) the three
    G1 kernels (``gpu/csrc/g1_kernels.cu``) against their plain versions
    on the card and against the oracle (``crypto/bls/curve.py``), X, Y and
    Z as integers mod q, tolerance zero: the tree sum at B = 256 (171
@@ -261,7 +273,7 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    agree, compact QCs were emitted, and the running-sum kernel launched
    at least once for every vote those QCs summed (logs in
    ``chiprun_out/bls_phase/``);
-21. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
+22. (l) the mesh verifier (``mesh_phase``) on the mesh of every visible
    card (``default_mesh()``, one card here) and on four shards of card 0
    (``Mesh([cuda:0] * 4)``, the port's counterpart of XLA's forced host
    device count): (l1) ``ShardedBatchVerifier`` after ``precompute`` and
@@ -280,7 +292,7 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    --mesh-devices 1`` (logs in ``chiprun_out/mesh_phase/``): the checks
    of (e) and ``mesh=`` > 0 and equal to ``device=`` in the last stats
    line.  Prints a ``mesh {json}`` line;
-22. a ``{"kernels": [...]}`` line, then the last line
+23. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is the sum
    over the main-path runs (3, (a)-(j), (m), (n), (o) and (l) for the Ed25519
    verify kernel, (k2), (k3), (l3) and (o)'s direct check for the G1
@@ -293,7 +305,7 @@ verdict against the arbitrary-precision oracle (``ed25519_ref.verify``):
    (``b2b_ms``) and an empty launch's time taken the same way as its
    ``ms`` (``floor_ms``).
 
-The phases run in the order (a)-(j), (m), (n1), (n2), (o), (p) with (q), (k), (l);
+The phases run in the order (a)-(j), (m), (n1), (n2), (o), (p) with (q), (r), (k), (l);
 before each, the script prints its running total (host clock), and
 after each the phase's own time (``phase (x) took``).  Every node-CLI
 phase prints a ``boot and round 1`` line (``boot_timeline``) before
@@ -340,6 +352,9 @@ REPEATED_LAUNCHES = 20
 QC_CALLS = 20
 SPLIT_TRIALS = 3  # more fresh wave services through the verify split in (h)
 WATCHDOG_S = 1080
+# the load of (i) in main(), cut from 20 s so that the whole script keeps
+# its budget with (n1)'s longer lead and phase (r)
+TELEMETRY_LOAD_S = 14
 
 # Peak rates of one H100 SXM used for the bound (at its 700 W limit):
 # HBM 3.35 TB/s (data sheet); int32 multiply-adds at 64 lanes per SM per
@@ -1528,7 +1543,7 @@ def committee_files(tmp: str, nodes: int, phase: str, timeout_delay: int | None 
 def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 20,
                verifier: str = "cuda", transport: str = "asyncio", label: str | None = None,
                extra_args=(), extra_env=None, during=None, files=None, scheme: str = "ed25519",
-               native_libs=None):
+               native_libs=None, client_until: float | None = None, client_warmup: float = 2.0):
     """(e), (g) with ``transport="native"``, and (k3) with
     ``scheme="bls"``: the node CLI, a
     ``run-many`` committee process and the producer client process, both
@@ -1538,8 +1553,11 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
     service, so the stats and launch checks are skipped.  ``label``
     names the phase and its log directory under ``chiprun_out/``;
     ``extra_args`` and ``extra_env`` go to the ``run-many`` process;
-    ``during(node_log_path, client_log_path, client)`` runs once the
-    client process started, before the phase waits for it to exit;
+    ``client_until`` (unix time), if given, stretches the client's load
+    to end then; ``client_warmup`` is the client's ``--warmup``, its
+    settle time once every port listens; ``during(node_log_path,
+    client_log_path, client)`` runs once the client process started,
+    before the phase waits for it to exit;
     ``files`` are the caller's ``committee_files`` (new ones by default).
     ``scheme="bls"``: BLS key files (they decide the scheme), ``run-many
     --metrics-port 0`` (the telemetry snapshots carry the compact-QC
@@ -1592,9 +1610,12 @@ def node_phase(card: str, nodes: int = 64, rate: int = 1000, duration: float = 2
                     time.sleep(0.5)
                 if native_libs is not None:
                     loaded = loaded_native_libraries(node.pid) if node.poll() is None else set()
+                if client_until is not None:
+                    duration = max(duration, round(client_until - time.time() - client_warmup, 2))
                 procs.append(subprocess.Popen(
                     [sys.executable, "-m", "hotstuff_tpu_torch.node.client", "--committee", committee_file,
-                     "--rate", str(rate), "--size", "512", "--duration", str(duration), "--warmup", "2"],
+                     "--rate", str(rate), "--size", "512", "--duration", str(duration),
+                     "--warmup", f"{client_warmup:g}"],
                     stdout=client_log, stderr=subprocess.STDOUT, env=env))
                 client = procs[1]
                 if during is not None:
@@ -2535,6 +2556,18 @@ FAULT_LEAD_S = 15.0  # from the committee's boot to a window's open: the client 
 # (7 nodes dropped nothing in one run).  13 s still heals before any
 # node's second timeout (its first + the 10 s backed-off timer).
 SPLIT_WINDOW_S = 13.0
+# (n1)'s lead, from the boot (e) measured to the cut.  A node's first
+# timeout in the cut round is also its first broadcast to the 63 peers
+# unless it has led a round (a proposal is the other broadcast): it opens
+# those connections then, on the one loop, and the 64 handlers spread
+# past the heal when about 45 members had not led (a 15 s lead, ~13-30
+# rounds).  Leaders rotate through the sorted keys, one a round, so with
+# (e)'s 0.65-2.5 rounds a second a 28 s lead lets most members lead
+# before the cut.  The client sends from the boot (no settle time): with
+# the 2 s one round 1's block came 2.1-3.8 s after the last boot against
+# 5 s timers that started up to 1.1 s before it, and a timeout round
+# under load stalls a committee for tens of seconds.
+SPLIT_LEAD_S = 28.0
 
 
 RE_CORE_TIMEOUT = re.compile(_TS + r" \[\w+\] hotstuff_tpu_torch\.consensus\.core\.(\S+) Timeout reached for round (\d+)")
@@ -2611,14 +2644,42 @@ def loop_lag_ms(node_text: str, t0: float | None, t1: float) -> float | None:
     return sum(means) / len(means) if means else None
 
 
+def split_timeline(phase: str, card: str, node_log: str, epoch: float, open_at: float, heal_at: float) -> dict:
+    """(n1)'s view of its run from the node log, printed and returned,
+    whether or not the run passed: the node process's boot (its last
+    ``successfully booted`` line), the first commit and the highest
+    round committed before the open (rounds and leaders rotate
+    together), all in s after the spec's t=0, and ``cut_timeline``."""
+    with open(node_log) as f:
+        text = f.read()
+    boots = [_ts(ts) for ts, _ in RE_BOOTED.findall(text)]
+    seen = commits_at(text)
+
+    def since(t):
+        return None if t is None else round(t - epoch, 2)
+
+    out = {"window_s": [since(open_at), since(heal_at)], "boot_s": since(max(boots, default=None)),
+           "first_commit_s": since(seen[0][0] if seen else None),
+           "last_round_before_open": max((rnd for t, rnd in seen if t <= open_at), default=None),
+           "cut": cut_timeline(text, open_at, heal_at)}
+    cut = out["cut"]
+    print(f"{phase} cut timeline: window {out['window_s']} s after t=0, the node process booted at "
+          f"{out['boot_s']} s, first commit {out['first_commit_s']} s, round {out['last_round_before_open']} "
+          f"the last committed before the open; {cut['timed_out_in_10_s_before']} nodes timed out in the 10 s "
+          f"before the open; first timeouts after it {cut['first_after_open_s']} s; after the heal "
+          f"({round(heal_at - open_at, 2)} s), with a timeout before the open: {cut['none_before_heal']} [{card}]")
+    return out
+
+
 def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, window_s: float = SPLIT_WINDOW_S,
                       verifier: str = "cuda"):
     """(n1) (e)'s committee under the port's ``faults.scenarios.split_brain``:
     the committee file's 64 members cut 32 against 32 (quorum 43, so
     neither half has one) for ``window_s`` seconds, the window opening
-    ``FAULT_LEAD_S`` after the boot (e) measured (``base``), handed to
+    ``SPLIT_LEAD_S`` after the boot (e) measured (``base``), handed to
     ``run-many --fault-plane <spec> --metrics-port 0 --journal-dir D``
-    with the client's 1,000 tx/s of 512 B.  Every node logs ``Fault plane
+    with the client's 1,000 tx/s of 512 B from the boot (``--warmup 0``)
+    to 5 s past the heal.  Every node logs ``Fault plane
     active`` with its index; some round commits before the window; no
     new round commits from its open plus ``FAULT_DRAIN_S`` to the heal; a
     new round commits within the scenario's ``liveness.resume_within_s``
@@ -2626,18 +2687,19 @@ def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, 
     node's ``fault_plane`` section (``/snapshot`` after the resumption)
     has ``dropped > 0`` and ``inbound_dropped == 0``; every node journals
     ``fault.open`` and ``fault.close`` at the spec's times, within the
-    loop's worst lag; K1 launches after boot.  Prints where the window
-    fell against the first commit, the rounds and the loop's lag inside
-    the window and before it, and the time to resume.  Returns the
-    verify kernel's launches in the node process and what the logs
-    say."""
+    loop's worst lag; K1 launches after boot.  Prints ``split_timeline``
+    before the checks (a failed run's is on the raised error as
+    ``split_brain``), then where the window fell against the first
+    commit, the rounds and the loop's lag inside the window and before
+    it, and the time to resume.  Returns the verify kernel's launches in
+    the node process and what the logs say."""
     import tempfile
 
     from hotstuff_tpu_torch.faults import scenarios
     from hotstuff_tpu_torch.node.config import read_committee
 
     phase = "split-brain phase"
-    at = base["boot_s"] + FAULT_LEAD_S
+    at = base["boot_s"] + SPLIT_LEAD_S
     until = at + window_s
     scraped: dict = {}
     with tempfile.TemporaryDirectory(prefix="split-brain-") as tmp, contextlib.ExitStack() as ports:
@@ -2666,12 +2728,18 @@ def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, 
             scraped["snapshot"] = json.loads(scrape(port, "/snapshot")["body"])
 
         jdir = os.path.join(tmp, "journals")
-        # the load runs through the window and past the heal
-        duration = max(20.0, until - base["boot_s"] + 5.0)
-        launches, r = node_phase(card, nodes, rate, duration, verifier, label=phase, files=files,
-                                 extra_args=("--fault-plane", spec_path, "--metrics-port", "0",
-                                             "--journal-dir", jdir), during=during)
+        try:
+            # the load runs through the window and past the heal
+            launches, r = node_phase(card, nodes, rate, 20.0, verifier, label=phase, files=files,
+                                     extra_args=("--fault-plane", spec_path, "--metrics-port", "0",
+                                                 "--journal-dir", jdir), during=during,
+                                     client_until=heal_at + 5.0, client_warmup=0.0)
+        except Exception as e:
+            if os.path.exists(node_log):
+                e.split_brain = split_timeline(phase, card, node_log, epoch, open_at, heal_at)
+            raise
         journals = read_journals(jdir)
+    timeline = split_timeline(phase, card, node_log, epoch, open_at, heal_at)
     with open(node_log) as f:
         node_text = f.read()
     active = RE_FAULT_ACTIVE.findall(node_text)
@@ -2687,6 +2755,7 @@ def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, 
     before_heal = max((rnd for t, rnd in seen if t <= heal_at), default=0)
     resumed = [(t, rnd) for t, rnd in seen if t > heal_at and rnd > before_heal]
     resume_s = resumed[0][0] - heal_at if resumed else None
+    sections = [doc.get("fault_plane") for doc in scraped.get("snapshot", {}).values()]
     check(bool(pre), f"{phase}: some round commits before the window opens (first commit at "
                      f"{None if first is None else round(first - epoch, 2)} s, window at {at:.2f} s)")
     check(not inside or max(inside) <= max(pre_stall),
@@ -2695,17 +2764,12 @@ def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, 
     check(resume_s is not None and resume_s <= resume_within,
           f"{phase}: a new round commits within {resume_within} s of the heal ({resume_s})")
     check(r["rounds_agree"], f"{phase}: every committed round names one digest on every node")
-    sections = [doc.get("fault_plane") for doc in scraped.get("snapshot", {}).values()]
-    cut = cut_timeline(node_text, open_at, heal_at)
-    print(f"{phase} cut timeline: {cut['timed_out_in_10_s_before']} nodes timed out in the 10 s before the "
-          f"open; first timeouts after it {cut['first_after_open_s']} s; after the heal ({window_s} s), with a "
-          f"timeout before the open: {cut['none_before_heal']}; nodes dropping nothing "
-          f"{sum(1 for s in sections if s and s['dropped'] == 0)}; {r['timeouts']} timeouts in all [{card}]")
     check(len(sections) == nodes and all(s is not None for s in sections),
           f"{phase}: a fault_plane section in every node's snapshot ({len(sections)})")
     check(all(s["dropped"] > 0 and s["inbound_dropped"] == 0 for s in sections),
           f"{phase}: every node dropped frames across the cut and swallowed none inbound "
-          f"(dropped {min(s['dropped'] for s in sections)}-{max(s['dropped'] for s in sections)})")
+          f"(dropped {min(s['dropped'] for s in sections)}-{max(s['dropped'] for s in sections)}, "
+          f"{sum(1 for s in sections if s['dropped'] == 0)} nodes dropping nothing)")
     lag_max_s = max((json.loads(doc).get("loop_lag_max_ms", 0.0) for _, _, doc in RE_SNAPSHOT_AT.findall(node_text)),
                     default=0.0) / 1e3
     edges = collections.defaultdict(list)
@@ -2732,7 +2796,7 @@ def split_brain_phase(card: str, base: dict, nodes: int = 64, rate: int = 1000, 
            "resume_s": resume_s, "resumed_round": resumed[0][1] if resumed else None,
            "loop_lag_before_ms": lag_pre, "loop_lag_in_window_ms": lag_in, "loop_lag_max_ms": lag_max_s * 1e3,
            "dropped": [min(s["dropped"] for s in sections), max(s["dropped"] for s in sections)],
-           "cut_timeline": cut,
+           "split_timeline": timeline,
            "edges_late_s": {k: max(t - (at if k == "fault.open" else until) for _, t in v)
                             for k, v in edges.items()}}
     r.update(split_brain=out)
@@ -4157,6 +4221,70 @@ def explorer_checks(guided: dict, q2: list, emitted: dict, corpus_sha: str, card
           "(q2) the JAX package's flat sweep counts")
 
 
+# ---- (r) the static analysis plane ------------------------------------------
+
+ANALYSIS_BUDGET_S = 60.0  # (r)'s one child process
+# (r)'s planted violation: the one finding ``check`` must give on a root
+# holding only this file
+ANALYSIS_PLANTED = ("hotstuff_tpu_torch/consensus/planted.py",
+                    "import time\n\n\nasync def stall():\n    time.sleep(0.1)\n")
+ANALYSIS_PLANTED_FINDING = {"rule": "no-blocking-in-async", "path": ANALYSIS_PLANTED[0], "line": 5,
+                            "code": "time.sleep"}
+# the child: the three commands through the package's own CLI entry, each
+# command's exit code, stdout and seconds in one JSON line
+ANALYSIS_CHILD = """
+import contextlib, io, json, sys, time
+from hotstuff_tpu_torch.analysis.__main__ import main
+out = {}
+for name, argv in (("check", ["check", "--json"]), ("gen-knobs", ["gen-knobs", "--check"]),
+                   ("planted", ["check", "--json", "--root", sys.argv[1]])):
+    buf, t0 = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out[name] = {"rc": rc, "stdout": buf.getvalue(), "s": time.perf_counter() - t0}
+print(json.dumps(out))
+"""
+
+
+def analysis_phase(card: str, budget_s: float = ANALYSIS_BUDGET_S) -> dict:
+    """(r) the port's static analysis plane (``hotstuff_tpu_torch/analysis``)
+    on this host: one child process, killed at ``budget_s``, runs
+    ``check --json`` on this tree, ``gen-knobs --check`` and ``check
+    --json`` on a temporary root holding ``ANALYSIS_PLANTED`` alone.
+    The tree has no finding and no allowlist key, its knob table is
+    fresh, and the planted root exits 1 with exactly
+    ``ANALYSIS_PLANTED_FINDING``.  Returns the child's results."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="analysis-planted-") as planted:
+        path = os.path.join(planted, *ANALYSIS_PLANTED[0].split("/"))
+        os.makedirs(os.path.dirname(path))
+        with open(path, "w") as f:
+            f.write(ANALYSIS_PLANTED[1])
+        child = subprocess.run([sys.executable, "-c", ANALYSIS_CHILD, planted], cwd=ROOT,
+                               env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True, text=True,
+                               timeout=budget_s)
+    wall = time.perf_counter() - t0
+    check(child.returncode == 0, f"(r) the analysis child exited with {child.returncode}: {child.stderr[-2000:]}")
+    out = json.loads(child.stdout.strip().splitlines()[-1])
+    tree, knobs, bad = out["check"], out["gen-knobs"], out["planted"]
+    doc, bad_doc = json.loads(tree["stdout"]), json.loads(bad["stdout"])
+    print(f"(r) analysis check: exit {tree['rc']} in {tree['s']:.2f} s, {len(doc['findings'])} findings, "
+          f"{len(doc['allowlisted'])} allowlisted, {len(doc['stale_allowlist'])} stale; gen-knobs --check: "
+          f"exit {knobs['rc']} in {knobs['s']:.2f} s ({knobs['stdout'].strip()}); planted tree: exit {bad['rc']} "
+          f"in {bad['s']:.2f} s, {[(f['rule'], f['path'], f['line'], f['code']) for f in bad_doc['findings']]}; "
+          f"{wall:.2f} s in its child process [{card}]")
+    check(tree["rc"] == 0 and doc["findings"] == [],
+          f"(r) the port's tree has no finding ({[f['key'] for f in doc['findings']]})")
+    check(doc["allowlisted"] == [] and doc["stale_allowlist"] == [], "(r) the port's allowlist has no key")
+    check(knobs["rc"] == 0 and knobs["stdout"].startswith("OK:"), "(r) the port's knob table is fresh")
+    check(bad["rc"] == 1 and [{k: f[k] for k in ANALYSIS_PLANTED_FINDING} for f in bad_doc["findings"]]
+          == [ANALYSIS_PLANTED_FINDING], f"(r) the planted root gives exactly its one finding ({bad_doc})")
+    out["wall_s"] = wall
+    return out
+
+
 def running_total(t_start: float, phase: str) -> float:
     """Print the script's wall time so far, before ``phase`` starts, and
     return the phase's start."""
@@ -4393,7 +4521,7 @@ def main() -> int:
     print(f"phase (h) took {time.perf_counter() - t0:.1f} s")
     check(bench_launches > 0, "the verifier bench never launched the verify kernel")
     t0 = running_total(t_start, "(i)")
-    telemetry_launches, telemetry_r = telemetry_phase(card)
+    telemetry_launches, telemetry_r = telemetry_phase(card, duration=TELEMETRY_LOAD_S)
     print(f"phase (i) took {time.perf_counter() - t0:.1f} s")
     t0 = running_total(t_start, "(j)")
     health_launches, health_r = health_phase(card)
@@ -4414,6 +4542,9 @@ def main() -> int:
     t0 = running_total(t_start, "(p) and (q)")
     sim_phase(card)
     print(f"phase (p) and (q) took {time.perf_counter() - t0:.1f} s")
+    t0 = running_total(t_start, "(r)")
+    analysis_phase(card)
+    print(f"phase (r) took {time.perf_counter() - t0:.1f} s")
     t0 = running_total(t_start, "(k)")
     g1, g1_launches, bls_r = bls_phase(card)
     print(f"phase (k) took {time.perf_counter() - t0:.1f} s")

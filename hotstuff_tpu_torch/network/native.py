@@ -353,6 +353,8 @@ def _resolve(host: str) -> str | None:
     except ValueError:
         pass
     hit = _RESOLVE_CACHE.get(host)
+    # lint: allow(clock-discipline) -- DNS-cache TTL on the native
+    # transport path; the simulator only drives transport="sim"
     now = time.monotonic()
     if hit is not None and (hit[0] is not None or now < hit[1]):
         return hit[0]
@@ -469,6 +471,8 @@ class NativeSimpleSender:
     ) -> None:
         """Send to ``nodes`` randomly-picked peers (the module-level
         ``random``, as the reference's native sender draws them)."""
+        # lint: allow(clock-discipline) -- native-transport-only helper;
+        # the sim's lucky_broadcast runs the asyncio sender via the seam
         picks = random.sample(addresses, min(nodes, len(addresses)))
         if self._flows is not None and picks:
             self._flows.logical(payload)
@@ -662,6 +666,8 @@ class NativeReliableSender:
             if delay > self.RETRY_DELAY_S:
                 # full jitter past the first retry, as the asyncio
                 # ReliableSender: spread post-heal reconnects
+                # lint: allow(clock-discipline) -- reconnect jitter on
+                # the native reactor; never runs under the simulator
                 delay = random.uniform(0, delay)
             if self._retry_handle.get(pid) is None:
                 self._retry_handle[pid] = asyncio.get_running_loop().call_later(

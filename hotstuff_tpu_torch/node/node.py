@@ -411,8 +411,9 @@ class Node:
         # evolution itself is re-proven at boot from the certified
         # schedule links persisted at each commit (below).
         chash = committee_hash(committee.committees()[0])
-        # one-time boot path: the node serves no traffic until new()
-        # returns, so a synchronous engine read cannot stall a round
+        # lint: allow(no-blocking-in-async) -- one-time boot path: the
+        # node serves no traffic until new() returns, so a synchronous
+        # engine read cannot stall a live round
         stored_hash = self.store.engine.get(COMMITTEE_HASH_KEY)
         fresh = os.environ.get("HOTSTUFF_FRESH_STATE", "") not in ("", "0")
         if fresh or (stored_hash is not None and stored_hash != chash):
@@ -428,6 +429,7 @@ class Node:
             self.store.close()
             shutil.rmtree(store_path, ignore_errors=True)
             self.store = Store(store_path)
+        # lint: allow(no-blocking-in-async) -- same one-time boot path
         self.store.engine.put(COMMITTEE_HASH_KEY, chash)
         signature_service = make_signing_service(secret.scheme, secret.secret)
         # Verified-successor acceptance: replay the certified schedule
@@ -441,6 +443,7 @@ class Node:
         from ..consensus.wire import decode_schedule_links
         from ..utils.codec import CodecError
 
+        # lint: allow(no-blocking-in-async) -- same one-time boot path
         raw_links = self.store.engine.get(SCHEDULE_LINKS_KEY)
         if raw_links:
             try:

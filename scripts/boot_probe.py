@@ -22,10 +22,17 @@ start to the first node's spawn by what the main thread was doing
 
 ``--phase split`` runs phase (e) (``node_phase``) once for the boot time
 (n1) opens its window after, then ``split_brain_phase`` ``--runs`` times,
-unsampled: each run prints the phase's own lines, its ``cut timeline``
-among them (nodes that timed out in the 10 s before the cut, the first
-timeout after it, the nodes whose first one ran after the heal, nodes
-dropping nothing), and a line with its verdict.
+unsampled.  Before each run it prints the live child processes
+(``live_children``).  Each run prints the phase's own lines, its ``cut
+timeline`` among them (the window, the node process's boot, the first
+commit and the last round committed before the open, nodes that timed
+out in the 10 s before the cut, the first timeout after it, the nodes
+whose first one ran after the heal), a failed run's too, then a line
+with its verdict; its node log is kept, gzipped, under ``--out``.  A run whose committee committed nothing before the
+window opened is inconclusive: the cut it was to test fell before any
+round did.  The last line counts the passes among the conclusive runs,
+the inconclusive runs, and over all runs the committee's stalls (no
+commit before the window, or fewer than 5 committed blocks a node).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import argparse
 import collections
 import gc
+import gzip
 import importlib.util
 import json
 import os
@@ -125,21 +133,45 @@ def _module(name: str, path: str):
     return mod
 
 
-def split_runs(smoke, card: str, runs: int) -> int:
-    """(e) once, then (n1) ``runs`` times; a failed check is a verdict."""
+def split_runs(smoke, card: str, runs: int, out: str) -> int:
+    """(e) once, then (n1) ``runs`` times; a failed check is a verdict,
+    a run with no commit before the window is inconclusive, and the
+    committee's stalls are counted over all runs.  Each run's node log
+    is kept as ``out/split<i>.nodes.log.gz``."""
     _launches, base = smoke.node_phase(card)
     print(f"(e) boot {base['boot_s']:.2f} s", flush=True)
-    passed = 0
+    passed = inconclusive = stalled = 0
     for i in range(runs):
+        print(f"split run {i}: live children before it {smoke.live_children()}", flush=True)
         t0 = time.perf_counter()
         try:
-            smoke.split_brain_phase(card, base)
+            timeline = smoke.split_brain_phase(card, base)[1]["split_brain"]["split_timeline"]
             verdict = "pass"
-            passed += 1
         except Exception as e:  # noqa: BLE001 — a failed run is a result here
-            verdict = f"FAIL ({e})"
-        print(f"split run {i}: {verdict} in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
-    print(f"split runs: {passed} of {runs} passed [{card}]")
+            timeline, verdict = getattr(e, "split_brain", None), f"FAIL ({e})"
+        wall = time.perf_counter() - t0
+        log = os.path.join(smoke.ROOT, "chiprun_out", "split-brain_phase", "nodes.log")
+        if os.path.exists(log):
+            os.makedirs(out, exist_ok=True)
+            with open(log, "rb") as f, gzip.open(os.path.join(out, f"split{i}.nodes.log.gz"), "wb") as g:
+                shutil.copyfileobj(f, g)
+        if timeline is None:
+            print(f"split run {i}: {verdict} in {wall:.1f} s, before its node process logged [{card}]",
+                  flush=True)
+            continue
+        first = timeline["first_commit_s"]
+        no_commit = first is None or first > timeline["window_s"][0]
+        if no_commit or "at least 5 committed blocks a node" in verdict:
+            stalled += 1
+        if no_commit:
+            verdict = f"INCONCLUSIVE, no commit before the window ({verdict})"
+            inconclusive += 1
+        elif verdict == "pass":
+            passed += 1
+        print(f"split run {i}: {verdict} in {wall:.1f} s [{card}]", flush=True)
+    print(f"split runs: {passed} of {runs - inconclusive} conclusive runs passed, {inconclusive} inconclusive; "
+          f"the committee stalled (no commit before the window, or under 5 committed blocks a node) in "
+          f"{stalled} of {runs} runs [{card}]")
     return 0
 
 
@@ -168,7 +200,7 @@ def main() -> int:
     print(f"card: {card}; tree {tree}; built in {time.perf_counter() - t0:.1f} s: "
           f"{[p.name for p in libs]}", flush=True)
     if args.phase == "split":
-        return split_runs(smoke, card, args.runs)
+        return split_runs(smoke, card, args.runs, args.out)
     popen = subprocess.Popen
     run = {"i": 0}
 
